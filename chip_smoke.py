@@ -1,0 +1,326 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) if it fails:
+  1. device  — a CUDA card is required (there is no CPU fallback); prints the
+               card's name and power limit; TF32 off for matmul and cuDNN.
+  2. build   — compiles the kernels from ``src/repro_torch/kernels/csrc``.
+  3. kernels — each kernel against its plain PyTorch version on the card, at
+               the JAX test shapes and at the serving path's shapes; takes
+               the device time (``torch.profiler``) of the kernel, of the
+               plain version and of one PyTorch library call of the same
+               function (a yardstick only: the port never calls it), and
+               the kernel's call time through its wrapper.
+  4. slice   — full-width qwen1.5-0.5b (bf16, random weights from seed 0):
+               ``make_prefill_step`` at B=4, S=1024, then 16 requests through
+               ``ContinuousBatcher(batch_slots=8, max_len=2048)`` in
+               shortest-predicted-first order (``launch.serve_workload``).
+               Both kernels' launch counters must grow over this main path
+               and split into equal prefills and equal decode rounds; two
+               requests' first-token logits must match the same requests
+               served alone (guard against cross-slot KV writes).
+  5. report  — the card's nvidia-smi line, one JSON line with every kernel's
+               launches, error, times and bound, then
+               ``{"ok": true, "device": {...}}`` as the last line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+TOL = {"float32": 2e-3, "bfloat16": 2e-2}        # tests/test_kernels.py's
+LSE_TOL = 2e-3                                    # f32 statistics either way
+GUARD_TOL = 2e-2                                  # relative to max |logit|
+
+# the JAX test cases of tests/test_kernels.py (B = 2)
+RMSNORM_CASES = [(1, 7, 64), (4, 33, 128), (2, 256, 512)]
+FLASH_CASES = [(128, 128, 4, 4, 64, True, 0), (128, 128, 8, 2, 64, True, 0),
+               (256, 256, 4, 1, 32, True, 64), (64, 192, 4, 2, 64, False, 0),
+               (96, 96, 2, 2, 128, True, 32)]
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def compare(name, got, want, tol) -> float:
+    """Fail unless |got - want| <= tol + tol*|want| everywhere; → max abs err."""
+    import torch
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) or bool((err > tol + tol * w.abs()).any()):
+        fail(f"{name}: kernel disagrees with its plain version "
+             f"(max abs err {float(err.max()):.3g}, tol {tol})")
+    return float(err.max())
+
+
+def bound(bytes_moved: float, flops: float, flop_rate: float):
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / flop_rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def device_phase():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this test needs a CUDA card")
+    import repro_torch  # noqa: F401  (fails outside the repository)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card
+
+
+def build_phase():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.library()
+    print(f"build: {time.perf_counter() - t0:.1f}s -> {lib.relative_to(ROOT)}")
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas {line.strip()}")
+
+
+def rmsnorm_phase(gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+    from repro_torch.launch.kernel_times import device_ms, wrapper_ms
+    worst = 0.0
+    for shape in RMSNORM_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            s = (1 + 0.1 * torch.randn(shape[-1:], generator=gen, device="cuda")).to(dt)
+            worst = max(worst, compare(f"rmsnorm {shape} {dt}", rmsnorm_cuda(x, s),
+                                       rmsnorm_plain(x, s), TOL[str(dt)[6:]]))
+    rows_by_path = {"prefill": 4 * 1024, "decode": 8}
+    timed = {}
+    for path, rows in rows_by_path.items():
+        d = 1024
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+        s = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
+        err = compare(f"rmsnorm {path} ({rows}, {d})", rmsnorm_cuda(x, s),
+                      rmsnorm_plain(x, s), TOL["bfloat16"])
+        worst = max(worst, err)
+        b_ms, b_by = bound((2 * rows * d + d) * 2, 4.0 * rows * d, PEAK_F32_FLOPS)
+        timed[path] = {
+            "shape": f"x ({rows}, {d}) bf16", "max_abs_err": err,
+            "ms": device_ms(lambda: rmsnorm_cuda(x, s)),
+            "wrapper_ms": wrapper_ms(lambda: rmsnorm_cuda(x, s)),
+            "plain_ms": device_ms(lambda: rmsnorm_plain(x, s)),
+            "library_ms": device_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"rmsnorm {path}: {json.dumps(timed[path])}")
+    return worst, timed
+
+
+def _flash_pair(q, k, v, causal, window, kv_len=None):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    po, plse = flash_attention_plain(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    return o, lse, po, plse
+
+
+def flash_phase(gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain)
+    from repro_torch.launch.kernel_times import device_ms, wrapper_ms
+    worst = 0.0
+    for (S, T, Hq, Hkv, D, causal, window) in FLASH_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(2, S, Hq, D, generator=gen, device="cuda").to(dt)
+            k = torch.randn(2, T, Hkv, D, generator=gen, device="cuda").to(dt)
+            v = torch.randn(2, T, Hkv, D, generator=gen, device="cuda").to(dt)
+            o, lse, po, plse = _flash_pair(q, k, v, causal, window)
+            name = f"flash {(S, T, Hq, Hkv, D, causal, window)} {dt}"
+            worst = max(worst, compare(name + " O", o, po, TOL[str(dt)[6:]]),
+                        compare(name + " lse", lse, plse, LSE_TOL))
+
+    bf16 = torch.bfloat16
+    timed = {}
+    # prefill: B=4, S=T=1024, 16 heads of 64, causal
+    B, S, H, D = 4, 1024, 16, 64
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(bf16)
+               for _ in range(3))
+    o, lse, po, plse = _flash_pair(q, k, v, True, 0)
+    err = max(compare("flash prefill O", o, po, TOL["bfloat16"]),
+              compare("flash prefill lse", lse, plse, LSE_TOL))
+    worst = max(worst, err)
+    pairs = B * H * S * (S + 1) // 2
+    b_ms, b_by = bound(4 * B * S * H * D * 2 + B * H * S * 4, 4.0 * D * pairs,
+                       PEAK_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    timed["prefill"] = {
+        "shape": f"B={B} S=T={S} H={H} D={D} causal bf16", "max_abs_err": err,
+        "ms": device_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=0)),
+        "wrapper_ms": wrapper_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
+                                                              window=0)),
+        "plain_ms": device_ms(lambda: flash_attention_plain(q, k, v, causal=True,
+                                                            window=0), iters=5),
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    print(f"flash_fwd prefill: {json.dumps(timed['prefill'])}")
+
+    # decode: B=8, S=1 against T=2048 cache slots, per-row kv_len 1..2048
+    B, T = 8, 2048
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(bf16)
+    k, v = (torch.randn(B, T, H, D, generator=gen, device="cuda").to(bf16)
+            for _ in range(2))
+    kv_len = torch.linspace(1, T, B, device="cuda").round().to(torch.int32)
+    o, lse, po, plse = _flash_pair(q, k, v, False, 0, kv_len)
+    err = max(compare("flash decode O", o, po, TOL["bfloat16"]),
+              compare("flash decode lse", lse, plse, LSE_TOL))
+    worst = max(worst, err)
+    valid = int(kv_len.sum())
+    b_ms, b_by = bound(2 * B * H * D * 2 + 2 * valid * H * D * 2 + B * H * 4 + B * 4,
+                       4.0 * H * D * valid, PEAK_BF16_FLOPS)
+    mask = (torch.arange(T, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    timed["decode"] = {
+        "shape": f"B={B} S=1 T={T} H={H} D={D} kv_len 1..{T} bf16", "max_abs_err": err,
+        "ms": device_ms(lambda: flash_attention_cuda(q, k, v, causal=False, window=0,
+                                                     kv_len=kv_len)),
+        "wrapper_ms": wrapper_ms(lambda: flash_attention_cuda(
+            q, k, v, causal=False, window=0, kv_len=kv_len)),
+        "plain_ms": device_ms(lambda: flash_attention_plain(q, k, v, causal=False,
+                                                            window=0, kv_len=kv_len)),
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    print(f"flash_fwd decode: {json.dumps(timed['decode'])}")
+    return worst, timed
+
+
+def slice_phase():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_workload
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve import ContinuousBatcher, Request, make_prefill_step
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    print(f"model: {cfg.name} full width, {model.n_params() / 1e6:.1f}M params, "
+          f"{cfg.param_dtype}")
+    B, S = 4, 1024
+    step = make_prefill_step(model, ShapeConfig("prefill_1k", S, B, "prefill"))
+    tokens = torch.randint(2, cfg.vocab, (B, S), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+
+    # ---- the main path: counts from 0, read right after ----
+    ops.reset_launch_counts()
+    step({"params": params, "tokens": tokens})                 # warm-up
+    torch.cuda.synchronize()
+    per_prefill = ops.launch_counts()
+    t0 = time.perf_counter()
+    nxt, cache = step({"params": params, "tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    served = serve_workload.run(model, params, smoke=False, seed=0)
+    launches = ops.launch_counts()
+    # ---- end of the main path ----
+
+    if nxt.shape != (B,) or not all(bool(torch.isfinite(c).all())
+                                    for d in cache.values() for c in d.values()):
+        fail("prefill step: wrong shape or non-finite cache")
+    reqs, batcher = served["requests"], served["batcher"]
+    if served["served"] != len(reqs) or not all(r.tokens_out for r in reqs):
+        fail(f"served {served['served']}/{len(reqs)} requests")
+    if not batcher.all_logits_finite():
+        fail("a decode round produced non-finite logits")
+    # launches of one decode round, from the main path's own counts: two
+    # prefill steps, one prefill per admission, then the engine's rounds
+    prefills, rounds = 2 + batcher.prefills, batcher.steps
+    per_round = {}
+    for name, n in launches.items():
+        decode_launches = n - per_prefill[name] * prefills
+        if rounds <= 0 or decode_launches <= 0 or decode_launches % rounds:
+            fail(f"kernel {name}: {n} launches do not split into {prefills} prefills "
+                 f"of {per_prefill[name]} and {rounds} equal decode rounds")
+        per_round[name] = decode_launches // rounds
+    tok_s = served["tokens"] / served["seconds"]
+    print(f"prefill step B={B} S={S}: {prefill_ms:.3f} ms")
+    print(f"served {served['served']} requests, {served['tokens']} tokens in "
+          f"{served['seconds']:.3f} s: {tok_s:.1f} generated tokens/s "
+          f"({served['engine_steps']} engine rounds, prefills included)")
+
+    # guard against cross-slot writes: first-token logits alone vs batched
+    for r in (served["order"][1], served["order"][-1]):   # first and last wave
+        solo = ContinuousBatcher(model, params, batch_slots=1, max_len=2048)
+        alone = Request(r.req_id, list(r.prompt), max_new_tokens=1)
+        solo.submit(alone)
+        solo.drain()
+        a, b = r.first_logits, alone.first_logits
+        rel = float((a - b).abs().max() / b.abs().max())
+        print(f"cross-slot guard {r.req_id} (prompt {len(r.prompt)}): "
+              f"rel err {rel:.3g}")
+        if rel > GUARD_TOL:
+            fail(f"{r.req_id}: batched first-token logits differ from solo ({rel:.3g})")
+
+    print(f"launches: main path {launches} over {prefills} prefills and {rounds} "
+          f"decode rounds; per prefill {per_prefill}, per decode round {per_round}")
+    return launches, per_prefill, per_round
+
+
+def main() -> int:
+    card = device_phase()
+    import torch
+    build_phase()
+    gen = torch.Generator("cuda").manual_seed(0)
+    rms_err, rms_t = rmsnorm_phase(gen)
+    flash_err, flash_t = flash_phase(gen)
+    launches, per_prefill, per_round = slice_phase()
+
+    def entry(name, source, replaces, err, timed):
+        top = timed["prefill"]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": err,
+                "ms": top["ms"], "plain_ms": top["plain_ms"],
+                "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                "library_ms": top["library_ms"], "wrapper_ms": top["wrapper_ms"],
+                "shape": top["shape"], "decode": timed["decode"],
+                "launches_per_prefill": per_prefill[name],
+                "launches_per_decode_round": per_round[name]}
+
+    kernels = [
+        entry("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
+              "src/repro/kernels/flash_attention.py:28", flash_err, flash_t),
+        entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm.py:17", rms_err, rms_t),
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,8 @@
+# Hand-written Hopper kernels for the serving path, each beside its plain
+# PyTorch version:
+#   flash_attention — causal / sliding-window / kv_len / GQA attention
+#                     forward (csrc/flash_fwd.cu), for prefill and decode
+#   rmsnorm         — fused single-pass norm (csrc/rmsnorm.cu)
+# ops.py dispatches by device (CPU → plain, CUDA → kernel) and counts
+# launches; build.py compiles csrc/ with nvcc at first use.
+from . import ops  # noqa: F401

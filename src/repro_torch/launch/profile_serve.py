@@ -1,0 +1,117 @@
+"""Where the serving time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+
+Serves ``serve_workload``'s full burst (full-width qwen1.5-0.5b, bf16,
+random weights from seed 0, 8 slots) once to warm up, once unprofiled, then
+again under ``torch.profiler``. Prints the unprofiled wall time; for the
+profiled run the wall time split into admission prefills and decode rounds
+(host clock, each call ending in a synchronize), the device's busy time
+(sum of kernel times on the one stream) and device time by kernel family;
+the idle share of the unprofiled run (its wall time against the profiled
+run's busy time: the profiler slows the host, not the kernels); and the
+kernels launched by one decode round. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+
+from ..configs import get_config
+from ..models import build_model
+from . import serve_workload
+
+FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
+            ("rmsnorm", ("rmsnorm_kernel",)),
+            ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas", "splitk")),
+            ("index/copy", ("index", "copy", "scatter", "gather", "cat")),
+            ("elementwise", ("elementwise", "vectorized", "reduce")))
+
+
+def family(kernel_name: str) -> str:
+    low = kernel_name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+class _Timed:
+    """Wraps a model method: host wall time of each call, ending in a sync."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def main(seed: int = 0) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(get_config("qwen1.5-0.5b"), "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(seed))
+    serve_workload.run(model, params, smoke=False, seed=seed)        # warm-up
+    plain = serve_workload.run(model, params, smoke=False, seed=seed)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # kernels of one decode round at 8 slots
+    cache = model.init_cache(8, 2048)
+    tok = torch.zeros(8, dtype=torch.int64, device="cuda")
+    with torch.profiler.profile(activities=acts) as prof:
+        model.decode_step(params, cache, tok, 100)
+        torch.cuda.synchronize()
+    per_round = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                    for e in prof.events())
+
+    prefill, decode = _Timed(model.prefill_into), _Timed(model.decode_step)
+    model.prefill_into, model.decode_step = prefill, decode
+    with torch.profiler.profile(activities=acts) as prof:
+        out = serve_workload.run(model, params, smoke=False, seed=seed)
+    busy_us, by_family, n_kernels = 0.0, defaultdict(float), 0
+    by_kernel = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            n_kernels += 1
+            by_family[family(e.name)] += us
+            by_kernel[e.name[:90]] += us
+    wall = out["seconds"]
+    report = {
+        "device": torch.cuda.get_device_name(0),
+        "unprofiled_wall_s": plain["seconds"],
+        "unprofiled_tok_per_s": plain["tokens"] / plain["seconds"],
+        "unprofiled_device_idle_share": 1.0 - busy_us / 1e6 / plain["seconds"],
+        "kernels_per_decode_round": per_round,
+        "wall_s": wall, "tokens": out["tokens"], "tok_per_s": out["tokens"] / wall,
+        "prefill_calls": prefill.calls, "prefill_s": prefill.seconds,
+        "decode_rounds": decode.calls, "decode_s": decode.seconds,
+        "decode_ms_per_round": 1e3 * decode.seconds / max(decode.calls, 1),
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "kernels": n_kernels,
+        "device_s_by_family": {k: v / 1e6 for k, v in sorted(
+            by_family.items(), key=lambda kv: -kv[1])},
+        "top_kernels_s": {k: v / 1e6 for k, v in sorted(
+            by_kernel.items(), key=lambda kv: -kv[1])[:8]},
+    }
+    print(json.dumps(report, indent=1))
+    if busy_us == 0:
+        raise SystemExit("the profiler recorded no device time")
+    return report
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    main(ap.parse_args().seed)

@@ -1,0 +1,189 @@
+"""Shared model primitives (PyTorch port of ``repro.models.layers``).
+
+Parameters are described by a *schema*: a nested dict whose leaves are
+``P(shape, axes, init)``. The same schema yields
+  * ``init_params``  — materialised tensors, from an explicit ``torch.Generator``,
+  * ``param_specs``  — tensors on the ``meta`` device (no allocation).
+Parameter trees are nested dicts of tensors with ``repro``'s key paths, so
+the two frameworks' trees correspond leaf by leaf.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class P:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"         # normal | zeros | ones | ssm_a | dt_bias
+    scale: float = 1.0
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+Schema = Dict[str, Any]          # nested dict of P
+
+
+def stack_schema(schema: Schema, n: int, axis_name: Optional[str] = "layers") -> Schema:
+    """Prepend a stacking dimension (the layer loop indexes it)."""
+    out: Schema = {}
+    for k, v in schema.items():
+        if isinstance(v, dict):
+            out[k] = stack_schema(v, n, axis_name)
+        else:
+            out[k] = P((n, *v.shape), (axis_name, *v.axes), v.init, v.scale)
+    return out
+
+
+def _init_leaf(p: P, gen: torch.Generator, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init != "normal":       # ssm_a, dt_bias
+        raise NotImplementedError(f"init {p.init!r} comes with the SSM/hybrid slice")
+    # truncated-normal fan-in init: the distribution of repro's init (its
+    # threefry values cannot be reproduced here)
+    fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+    std = p.scale / math.sqrt(max(fan_in, 1))
+    u = torch.empty(p.shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(u, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (u * std).to(dtype)
+
+
+def init_params(schema: Schema, gen: torch.Generator, dtype=torch.bfloat16,
+                device=None) -> Dict[str, Any]:
+    """Materialise the schema on ``device`` (default: the generator's)."""
+    device = torch.device(device) if device is not None else gen.device
+    leaves = {path: _init_leaf(p, gen, dtype, device)
+              for path, p in _flatten(schema).items()}
+    return _unflatten(leaves)
+
+
+def param_specs(schema: Schema, dtype=torch.bfloat16) -> Dict[str, Any]:
+    return _unflatten({path: torch.empty(p.shape, dtype=dtype, device="meta")
+                       for path, p in _flatten(schema).items()})
+
+
+def _flatten(schema: Schema, prefix: str = "") -> Dict[str, P]:
+    out: Dict[str, P] = {}
+    for k in sorted(schema):
+        v = schema[k]
+        path = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _unflatten(leaves: Dict[str, Any]) -> Dict[str, Any]:
+    root: Dict[str, Any] = {}
+    for path, v in leaves.items():
+        parts = path.strip("/").split("/")
+        d = root
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+    return root
+
+
+def count_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return tree.numel()
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``repro.models.layers.rmsnorm``: casts to x's dtype *before* the scale
+    multiply. The model calls the fused kernel (``kernels.ops.rmsnorm``),
+    which multiplies in f32 and casts once; in bf16 the two round apart."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, fraction: float, theta: float,
+                     device=None) -> torch.Tensor:
+    rot = int(head_dim * fraction) // 2 * 2
+    return 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32,
+                                         device=device) / rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, fraction: float = 1.0,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (S,). Rotates the first
+    ``fraction`` of each head dim (chatglm's 2d RoPE = fraction 0.5). Angles
+    are f32; each rotated half is cast back to x's dtype."""
+    d = x.shape[-1]
+    rot = int(d * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    freqs = rope_frequencies(d, fraction, theta, x.device)   # (rot/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs              # (B,S,rot/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention projections (the attention itself is kernels.ops.flash_attention_fwd)
+# ---------------------------------------------------------------------------
+def attention_schema(d_model: int, n_heads: int, n_kv_heads: int,
+                     head_dim: int, qkv_bias: bool) -> Schema:
+    s: Schema = {
+        "wq": P((d_model, n_heads * head_dim), ("embed", "heads")),
+        "wk": P((d_model, n_kv_heads * head_dim), ("embed", "kv_heads")),
+        "wv": P((d_model, n_kv_heads * head_dim), ("embed", "kv_heads")),
+        "wo": P((n_heads * head_dim, d_model), ("heads", "embed")),
+    }
+    if qkv_bias:
+        s["bq"] = P((n_heads * head_dim,), ("heads",), "zeros")
+        s["bk"] = P((n_kv_heads * head_dim,), ("kv_heads",), "zeros")
+        s["bv"] = P((n_kv_heads * head_dim,), ("kv_heads",), "zeros")
+    return s
+
+
+def qkv_project(x: torch.Tensor, p: Dict[str, torch.Tensor], n_heads: int,
+                n_kv_heads: int, head_dim: int,
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, n_heads, head_dim),
+            k.reshape(B, S, n_kv_heads, head_dim),
+            v.reshape(B, S, n_kv_heads, head_dim))
+
+
+def mlp_schema(d_model: int, d_ff: int) -> Schema:
+    return {
+        "w_gate": P((d_model, d_ff), ("embed", "ff")),
+        "w_up": P((d_model, d_ff), ("embed", "ff")),
+        "w_down": P((d_ff, d_model), ("ff", "embed")),
+    }

@@ -1,0 +1,91 @@
+"""Model API (port of ``repro.models.model``), dense family.
+
+``Model`` is a stateless ``nn.Module``: parameters are nested dicts of
+tensors passed to each call, as in ``repro``, so the public functions keep
+``repro``'s signatures (``init``, ``param_specs``, ``logits``, ``loss``,
+``init_cache``, ``prefill``, ``decode_step``). The model's device is the
+one its tensors are made on: ``cuda`` unless the caller passes another.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from .. import DEFAULT_DEVICE
+from ..configs.base import ModelConfig
+from . import transformer
+from .layers import Schema, count_params, init_params, param_specs
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None) -> None:
+        super().__init__()
+        transformer.require_dense(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device if device is not None else DEFAULT_DEVICE)
+        self.param_dtype = _DTYPES[cfg.param_dtype]
+        self.schema: Schema = transformer.lm_schema(cfg)
+
+    # ---------------- params ----------------
+    def init(self, rng: torch.Generator) -> Dict[str, Any]:
+        """Truncated-normal fan-in init from ``rng`` (a generator on the
+        model's device), in the config's param dtype."""
+        return init_params(self.schema, rng, self.param_dtype, self.device)
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The parameter tree as tensors on the ``meta`` device."""
+        return param_specs(self.schema, self.param_dtype)
+
+    def n_params(self) -> int:
+        return count_params(self.param_specs())
+
+    # ---------------- forward ----------------
+    def logits(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+               remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+        return transformer.forward(self.cfg, params, batch["tokens"], remat=remat)
+
+    forward = logits
+
+    def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+             remat: str = "none") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        logits, aux = self.logits(params, batch, remat)
+        lg = logits.float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, batch["labels"][..., None].long())[..., 0]
+        ce = (lse - gold).mean()
+        return ce, {"ce": ce, "aux": aux,
+                    "ppl_proxy": torch.exp(torch.clamp(ce, 0, 20.0))}
+
+    # ---------------- serving ----------------
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
+        return transformer.init_cache(self.cfg, batch, max_len,
+                                      self.param_dtype, self.device)
+
+    def decode_step(self, params: Dict[str, Any], cache: Dict[str, Any],
+                    token: torch.Tensor, pos: Union[int, torch.Tensor],
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Updates ``cache`` in place; see ``transformer.decode_step``."""
+        return transformer.decode_step(self.cfg, params, cache, token, pos)
+
+    def prefill(self, params: Dict[str, Any], tokens: torch.Tensor,
+                max_len: int, extra: Optional[Dict[str, torch.Tensor]] = None,
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        if extra:
+            raise NotImplementedError("prefill inputs beyond tokens come with "
+                                      "the VLM/audio slice")
+        return transformer.prefill(self.cfg, params, tokens, max_len)
+
+    def prefill_into(self, params: Dict[str, Any], tokens: torch.Tensor,
+                     cache: Dict[str, Any], row: int = 0) -> torch.Tensor:
+        """Prefill into rows ``row ..`` of an existing cache, in place; →
+        last-position logits. See ``transformer.prefill_into``."""
+        return transformer.prefill_into(self.cfg, params, tokens, cache, row)
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    return Model(cfg, device)

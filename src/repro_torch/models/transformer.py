@@ -1,0 +1,310 @@
+"""Decoder-only transformer stack, dense family (port of
+``repro.models.transformer``).
+
+Parameters keep ``repro``'s scan-stacked layout: every block leaf carries a
+leading (groups, pattern_len) stack, and a Python loop over (group, pattern
+index) takes the place of ``lax.scan``. Architectures with a repeating
+layer pattern (gemma3's local:global) unroll the pattern inside each group.
+
+KV caches are per-kind: "full" layers cache all positions; "window" and
+"local" (sliding-window) layers keep a ring buffer of window slots. Norms
+and attention go through ``kernels.ops`` (hand-written kernels on CUDA,
+their plain versions on CPU); the large products stay ``torch.matmul``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple, Union
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from .layers import (
+    P,
+    Schema,
+    apply_rope,
+    attention_schema,
+    mlp_schema,
+    qkv_project,
+    stack_schema,
+    swiglu,
+)
+
+# the slice of the port that brings each family not ported yet
+LATER_SLICE = {
+    "moe": "the MoE slice (models/moe.py, kernel _gmm_kernel)",
+    "ssm": "the SSM/hybrid slice (models/mamba2.py, kernel _ssd_kernel)",
+    "hybrid": "the SSM/hybrid slice (models/hybrid.py, kernel _ssd_kernel)",
+    "vlm": "the VLM/audio slice (patch prefix in embed_inputs)",
+    "audio": "the VLM/audio slice (models/encdec.py)",
+}
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
+            f"with {LATER_SLICE.get(cfg.family, 'a later slice')}")
+
+
+# ---------------------------------------------------------------------------
+# layer pattern
+# ---------------------------------------------------------------------------
+def layer_pattern(cfg: ModelConfig) -> List[str]:
+    if cfg.local_global > 0:
+        return ["local"] * cfg.local_global + ["full"]
+    if cfg.window > 0:
+        return ["window"]
+    return ["full"]
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    pat = layer_pattern(cfg)
+    assert cfg.n_layers % len(pat) == 0, (cfg.n_layers, pat)
+    return cfg.n_layers // len(pat)
+
+
+def _window_of(cfg: ModelConfig, kind: str) -> int:
+    if kind == "local":
+        return cfg.local_window
+    if kind == "window":
+        return cfg.window
+    return 0
+
+
+def _kind_slots(pat: List[str]) -> List[Tuple[str, int]]:
+    """(kind, index among the pattern's layers of that kind) per position."""
+    seen: Dict[str, int] = {}
+    out = []
+    for k in pat:
+        out.append((k, seen.get(k, 0)))
+        seen[k] = seen.get(k, 0) + 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# schema
+# ---------------------------------------------------------------------------
+def block_schema(cfg: ModelConfig) -> Schema:
+    require_dense(cfg)
+    return {
+        "ln1": P((cfg.d_model,), ("embed",), "ones"),
+        "attn": attention_schema(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim_, cfg.qkv_bias),
+        "ln2": P((cfg.d_model,), ("embed",), "ones"),
+        "ffn": mlp_schema(cfg.d_model, cfg.d_ff),
+    }
+
+
+def lm_schema(cfg: ModelConfig) -> Schema:
+    pat = layer_pattern(cfg)
+    g = n_groups(cfg)
+    blocks = stack_schema(stack_schema(block_schema(cfg), len(pat), "pattern"),
+                          g, "layers")
+    s: Schema = {
+        "embed": {"table": P((cfg.vocab, cfg.d_model), ("vocab", "embed"))},
+        "blocks": blocks,
+        "final_norm": P((cfg.d_model,), ("embed",), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = P((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    return s
+
+
+def _layer(tree: Dict[str, Any], gi: int, i: int) -> Dict[str, Any]:
+    """Views of one layer's params in the (groups, pattern, ...) stack."""
+    return {k: _layer(v, gi, i) if isinstance(v, dict) else v[gi, i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill): full-sequence causal
+# ---------------------------------------------------------------------------
+def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+           positions: torch.Tensor, kind: str,
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ (block output, roped K, V) for a full causal sequence."""
+    h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = qkv_project(h, p["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+    q = apply_rope(q, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+    k = apply_rope(k, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+    o, _ = ops.flash_attention_fwd(q, k, v, causal=True,
+                                   window=_window_of(cfg, kind))
+    B, S = x.shape[:2]
+    x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+    h = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    y = swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"])
+    return x + y, k, v
+
+
+def embed_inputs(cfg: ModelConfig, params: Dict[str, Any],
+                 tokens: torch.Tensor) -> torch.Tensor:
+    require_dense(cfg)
+    return params["embed"]["table"][tokens]
+
+
+def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (logits (B, S, V), aux_loss). ``remat`` decides what a backward pass
+    would recompute; this slice serves, so only "none" exists yet."""
+    if remat != "none":
+        raise NotImplementedError(f"remat={remat!r} comes with the training slice")
+    x = embed_inputs(cfg, params, tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    pat = layer_pattern(cfg)
+    for gi in range(n_groups(cfg)):
+        for i, kind in enumerate(pat):
+            x, _, _ = _block(cfg, _layer(params["blocks"], gi, i), x, positions, kind)
+    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x), torch.zeros((), dtype=torch.float32,
+                                                device=x.device)
+
+
+def unembed(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].T
+    return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# KV cache + decode
+# ---------------------------------------------------------------------------
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
+    """Ring-buffered window slots for local layers; full slots otherwise."""
+    pat = layer_pattern(cfg)
+    g = n_groups(cfg)
+    hd, hkv = cfg.head_dim_, cfg.n_kv_heads
+    shapes: Dict[str, Any] = {}
+    for kind in ("full", "window", "local"):
+        cnt = sum(1 for k in pat if k == kind)
+        if cnt == 0:
+            continue
+        w = _window_of(cfg, kind)
+        slots = max_len if w == 0 else min(w, max_len)
+        shapes[kind] = {
+            "k": (g, cnt, batch, slots, hkv, hd),
+            "v": (g, cnt, batch, slots, hkv, hd),
+        }
+    return shapes
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    return {kind: {name: torch.zeros(shape, dtype=dtype, device=device)
+                   for name, shape in d.items()}
+            for kind, d in cache_shapes(cfg, batch, max_len).items()}
+
+
+def decode_step(cfg: ModelConfig, params: Dict[str, Any],
+                cache: Dict[str, Any], token: torch.Tensor,
+                pos: Union[int, torch.Tensor],
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step. token: (B,) int; pos: an int, or a (B,) int tensor of
+    per-row positions (number of tokens already in that row's cache).
+    Returns (logits (B, V), cache).
+
+    The cache is updated **in place** and returned: row b writes its new K/V
+    at slot ``pos[b]`` (``pos[b] % slots`` for window layers; a full layer
+    clamps to its last slot, as ``dynamic_update_slice`` does in ``repro``)
+    and attends to ``min(pos[b] + 1, slots)`` slots at its own RoPE
+    position. With all positions equal this is ``repro``'s scalar-pos step.
+    """
+    B = token.shape[0]
+    dev = token.device
+    pos_t = torch.as_tensor(pos, dtype=torch.int64)
+    if pos_t.dim() == 0:
+        pos_t = pos_t.expand(B)
+    if pos_t.shape != (B,):
+        raise ValueError(f"pos: want an int or shape ({B},), got {tuple(pos_t.shape)}")
+    if pos_t.device.type == "cpu" and bool((pos_t < 0).any()):
+        raise ValueError("pos: positions must be >= 0")
+    pos_t = pos_t.to(dev)
+    rows = torch.arange(B, device=dev)
+    write: Dict[str, torch.Tensor] = {}
+    kv_len: Dict[str, torch.Tensor] = {}
+    for knd, d in cache.items():
+        slots = d["k"].shape[3]
+        w = _window_of(cfg, knd)
+        write[knd] = pos_t % slots if w > 0 else pos_t.clamp(max=slots - 1)
+        kv_len[knd] = (pos_t + 1).clamp(max=slots).to(torch.int32)
+
+    x = params["embed"]["table"][token][:, None, :]            # (B, 1, d)
+    positions = pos_t[:, None]
+    pat = layer_pattern(cfg)
+    kind_of = _kind_slots(pat)
+    for gi in range(n_groups(cfg)):
+        for i in range(len(pat)):
+            p = _layer(params["blocks"], gi, i)
+            knd, slot = kind_of[i]
+            hh = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = qkv_project(hh, p["attn"], cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim_)
+            q = apply_rope(q, positions, fraction=cfg.rope_fraction,
+                           theta=cfg.rope_theta)
+            k = apply_rope(k, positions, fraction=cfg.rope_fraction,
+                           theta=cfg.rope_theta)
+            kc = cache[knd]["k"][gi, slot]                     # (B, slots, hkv, hd)
+            vc = cache[knd]["v"][gi, slot]
+            kc[rows, write[knd]] = k[:, 0]
+            vc[rows, write[knd]] = v[:, 0]
+            o, _ = ops.flash_attention_fwd(q, kc, vc, causal=False, window=0,
+                                           kv_len=kv_len[knd])
+            x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+            hh = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
+            x = x + swiglu(hh, p["ffn"]["w_gate"], p["ffn"]["w_up"],
+                           p["ffn"]["w_down"])
+    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x)[:, 0, :], cache
+
+
+def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            max_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the full prompt through the causal kernel path, build a cache of
+    size max_len, return (last-position logits (B, V), cache)."""
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens does not fit max_len={max_len}")
+    table = params["embed"]["table"]
+    cache = init_cache(cfg, B, max_len, table.dtype, table.device)
+    return prefill_into(cfg, params, tokens, cache, 0), cache
+
+
+def prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
+                 cache: Dict[str, Any], row: int = 0) -> torch.Tensor:
+    """Prefill ``tokens`` (B, S) and write their K/V **in place** into rows
+    ``row .. row + B - 1`` of ``cache``; the slots of those rows past the
+    prompt are zeroed, so a reused row keeps nothing of its last request.
+    Returns the last-position logits (B, V)."""
+    x = embed_inputs(cfg, params, tokens)
+    B, S, _ = x.shape
+    rows = slice(row, row + B)
+    for kind, d in cache.items():
+        for c in d.values():                        # (g, cnt, batch, slots, hkv, hd)
+            if _window_of(cfg, kind) == 0 and S > c.shape[3]:
+                raise ValueError(f"prompt of {S} tokens does not fit "
+                                 f"{c.shape[3]} cache slots")
+            c[:, :, rows, S:].zero_()
+    positions = torch.arange(S, device=x.device)[None, :]
+    pat = layer_pattern(cfg)
+    kind_of = _kind_slots(pat)
+    for gi in range(n_groups(cfg)):
+        for i, kind in enumerate(pat):
+            x, k, v = _block(cfg, _layer(params["blocks"], gi, i), x, positions, kind)
+            _, slot = kind_of[i]
+            _to_cache_slots(cache[kind]["k"][gi, slot, rows], k)
+            _to_cache_slots(cache[kind]["v"][gi, slot, rows], v)
+    # the norm is row-wise: normalising the last position only is the same
+    x = ops.rmsnorm(x[:, -1:, :].contiguous(), params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x)[:, 0, :]
+
+
+def _to_cache_slots(c: torch.Tensor, k: torch.Tensor) -> None:
+    """Lay prefill K/V k (B, S, hkv, hd) into cache rows c (B, slots, hkv, hd)
+    in place. A prompt longer than a window layer's ring keeps its last
+    ``slots`` tokens, each at its ring position ``pos % slots``."""
+    S, slots = k.shape[1], c.shape[1]
+    if S <= slots:
+        c[:, :S] = k
+    else:
+        c.copy_(torch.roll(k[:, -slots:], S % slots, dims=1))

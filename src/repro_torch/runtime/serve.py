@@ -1,0 +1,154 @@
+"""Serving runtime (port of ``repro.runtime.serve``): step factories and
+continuous batching.
+
+One GPU, so the sharding arguments of ``repro``'s factories are dropped:
+each factory returns its step function only.
+
+``ContinuousBatcher`` keeps a position per slot. A request is admitted by
+one causal prefill of ``prompt[:-1]`` into its slot's cache row (the token
+sequence ``repro``'s teacher-forced feed gives), and every engine round
+decodes all active slots in one ``decode_step`` with per-slot positions.
+``repro``'s batcher instead decodes every row at one slot's position and
+feeds token 0 to the other rows, which overwrites their KV entries; this
+one serves each request as if it were alone.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ShapeConfig
+from ..models.model import Model
+
+
+def make_serve_step(model: Model, shape: ShapeConfig) -> Callable:
+    """→ serve_step(params, cache, token, pos) -> (next_token (B,), cache):
+    one greedy decode step against a ``shape.seq_len`` cache."""
+
+    def serve_step(params, cache, token, pos):
+        logits, cache = model.decode_step(params, cache, token, pos)
+        return logits.argmax(-1).to(torch.int32), cache
+
+    return serve_step
+
+
+def make_prefill_step(model: Model, shape: ShapeConfig) -> Callable:
+    """→ prefill_step({"params", "tokens"}) -> (next_token (B,), cache) with a
+    cache of ``shape.seq_len`` slots."""
+
+    def prefill_step(args: Dict[str, Any]):
+        logits, cache = model.prefill(args["params"], args["tokens"], shape.seq_len)
+        return logits.argmax(-1).to(torch.int32), cache
+
+    return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# continuous batching
+# ---------------------------------------------------------------------------
+@dataclass
+class Request:
+    req_id: str
+    prompt: List[int]
+    max_new_tokens: int = 32
+    submitted_at: float = 0.0
+    tokens_out: List[int] = field(default_factory=list)
+    done: bool = False
+    # logits (V,) of the first generated token, kept for checks
+    first_logits: Optional[torch.Tensor] = None
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over a fixed decode batch.
+
+    Slots hold independent requests at their own positions; each engine
+    round decodes one token for every active slot in one batched step.
+    Finished slots are refilled from the admission queue between rounds
+    (the queue order is the caller's, e.g. shortest-predicted-first under
+    the Lotaru predictor). The KV cache is updated in place.
+    """
+
+    def __init__(self, model: Model, params: Any, batch_slots: int,
+                 max_len: int, eos_token: int = 2) -> None:
+        self.model = model
+        self.params = params
+        self.slots: List[Optional[Request]] = [None] * batch_slots
+        self.max_len = max_len
+        self.eos = eos_token
+        self.cache = model.init_cache(batch_slots, max_len)
+        self.pos = np.zeros(batch_slots, np.int64)      # per-slot lengths
+        self.queue: List[Request] = []
+        self.steps = 0                                  # decode rounds
+        self.prefills = 0                               # admission prefills
+        self._finite = torch.ones((), dtype=torch.bool, device=model.device)
+
+    def submit(self, req: Request) -> None:
+        if not 1 <= len(req.prompt) < self.max_len:
+            raise ValueError(f"{req.req_id}: prompt of {len(req.prompt)} tokens; "
+                             f"want 1..{self.max_len - 1}")
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot is None and self.queue:
+                req = self.queue.pop(0)
+                self.slots[i] = req
+                self._load_slot(i, req.prompt[:-1])
+                self.pos[i] = len(req.prompt) - 1
+
+    def _load_slot(self, slot: int, prefix: List[int]) -> None:
+        """Prefill ``prefix``'s K/V into the slot's cache row in place; the
+        rest of the row is cleared."""
+        if not prefix:
+            for d in self.cache.values():
+                for c in d.values():                # (g, cnt, B, slots, hkv, hd)
+                    c[:, :, slot].zero_()
+            return
+        tokens = torch.tensor([prefix], dtype=torch.int64, device=self.model.device)
+        self.model.prefill_into(self.params, tokens, self.cache, slot)
+        self.prefills += 1
+
+    def step(self) -> int:
+        """One engine round: admit, decode one token per active slot."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        tok = np.zeros(len(self.slots), np.int64)     # idle rows: token 0 at
+        for i in active:                              # pos 0 of their own row
+            req = self.slots[i]
+            tok[i] = req.tokens_out[-1] if req.tokens_out else req.prompt[-1]
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cache, torch.from_numpy(tok).to(self.model.device),
+            torch.from_numpy(self.pos.copy()))
+        self._finite &= torch.isfinite(logits).all()
+        nxt = logits.argmax(-1).tolist()
+        self.steps += 1
+        for i in active:
+            req = self.slots[i]
+            if req.first_logits is None:
+                req.first_logits = logits[i].float().clone()
+            req.tokens_out.append(nxt[i])
+            self.pos[i] += 1
+            if (nxt[i] == self.eos or len(req.tokens_out) >= req.max_new_tokens
+                    or self.pos[i] >= self.max_len - 1):
+                req.done = True
+                self.slots[i] = None
+                self.pos[i] = 0      # the row is cleared when the slot is reused
+        return len(active)
+
+    def all_logits_finite(self) -> bool:
+        """Whether every logit of every round so far was finite."""
+        return bool(self._finite)
+
+    def drain(self, max_rounds: int = 10_000) -> None:
+        rounds = 0
+        while (self.queue or any(s is not None for s in self.slots)):
+            if self.step() == 0 and not self.queue:
+                break
+            rounds += 1
+            if rounds > max_rounds:
+                raise RuntimeError("batcher did not drain")
