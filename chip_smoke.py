@@ -8,26 +8,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                card's name and power limit; TF32 off for matmul and cuDNN.
   2. build   — compiles the kernels from ``src/repro_torch/kernels/csrc``.
   3. kernels — each kernel against its plain PyTorch version on the card, at
-               the JAX test shapes and at the serving path's shapes; takes
+               the JAX test shapes and at the main paths' shapes; takes
                the device time (``torch.profiler``) of the kernel, of the
                plain version and of one PyTorch library call of the same
                function (a yardstick only: the port never calls it), and
-               the kernel's call time through its wrapper.
-  4. slice   — full-width qwen1.5-0.5b (bf16, random weights from seed 0):
+               the kernel's call time through its wrapper. The backward
+               kernels take O and lse from the forward kernel.
+  4. serve   — full-width qwen1.5-0.5b (bf16, random weights from seed 0):
                ``make_prefill_step`` at B=4, S=1024, then 16 requests through
                ``ContinuousBatcher(batch_slots=8, max_len=2048)`` in
                shortest-predicted-first order (``launch.serve_workload``).
-               Both kernels' launch counters must grow over this main path
-               and split into equal prefills and equal decode rounds; two
-               requests' first-token logits must match the same requests
-               served alone (guard against cross-slot KV writes).
-  5. report  — the card's nvidia-smi line, one JSON line with every kernel's
+               The forward kernels' launch counters must grow over this
+               main path and split into equal prefills and equal decode
+               rounds; two requests' first-token logits must match the same
+               requests served alone (guard against cross-slot KV writes).
+  5. train   — the same model trained 4 steps on one batch
+               (``launch.profile_train.setup``: B=8, S=1024, two microbatches,
+               remat "block", bf16 moments). Losses and grad norms must be
+               finite, the last loss below the first, and all four kernels'
+               launch counters must grow and split into equal steps of the
+               counts remat over 24 layers and 2 microbatches gives
+               (flash_fwd 96, flash_bwd_dq 48, flash_bwd_dkv 48, rmsnorm 194).
+  6. report  — the card's nvidia-smi line, one JSON line with every kernel's
                launches, error, times and bound, then
                ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,12 +52,16 @@ PEAK_F32_FLOPS = 67e12
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}        # tests/test_kernels.py's
 LSE_TOL = 2e-3                                    # f32 statistics either way
 GUARD_TOL = 2e-2                                  # relative to max |logit|
+TILE_REL_TOL = 1e-2                               # backward, per 64-row tile
 
 # the JAX test cases of tests/test_kernels.py (B = 2)
 RMSNORM_CASES = [(1, 7, 64), (4, 33, 128), (2, 256, 512)]
 FLASH_CASES = [(128, 128, 4, 4, 64, True, 0), (128, 128, 8, 2, 64, True, 0),
                (256, 256, 4, 1, 32, True, 64), (64, 192, 4, 2, 64, False, 0),
                (96, 96, 2, 2, 128, True, 32)]
+FLASH_BWD_CASES = [(128, 128, 4, 2, 32, True, 0), (128, 128, 4, 4, 64, True, 48),
+                   (64, 192, 4, 1, 32, False, 0)]
+TRAIN_STEPS = 4
 
 
 def fail(msg: str) -> None:
@@ -65,6 +78,20 @@ def compare(name, got, want, tol) -> float:
         fail(f"{name}: kernel disagrees with its plain version "
              f"(max abs err {float(err.max()):.3g}, tol {tol})")
     return float(err.max())
+
+
+def compare_tiles(name, got, want, tile=64) -> float:
+    """Fail unless every tile of ``tile`` rows of each (batch, head) has
+    ||got - want|| <= TILE_REL_TOL * ||want||; → the worst ratio. Scale-aware
+    where the elementwise floor of ``compare`` is not: causal gradients shrink
+    along the sequence, so a late tile gone wrong stands out here."""
+    B, S, H, D = want.shape
+    g, w = (t.float().reshape(B, S // tile, tile, H, D) for t in (got, want))
+    ratio = float(((g - w).norm(dim=(2, 4)) / w.norm(dim=(2, 4))).max())
+    if not ratio <= TILE_REL_TOL:
+        fail(f"{name}: kernel disagrees with its plain version in a {tile}-row "
+             f"tile (relative error {ratio:.3g}, tol {TILE_REL_TOL})")
+    return ratio
 
 
 def bound(bytes_moved: float, flops: float, flop_rate: float):
@@ -214,7 +241,7 @@ def flash_phase(gen):
     return worst, timed
 
 
-def slice_phase():
+def serve_phase():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -258,6 +285,9 @@ def slice_phase():
     # prefill steps, one prefill per admission, then the engine's rounds
     prefills, rounds = 2 + batcher.prefills, batcher.steps
     per_round = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):       # no Function on this path
+        if launches.pop(name) + per_prefill.pop(name):
+            fail(f"kernel {name} launched while serving")
     for name, n in launches.items():
         decode_launches = n - per_prefill[name] * prefills
         if rounds <= 0 or decode_launches <= 0 or decode_launches % rounds:
@@ -288,6 +318,136 @@ def slice_phase():
     return launches, per_prefill, per_round
 
 
+def flash_bwd_phase(gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        _delta, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+    from repro_torch.launch.kernel_times import device_ms, wrapper_ms
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}   # each kernel's own outputs
+    tile_rel = dict(worst)
+
+    def check(name, q, k, v, do, causal, window, tol, tiles=False):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+        for part, g, w in zip(("dq", "dk", "dv"), got, want):
+            kern = "flash_bwd_dq" if part == "dq" else "flash_bwd_dkv"
+            worst[kern] = max(worst[kern], compare(f"{name} {part}", g, w, tol))
+            if tiles:
+                tile_rel[kern] = max(tile_rel[kern], compare_tiles(f"{name} {part}", g, w))
+        return o, lse
+
+    for (S, T, Hq, Hkv, D, causal, window) in FLASH_BWD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn(2, S, Hq, D, generator=gen, device="cuda").to(dt)
+                     for _ in range(2))
+            k, v = (torch.randn(2, T, Hkv, D, generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            check(f"flash bwd {(S, T, Hq, Hkv, D, causal, window)} {dt}",
+                  q, k, v, do, causal, window, TOL[str(dt)[6:]])
+
+    # the train phase's microbatch: B=4, S=T=1024, 16 heads of 64, causal, bf16
+    B, S, H, D = 4, 1024, 16, 64
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = check("flash bwd path", q, k, v, do, True, 0, TOL["bfloat16"], tiles=True)
+    delta = _delta(o, do).contiguous()
+    pairs = B * H * S * (S + 1) // 2
+    tensor_b, stat_b = B * S * H * D * 2, B * H * S * 4
+    plain_ms = device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                           causal=True, window=0), iters=5)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library_ms = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                       retain_graph=True))
+    shape = f"B={B} S=T={S} H={H} D={D} causal bf16"
+    calls = {
+        # (call, bytes: inputs once + outputs once, operations per valid pair)
+        "flash_bwd_dq": (lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True,
+                                                   window=0),
+                         5 * tensor_b + 2 * stat_b, 3 * 2 * D),
+        "flash_bwd_dkv": (lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True,
+                                                     window=0),
+                          6 * tensor_b + 2 * stat_b, 4 * 2 * D),
+    }
+    timed = {}
+    for name, (call, nbytes, per_pair) in calls.items():
+        b_ms, b_by = bound(nbytes, float(per_pair) * pairs, PEAK_BF16_FLOPS)
+        timed[name] = {
+            "shape": shape, "ms": device_ms(call, kernel=f"{name}_kernel"),
+            "max_tile_rel_err": tile_rel[name],
+            "wrapper_ms": wrapper_ms(call), "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "plain_and_library_cover": "dq, dk and dv together"}
+        print(f"{name} path: {json.dumps(timed[name])}")
+    print(f"flash_attention_bwd_cuda (dq + dkv + delta) path: wrapper "
+          f"{wrapper_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do)):.4f} ms")
+    return worst, timed
+
+
+def train_phase():
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import profile_train
+
+    model, step, state, batch = profile_train.setup(seed=0)
+    cfg, shape = model.cfg, profile_train.SHAPE
+    print(f"train: {cfg.name} full width, {model.n_params() / 1e6:.1f}M params, "
+          f"B={shape.global_batch} S={shape.seq_len}, {profile_train.TCFG}")
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts from 0, read right after ----
+    ops.reset_launch_counts()
+    losses, gnorms, step_ms, counts = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        counts.append(ops.launch_counts())
+    launches = ops.launch_counts()
+    # ---- end of the main path ----
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"train: non-finite loss or grad norm: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    per_step = {}
+    for name, n in launches.items():
+        steps = [counts[0][name]] + [counts[i][name] - counts[i - 1][name]
+                                     for i in range(1, TRAIN_STEPS)]
+        if n <= 0 or len(set(steps)) != 1:
+            fail(f"kernel {name}: train launches {steps} do not split into "
+                 f"{TRAIN_STEPS} equal steps")
+        per_step[name] = steps[0]
+    # remat over every layer: per microbatch each layer's attention runs
+    # forward twice (once recomputed) and backward once; rmsnorm runs on the
+    # 2 norms of each layer twice, plus the final norm once
+    L, n_micro = cfg.n_layers, shape.global_batch // profile_train.TCFG.microbatch_per_device
+    expected = {"flash_fwd": n_micro * 2 * L, "flash_bwd_dq": n_micro * L,
+                "flash_bwd_dkv": n_micro * L, "rmsnorm": n_micro * (2 * L + 1 + 2 * L)}
+    if per_step != expected:
+        fail(f"train launches per step {per_step}, expected {expected}")
+    timed_ms = step_ms[1:]                       # after one warm-up step
+    mean_ms = sum(timed_ms) / len(timed_ms)
+    tokens = shape.global_batch * shape.seq_len
+    print(f"train losses {losses}, grad norms {gnorms}")
+    print(f"train step ms (host clock, synchronised; first is warm-up) {step_ms}: "
+          f"mean {mean_ms:.3f} ms after warm-up, {tokens / mean_ms * 1e3:.1f} trained "
+          f"tokens/s; peak memory {peak_gb:.3f} GB")
+    print(f"launches: train path {launches} over {TRAIN_STEPS} steps; per step "
+          f"{per_step} (expected from remat over {L} layers x {n_micro} microbatches: "
+          f"{expected})")
+    return launches, per_step
+
+
 def main() -> int:
     card = device_phase()
     import torch
@@ -295,22 +455,35 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     rms_err, rms_t = rmsnorm_phase(gen)
     flash_err, flash_t = flash_phase(gen)
-    launches, per_prefill, per_round = slice_phase()
+    bwd_err, bwd_t = flash_bwd_phase(gen)
+    launches, per_prefill, per_round = serve_phase()
+    train_launches, per_step = train_phase()
 
     def entry(name, source, replaces, err, timed):
-        top = timed["prefill"]
+        top = timed["prefill"]     # serving's launches below; "launches" is the train path's
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": err,
+                "launches": train_launches[name], "max_abs_err": err,
                 "ms": top["ms"], "plain_ms": top["plain_ms"],
                 "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                 "library_ms": top["library_ms"], "wrapper_ms": top["wrapper_ms"],
                 "shape": top["shape"], "decode": timed["decode"],
+                "launches_per_train_step": per_step[name],
+                "launches_serve": launches[name],
                 "launches_per_prefill": per_prefill[name],
                 "launches_per_decode_round": per_round[name]}
+
+    def bwd_entry(name, line):
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+                "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+                "launches": train_launches[name], "max_abs_err": bwd_err[name],
+                **bwd_t[name], "launches_per_train_step": per_step[name]}
 
     kernels = [
         entry("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
               "src/repro/kernels/flash_attention.py:28", flash_err, flash_t),
+        bwd_entry("flash_bwd_dq", 170),
+        bwd_entry("flash_bwd_dkv", 207),
         entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm.py:17", rms_err, rms_t),
     ]

@@ -1,5 +1,5 @@
-"""Carry a ``repro`` parameter (or cache) tree, given as numpy arrays, into
-the port's tensors on the same key paths.
+"""Carry a ``repro`` parameter (or cache) tree, or a whole train state, given
+as numpy arrays, into the port's tensors on the same key paths.
 
 The scan-stacked ``(groups, pattern, ...)`` layout is kept as it is. bf16
 arrays arrive as numpy arrays of ``ml_dtypes.bfloat16``; they cross as
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import DEFAULT_DEVICE
+from .optim.adamw import AdamWState
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -32,3 +33,15 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(np.asarray(tree), device)
+
+
+def state_from_numpy(state: Any, device=None) -> Any:
+    """A ``repro`` train state as numpy (``{"params", "opt", "data_step"}``,
+    ``opt`` its ``AdamWState(step, master, m, v)`` or any 4-tuple in that
+    order) → the port's state on ``device`` (default ``cuda``), so that both
+    frameworks can start from one state."""
+    step, master, m, v = state["opt"]
+    return {"params": params_from_numpy(state["params"], device),
+            "opt": AdamWState(tensor_from_numpy(np.asarray(step), device),
+                              *(params_from_numpy(t, device) for t in (master, m, v))),
+            "data_step": tensor_from_numpy(np.asarray(state["data_step"]), device)}

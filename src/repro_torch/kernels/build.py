@@ -33,6 +33,10 @@ SIGNATURES = {
     "repro_rmsnorm_bf16": [_P, _P, _P, _LL, _I, _F, _P],
     "repro_flash_fwd_f32": [_P] * 6 + [_I] * 6 + [_LL] * 9 + [_I, _I, _F, _P],
     "repro_flash_fwd_bf16": [_P] * 6 + [_I] * 6 + [_LL] * 9 + [_I, _I, _F, _P],
+    "repro_flash_bwd_dq_f32": [_P] * 7 + [_I] * 6 + [_I, _I, _F, _P],
+    "repro_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_I, _I, _F, _P],
+    "repro_flash_bwd_dkv_f32": [_P] * 8 + [_I] * 6 + [_I, _I, _F, _P],
+    "repro_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,15 @@
-"""Flash attention forward: the plain PyTorch version and the CUDA wrapper.
+"""Flash attention forward and backward: plain PyTorch versions and the
+CUDA wrappers.
 
-The kernel (``csrc/flash_fwd.cu``) replaces the Pallas TPU kernel
+The forward kernel (``csrc/flash_fwd.cu``) replaces the Pallas TPU kernel
 ``_flash_kernel`` of ``src/repro/kernels/flash_attention.py`` (wrapper
-``flash_attention_fwd``). Both versions here compute that kernel's
+``flash_attention_fwd``). Both forward versions here compute that kernel's
 function: scores in f32 scaled by 1/sqrt(D); causal mask aligned top-left
 (``k_pos <= q_pos``, both counted from 0); sliding window
 ``k_pos > q_pos - window``; a valid prefix ``k_pos < kv_len`` per batch row;
 GQA with kv head ``h // (Hq // Hkv)``. They return O (B, S, Hq, D) in q's
-dtype and the f32 logsumexp (B*Hq, S). ``kv_len`` is the TPU kernel's
+dtype and the f32 logsumexp (B*Hq, S) (the plain version computes in f64
+for f64 inputs, as gradcheck needs). ``kv_len`` is the TPU kernel's
 ``kv_len`` parameter, which its wrapper fixes at T; here it is an optional
 int32 (B,) tensor so that decode runs through the same kernel; every row
 needs ``kv_len >= 1``. A query row with no valid key (a window wholly past
@@ -19,6 +21,14 @@ On an H100 SXM prefill at the path's shape (S = T = 1024, D = 64) needs
 about as long for its bytes as for its operations (4*S*T*D/2 per head,
 causal), ~0.01 ms each; decode is bound by the bytes of the valid K/V
 prefix. The kernel's design notes are in its source.
+
+The backward kernels (``csrc/flash_bwd.cu``: ``flash_bwd_dq``,
+``flash_bwd_dkv``) replace ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel`` (wrapper ``flash_attention_bwd``): from the
+forward's O and lse they give dq, dk and dv, dk/dv summed over the GQA
+group. As in JAX's backward there is no ``kv_len``: every key below T is
+valid. Δ = rowsum(dO∘O) is a PyTorch reduction in the wrapper, as JAX
+computes it in XLA outside its kernels.
 """
 from __future__ import annotations
 
@@ -34,6 +44,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions compute in f32, or in f64 for f64 inputs (gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def _check_kv_len(kv_len: torch.Tensor, B: int) -> None:
     """Shape and type; ``kv_len >= 1`` for a host tensor. A device tensor is
     not read here (that would stall the stream): the kernel traps on it."""
@@ -44,6 +59,18 @@ def _check_kv_len(kv_len: torch.Tensor, B: int) -> None:
         raise ValueError("kv_len: every row needs at least one valid key")
 
 
+def _mask(S: int, T: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(S, T) bool: key t is visible from query row s (top-left causal)."""
+    q_pos = torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones(S, T, dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           kv_len: Optional[torch.Tensor] = None,
@@ -52,16 +79,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
-    qh = q.float().reshape(B, S, Hkv, g, D)
-    s = torch.einsum("bskgd,btkd->bkgst", qh, k.float()) * (1.0 / math.sqrt(D))
-    q_pos = torch.arange(S, device=q.device)[:, None]
+    acc = _acc_dtype(q)
+    qh = q.to(acc).reshape(B, S, Hkv, g, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qh, k.to(acc)) * (1.0 / math.sqrt(D))
+    mask = _mask(S, T, causal, window, q.device).expand(B, S, T)
     k_pos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones(S, T, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window > 0:
-        mask &= k_pos > q_pos - window
-    mask = mask.expand(B, S, T)
     if kv_len is not None:
         _check_kv_len(kv_len, B)
         mask = mask & (k_pos < kv_len.to(q.device).view(B, 1, 1))
@@ -70,7 +92,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid = mask.any(-1)[:, None, None, :]                   # (B, 1, 1, S)
     p = torch.exp(s - lse[..., None]) * valid[..., None]
     lse = lse.masked_fill(~valid, NEG_INF)
-    o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.to(acc))
     return o.reshape(B, S, Hq, D).to(q.dtype), lse.reshape(B * Hq, S)
 
 
@@ -122,3 +144,135 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+def _bwd_shapes(q, k, v, o, lse, do) -> Tuple[int, int, int, int, int, int]:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention_bwd: want q (B,S,Hq,D), k/v (B,T,Hkv,D)")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention_bwd: shapes {tuple(q.shape)} "
+                         f"{tuple(k.shape)} do not match")
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B * Hq, S):
+        raise ValueError(f"flash_attention_bwd: want o and do {tuple(q.shape)}, "
+                         f"lse ({B * Hq}, {S}); got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    return B, S, T, Hq, Hkv, D
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Δ = rowsum(dO∘O) in f32 (f64 for f64 inputs), laid out as lse (B*Hq, S)."""
+    B, S, Hq, _ = o.shape
+    acc = _acc_dtype(o)
+    return (do.to(acc) * o.to(acc)).sum(-1).transpose(1, 2).reshape(B * Hq, S)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                              *, causal: bool = True, window: int = 0,
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ (dq (B,S,Hq,D) in q's dtype, dk, dv (B,T,Hkv,D) in k's dtype).
+
+    What JAX's ``flash_attention_bwd`` computes: p = exp(s·scale − lse)
+    under the forward's mask (0 elsewhere), ds = p∘(dO·Vᵀ − Δ),
+    dq = ds·K·scale, dk = dsᵀ·Q·scale, dv = pᵀ·dO, dk/dv summed over the GQA
+    group; f32 inside (f64 for f64 inputs)."""
+    B, S, T, Hq, Hkv, D = _bwd_shapes(q, k, v, o, lse, do)
+    g, scale, acc = Hq // Hkv, 1.0 / math.sqrt(D), _acc_dtype(q)
+    qh = q.to(acc).reshape(B, S, Hkv, g, D)
+    doh = do.to(acc).reshape(B, S, Hkv, g, D)
+    kf, vf = k.to(acc), v.to(acc)
+    mask = _mask(S, T, causal, window, q.device)
+    s = torch.einsum("bskgd,btkd->bkgst", qh, kf) * scale
+    lse_h = lse.to(acc).reshape(B, Hkv, g, S, 1)
+    p = torch.where(mask, torch.exp(s - lse_h), torch.zeros((), dtype=acc,
+                                                            device=q.device))
+    dp = torch.einsum("bskgd,btkd->bkgst", doh, vf)
+    delta = _delta(o, do).reshape(B, Hkv, g, S, 1)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qh) * scale
+    dv = torch.einsum("bkgst,bskgd->btkd", p, doh)
+    return dq.reshape(B, S, Hq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_lib_call(name: str, dtype: torch.dtype):
+    lib = build.library()
+    return getattr(lib, f"repro_flash_bwd_{name}_"
+                        f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, window: int
+                      ) -> torch.Tensor:
+    """Launch ``flash_bwd_dq_kernel``; inputs as ``flash_attention_bwd_cuda``
+    has checked and laid them out. Counts each launch."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib_call("dq", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), B, S, T, Hq, Hkv, D, int(causal),
+            int(window), 1.0 / math.sqrt(D), stream)
+    build.check(err, "flash_bwd_dq")
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, window: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_bwd_dkv_kernel``; inputs as ``flash_attention_bwd_cuda``
+    has checked and laid them out. Counts each launch."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib_call("dkv", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, T, Hq, Hkv, D,
+            int(causal), int(window), 1.0 / math.sqrt(D), stream)
+    build.check(err, "flash_bwd_dkv")
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq_cuda.launches = 0
+flash_bwd_dkv_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                             *, causal: bool = True, window: int = 0,
+                             kv_len: Optional[torch.Tensor] = None,
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_bwd.cu`` (dq, then dk/dv) on the current stream.
+
+    q, k, v, o and dO are made contiguous here (a no-op on the training
+    path, where all five already are); Δ is a PyTorch reduction. ``kv_len``
+    is refused: JAX's backward fixes ``kv_len = T``."""
+    if kv_len is not None:
+        raise ValueError("flash_attention_bwd_cuda: no kv_len in the backward "
+                         "(every key below T is valid, as in JAX's)")
+    B, S, T, Hq, Hkv, D = _bwd_shapes(q, k, v, o, lse, do)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_cuda: head dim {D} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise ValueError(f"flash_attention_bwd_cuda: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}/{o.dtype}/{do.dtype}; want one of {DTYPES} for all")
+    if lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_cuda: lse must be f32, got {lse.dtype}")
+    if not (q.is_cuda and all(t.device == q.device for t in (k, v, o, lse, do))):
+        raise ValueError("flash_attention_bwd_cuda: all inputs must be on one CUDA device")
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    if B == 0 or S == 0 or T == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = _delta(o, do).contiguous()
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal, window=window)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal, window=window)
+    return dq, dk, dv

@@ -5,6 +5,14 @@ a CUDA tensor launches the hand-written kernel or raises. There is no
 fallback from one to the other and no switch. Each CUDA wrapper counts its
 launches; ``launch_counts`` reads the counts and ``reset_launch_counts``
 sets them to 0, so a run can show that its path went through the kernels.
+
+``flash_attention`` and ``rmsnorm`` are differentiable: where grad is
+enabled and an input requires it, they go through a ``torch.autograd.Function``
+whose forward is the same dispatch and whose backward is the flash backward
+kernels (attention; plain version on the CPU) or plain PyTorch (RMSNorm,
+whose gradient JAX leaves to XLA: there is no Pallas kernel to port).
+Elsewhere (serving) they call the forward dispatch directly, so the
+Function layer adds no launch there.
 """
 from __future__ import annotations
 
@@ -12,10 +20,19 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .flash_attention import (
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_plain,
+    flash_attention_cuda,
+    flash_attention_plain,
+    flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda,
+)
 from .rmsnorm import rmsnorm_cuda, rmsnorm_plain
 
-_CUDA_WRAPPERS = {"rmsnorm": rmsnorm_cuda, "flash_fwd": flash_attention_cuda}
+_CUDA_WRAPPERS = {"rmsnorm": rmsnorm_cuda, "flash_fwd": flash_attention_cuda,
+                  "flash_bwd_dq": flash_bwd_dq_cuda,
+                  "flash_bwd_dkv": flash_bwd_dkv_cuda}
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -26,13 +43,60 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim, f32 statistics, one cast to x's dtype."""
     if _on_cuda(x, "rmsnorm"):
         return rmsnorm_cuda(x, scale, eps)
     return rmsnorm_plain(x, scale, eps)
 
 
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of y = x̂·s, x̂ = x·r, r = rsqrt(mean(x²) + eps), in f32 (f64
+    for f64): ds = Σ_rows g·x̂, dx = r·(g·s − x̂·mean(g·s·x̂)). → (dx in x's
+    dtype, ds in scale's dtype)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, gf, sf = x.to(acc), g.to(acc), scale.to(acc)
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    xhat = xf * r
+    gs = gf * sf
+    dx = r * (gs - xhat * (gs * xhat).mean(-1, keepdim=True))
+    ds = (gf * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), ds.to(scale.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, ds = rmsnorm_bwd(x, scale, g, ctx.eps)
+        return dx, ds, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim, f32 statistics, one cast to x's dtype;
+    differentiable."""
+    if _needs_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
+    return rmsnorm_fwd(x, scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int,
                         kv_len: Optional[torch.Tensor] = None,
@@ -43,6 +107,43 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     kv_len=kv_len)
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  kv_len=kv_len)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool, window: int,
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ (dq, dk, dv) from the forward's O and lse; see ``kernels.flash_attention``."""
+    if _on_cuda(q, "flash_attention_bwd"):
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Differentiable flash attention (JAX's ``ops.flash_attention``):
+    q (B, S, Hq, D), k/v (B, T, Hkv, D) → O (B, S, Hq, D)."""
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -18,9 +18,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    """f32 inside (f64 for f64 inputs, as gradcheck needs)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
     ms = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * scale.to(acc)).to(x.dtype)
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,

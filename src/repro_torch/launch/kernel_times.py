@@ -22,22 +22,35 @@ from ..kernels.flash_attention import flash_attention_cuda
 from ..kernels.rmsnorm import rmsnorm_cuda
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+# Now and then a profiler session on the card records no device event at
+# all (seen once in a process's first session on an H100): trace again
+PROFILER_SESSIONS = 3
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str = "") -> float:
     """Mean device time of one call of ``fn`` over ``iters`` calls: the
-    summed durations of the kernels (and device copies) it runs."""
+    summed durations of the kernels (and device copies) it runs, or of
+    those whose name contains ``kernel``. Traces up to
+    ``PROFILER_SESSIONS`` times and raises if none records a device event."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            us = sum(e.time_range.elapsed_us() for e in events if kernel in e.name)
+            if us <= 0:
+                raise RuntimeError(f"torch.profiler recorded no device time for "
+                                   f"{kernel!r}")
+            return us / iters / 1e3
+    raise RuntimeError(f"torch.profiler recorded no device event in "
+                       f"{PROFILER_SESSIONS} sessions")
 
 
 def wrapper_ms(fn, iters: int = 20, warmup: int = 3) -> float:

@@ -46,13 +46,13 @@ class Model(nn.Module):
 
     # ---------------- forward ----------------
     def logits(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-               remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+               remat: str = "block") -> Tuple[torch.Tensor, torch.Tensor]:
         return transformer.forward(self.cfg, params, batch["tokens"], remat=remat)
 
     forward = logits
 
     def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-             remat: str = "none") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             remat: str = "block") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, aux = self.logits(params, batch, remat)
         lg = logits.float()
         lse = torch.logsumexp(lg, dim=-1)

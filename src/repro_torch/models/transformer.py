@@ -9,13 +9,15 @@ layer pattern (gemma3's local:global) unroll the pattern inside each group.
 KV caches are per-kind: "full" layers cache all positions; "window" and
 "local" (sliding-window) layers keep a ring buffer of window slots. Norms
 and attention go through ``kernels.ops`` (hand-written kernels on CUDA,
-their plain versions on CPU); the large products stay ``torch.matmul``.
+their plain versions on CPU; differentiable where the inputs require
+grad); the large products stay ``torch.matmul``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
@@ -29,6 +31,8 @@ from .layers import (
     stack_schema,
     swiglu,
 )
+
+REMAT = ("none", "block", "full")
 
 # the slice of the port that brings each family not ported yet
 LATER_SLICE = {
@@ -111,10 +115,18 @@ def lm_schema(cfg: ModelConfig) -> Schema:
     return s
 
 
-def _layer(tree: Dict[str, Any], gi: int, i: int) -> Dict[str, Any]:
-    """Views of one layer's params in the (groups, pattern, ...) stack."""
-    return {k: _layer(v, gi, i) if isinstance(v, dict) else v[gi, i]
-            for k, v in tree.items()}
+def _unstack(tree: Any) -> List[List[Dict[str, Any]]]:
+    """[group][pattern index] → views of that layer's params in the
+    (groups, pattern, ...) stack, by one ``unbind`` per stack dim. Its
+    backward stacks the layers' gradients once; indexing each layer out
+    (``v[gi, i]``) would give each layer's gradient a zero-filled stack of
+    its own for autograd to sum, L full-size adds per leaf."""
+    if not isinstance(tree, dict):
+        return [list(t.unbind(0)) for t in tree.unbind(0)]
+    parts = {k: _unstack(v) for k, v in tree.items()}
+    first = next(iter(parts.values()))
+    return [[{k: p[gi][i] for k, p in parts.items()} for i in range(len(row))]
+            for gi, row in enumerate(first)]
 
 
 # ---------------------------------------------------------------------------
@@ -128,8 +140,7 @@ def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     q, k, v = qkv_project(h, p["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
     q = apply_rope(q, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
     k = apply_rope(k, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
-    o, _ = ops.flash_attention_fwd(q, k, v, causal=True,
-                                   window=_window_of(cfg, kind))
+    o = ops.flash_attention(q, k, v, causal=True, window=_window_of(cfg, kind))
     B, S = x.shape[:2]
     x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
     h = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
@@ -144,18 +155,31 @@ def embed_inputs(cfg: ModelConfig, params: Dict[str, Any],
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (logits (B, S, V), aux_loss). ``remat`` decides what a backward pass
-    would recompute; this slice serves, so only "none" exists yet."""
-    if remat != "none":
-        raise NotImplementedError(f"remat={remat!r} comes with the training slice")
+            remat: str = "block") -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (logits (B, S, V), aux_loss). ``remat`` other than "none" keeps no
+    activation of a layer group for the backward pass: each group's body
+    runs under ``torch.utils.checkpoint`` and is recomputed there, as
+    ``jax.checkpoint(group_body, policy=nothing_saveable)`` does in
+    ``repro`` ("block" and "full" are the same there too). The final norm
+    and the unembed stay outside the groups."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: want one of {REMAT}")
     x = embed_inputs(cfg, params, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     pat = layer_pattern(cfg)
-    for gi in range(n_groups(cfg)):
+    layers = _unstack(params["blocks"])
+
+    def group_body(h: torch.Tensor, gi: int) -> torch.Tensor:
         for i, kind in enumerate(pat):
-            x, _, _ = _block(cfg, _layer(params["blocks"], gi, i), x, positions, kind)
+            h, _, _ = _block(cfg, layers[gi][i], h, positions, kind)
+        return h
+
+    for gi in range(n_groups(cfg)):
+        if remat != "none" and torch.is_grad_enabled():
+            x = checkpoint(group_body, x, gi, use_reentrant=False)
+        else:
+            x = group_body(x, gi)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x), torch.zeros((), dtype=torch.float32,
                                                 device=x.device)
@@ -233,9 +257,10 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
     positions = pos_t[:, None]
     pat = layer_pattern(cfg)
     kind_of = _kind_slots(pat)
+    layers = _unstack(params["blocks"])
     for gi in range(n_groups(cfg)):
         for i in range(len(pat)):
-            p = _layer(params["blocks"], gi, i)
+            p = layers[gi][i]
             knd, slot = kind_of[i]
             hh = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
             q, k, v = qkv_project(hh, p["attn"], cfg.n_heads, cfg.n_kv_heads,
@@ -288,9 +313,10 @@ def prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     positions = torch.arange(S, device=x.device)[None, :]
     pat = layer_pattern(cfg)
     kind_of = _kind_slots(pat)
+    layers = _unstack(params["blocks"])
     for gi in range(n_groups(cfg)):
         for i, kind in enumerate(pat):
-            x, k, v = _block(cfg, _layer(params["blocks"], gi, i), x, positions, kind)
+            x, k, v = _block(cfg, layers[gi][i], x, positions, kind)
             _, slot = kind_of[i]
             _to_cache_slots(cache[kind]["k"][gi, slot, rows], k)
             _to_cache_slots(cache[kind]["v"][gi, slot, rows], v)

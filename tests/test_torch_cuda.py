@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_plain,
     flash_attention_cuda,
     flash_attention_plain,
 )
@@ -25,6 +27,13 @@ FLASH_CASES = [
     (64, 192, 4, 2, 64, False, 0),
     (96, 96, 2, 2, 128, True, 32),
     (1, 2048, 16, 16, 64, False, 0),    # decode against a 2048-slot cache
+]
+# the backward cases of tests/test_kernels.py, then a ragged GQA one at D=128
+FLASH_BWD_CASES = [
+    (128, 128, 4, 2, 32, True, 0),
+    (128, 128, 4, 4, 64, True, 48),
+    (64, 192, 4, 1, 32, False, 0),
+    (100, 100, 8, 2, 128, True, 40),
 ]
 
 
@@ -74,4 +83,44 @@ def test_cuda_wrappers_count_their_launches():
     ops.flash_attention_fwd(q, k, k, causal=False, window=0,
                             kv_len=torch.tensor([3, 16], dtype=torch.int32))
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"rmsnorm": 1, "flash_fwd": 1}
+    assert ops.launch_counts() == {"rmsnorm": 1, "flash_fwd": 1, "flash_bwd_dq": 0,
+                                   "flash_bwd_dkv": 0}
+    # one differentiable call and its backward: one launch of each flash kernel
+    ops.reset_launch_counts()
+    q = torch.randn(2, 32, 4, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    o = ops.flash_attention(q, k, k, causal=True, window=0)
+    torch.autograd.grad(o.float().square().sum(), q)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_fwd": 1, "flash_bwd_dq": 1,
+                                   "flash_bwd_dkv": 1}
+
+
+def test_cuda_backward_kernels_match_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(1)
+    for dt, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
+        for S, T, Hq, Hkv, D, causal, window in FLASH_BWD_CASES:
+            q, do = (torch.randn(2, S, Hq, D, generator=gen, device="cuda").to(dt)
+                     for _ in range(2))
+            k, v = (torch.randn(2, T, Hkv, D, generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                           window=window)
+            want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                             window=window)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+def test_cuda_backward_wrapper_refuses_kv_len():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q = torch.randn(1, 8, 2, 32, device="cuda")
+    o, lse = flash_attention_cuda(q, q, q, causal=True, window=0)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention_bwd_cuda(q, q, q, o, lse, o, causal=True, window=0,
+                                 kv_len=torch.tensor([8], dtype=torch.int32))

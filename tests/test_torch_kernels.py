@@ -4,18 +4,22 @@
 Tolerances are those of tests/test_kernels.py: f32 2e-3, bf16 2e-2. The
 CUDA kernels themselves run only on a card: tests/test_torch_cuda.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention_bwd as jax_flash_bwd
 from repro.kernels.flash_attention import flash_attention_fwd as jax_flash_fwd
 from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro.models.layers import attention as jax_attention
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_plain,
     flash_attention_cuda,
     flash_attention_plain,
 )
@@ -31,6 +35,13 @@ FLASH_CASES = [
     (64, 192, 4, 2, 64, False, 0),      # cross-length, bidirectional
     (96, 96, 2, 2, 128, True, 32),      # non-pow2 seq, window
 ]
+# the backward cases of tests/test_kernels.py
+FLASH_BWD_CASES = [
+    (128, 128, 4, 2, 32, True, 0),
+    (128, 128, 4, 4, 64, True, 48),
+    (64, 192, 4, 1, 32, False, 0),
+]
+NO_LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def _tol(name):
@@ -131,7 +142,7 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
     want = flash_attention_plain(q, k, k, causal=True, window=8)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_fwd": 0}
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_ops_reject_devices_without_a_kernel():
@@ -154,12 +165,118 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_cuda(torch.randn(1, 4, 2, 48), torch.randn(1, 4, 2, 48),
                              torch.randn(1, 4, 2, 48), causal=True, window=0)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_fwd": 0}
+    o, lse = flash_attention_plain(q, q, q, causal=True, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(q, q, q, o, lse, o, causal=True, window=0)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_build_hash_covers_every_source():
     names = {p.name for p in build.sources()}
     assert {"flash_fwd.cu", "rmsnorm.cu", "errors.cu"} <= names
     assert build.source_hash() == build.source_hash()
-    assert set(build.SIGNATURES) == {"repro_rmsnorm_f32", "repro_rmsnorm_bf16",
-                                     "repro_flash_fwd_f32", "repro_flash_fwd_bf16"}
+    assert {"flash_bwd.cu"} <= names
+    assert set(build.SIGNATURES) == {
+        f"repro_{k}_{t}" for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        for t in ("f32", "bf16")}
+
+
+def _bwd_inputs(S, T, Hq, Hkv, D, name):
+    """Numpy-seeded q, k, v, dO as (JAX, torch) pairs of dtype ``name``."""
+    return [_pair(RNG.normal(0, 1, shape), name) for shape in
+            ((2, S, Hq, D), (2, T, Hkv, D), (2, T, Hkv, D), (2, S, Hq, D))]
+
+
+@pytest.mark.parametrize("S,T,Hq,Hkv,D,causal,window", FLASH_BWD_CASES)
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_flash_bwd_plain_matches_pallas(S, T, Hq, Hkv, D, causal, window, name):
+    """From the same O and lse (JAX's forward), the plain backward gives JAX's
+    Pallas backward's dq, dk, dv (interpret mode)."""
+    (qj, qt), (kj, kt), (vj, vt), (dj, dt) = _bwd_inputs(S, T, Hq, Hkv, D, name)
+    oj, lsej = jax_flash_fwd(qj, kj, vj, causal=causal, window=window, interpret=True)
+    want = jax_flash_bwd(qj, kj, vj, oj, lsej, dj, causal=causal, window=window,
+                         interpret=True)
+    ot = tensor_from_numpy(np.asarray(oj), "cpu")
+    lset = tensor_from_numpy(np.asarray(lsej), "cpu")
+    got = flash_attention_bwd_plain(qt, kt, vt, ot, lset, dt, causal=causal,
+                                    window=window)
+    for g, w, ref_t in zip(got, want, (qt, kt, vt)):
+        assert g.shape == ref_t.shape and g.dtype == ref_t.dtype
+        np.testing.assert_allclose(_np(g), _np(w), **_tol(name))
+
+
+@pytest.mark.parametrize("S,T,Hq,Hkv,D,causal,window", FLASH_BWD_CASES)
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_flash_function_grad_matches_jax_grad_of_oracle(S, T, Hq, Hkv, D, causal,
+                                                         window, name):
+    """autograd through ``ops.flash_attention`` (the Function's own backward)
+    against ``jax.vjp`` of ``ref.flash_attention_ref`` on the same values in
+    f32: the oracle rounds its probabilities to the input dtype."""
+    (qj, qt), (kj, kt), (vj, vt), (dj, dt) = _bwd_inputs(S, T, Hq, Hkv, D, name)
+    f32 = [x.astype(jnp.float32) for x in (qj, kj, vj, dj)]
+    _, vjp = jax.vjp(lambda q, k, v: ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window), *f32[:3])
+    want = vjp(f32[3])
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    o = ops.flash_attention(*leaves, causal=causal, window=window)
+    assert o.grad_fn is not None and "FlashAttention" in type(o.grad_fn).__name__
+    got = torch.autograd.grad(o, leaves, dt)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **_tol(name))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 3), (False, 0)])
+def test_flash_function_backward_passes_gradcheck(causal, window):
+    """float64: the Function's backward against finite differences of its
+    forward (both plain on the CPU), GQA 4:2, S != T."""
+    gen = torch.Generator().manual_seed(0)
+    S, T = (6, 6) if causal else (5, 7)
+    q = torch.randn(1, S, 4, 8, dtype=torch.float64, generator=gen, requires_grad=True)
+    k = torch.randn(1, T, 2, 8, dtype=torch.float64, generator=gen, requires_grad=True)
+    v = torch.randn(1, T, 2, 8, dtype=torch.float64, generator=gen, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: ops.flash_attention(q, k, v, causal=causal, window=window),
+        (q, k, v))
+
+
+def test_rmsnorm_function_backward_passes_gradcheck():
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 5, 16, dtype=torch.float64, generator=gen, requires_grad=True)
+    s = (1 + 0.1 * torch.randn(16, dtype=torch.float64, generator=gen)).requires_grad_()
+    assert torch.autograd.gradcheck(lambda x, s: ops.rmsnorm(x, s, 1e-6), (x, s))
+    y = ops.rmsnorm(x, s, 1e-6)
+    assert "RMSNorm" in type(y.grad_fn).__name__
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_rmsnorm_function_grad_matches_jax_grad_of_oracle(name):
+    xj, xt = _pair(RNG.normal(0, 1, (4, 33, 128)), name)
+    sj, st = _pair(RNG.normal(1, 0.1, (128,)), name)
+    gj, gt = _pair(RNG.normal(0, 1, (4, 33, 128)), name)
+    _, vjp = jax.vjp(lambda x, s: ref.rmsnorm_ref(x, s), xj.astype(jnp.float32),
+                     sj.astype(jnp.float32))
+    want = vjp(gj.astype(jnp.float32))
+    leaves = [t.clone().requires_grad_() for t in (xt, st)]
+    got = torch.autograd.grad(ops.rmsnorm(*leaves, 1e-6), leaves, gt)
+    for g, w, t in zip(got, want, leaves):
+        assert g.dtype == t.dtype
+        # ds sums 132 rows: its bf16 rounding is relative to the sum
+        np.testing.assert_allclose(_np(g), _np(w), **_tol(name))
+
+
+def test_function_layer_is_skipped_without_grad():
+    """Serving calls: no input requires grad, or grad is off → no Function."""
+    q, k = torch.randn(1, 8, 2, 16), torch.randn(1, 8, 2, 16)
+    assert ops.flash_attention(q, k, k, causal=True, window=0).grad_fn is None
+    x, s = torch.randn(2, 16), torch.ones(16, requires_grad=True)
+    with torch.no_grad():
+        assert ops.rmsnorm(x, s).grad_fn is None
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_flash_bwd_refuses_kv_len():
+    q = torch.randn(1, 4, 2, 32)
+    o, lse = flash_attention_plain(q, q, q, causal=True, window=0)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention_bwd_cuda(q, q, q, o, lse, o, causal=True, window=0,
+                                 kv_len=torch.tensor([4], dtype=torch.int32))
