@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                card's name and power limit; TF32 off for matmul and cuDNN.
   2. build   — compiles the kernels from ``src/repro_torch/kernels/csrc``.
   3. kernels — each kernel against its plain PyTorch version on the card, at
-               the JAX test shapes and at the main paths' shapes; takes
+               the JAX test shapes and at the main paths' shapes (the
+               grouped expert GEMM also at ragged C = 1, 8, 40); takes
                the device time (``torch.profiler``) of the kernel, of the
                plain version and of one PyTorch library call of the same
                function (a yardstick only: the port never calls it), and
@@ -20,7 +21,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                shortest-predicted-first order (``launch.serve_workload``).
                The forward kernels' launch counters must grow over this
                main path and split into equal prefills and equal decode
-               rounds; two requests' first-token logits must match the same
+               rounds of the counts its layers give (flash_fwd 24, rmsnorm
+               49); two requests' first-token logits must match the same
                requests served alone (guard against cross-slot KV writes).
   5. train   — the same model trained 4 steps on one batch
                (``launch.profile_train.setup``: B=8, S=1024, two microbatches,
@@ -29,7 +31,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                launch counters must grow and split into equal steps of the
                counts remat over 24 layers and 2 microbatches gives
                (flash_fwd 96, flash_bwd_dq 48, flash_bwd_dkv 48, rmsnorm 194).
-  6. report  — the card's nvidia-smi line, one JSON line with every kernel's
+  6. serve MoE — after the earlier phases' memory is given back, phase 4 on
+               full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
+               experts top-8, 30.5 B parameters in bf16 from seed 0): per
+               prefill and per decode round flash_fwd 48, rmsnorm 97 and
+               moe_gmm 144 launches, no backward launch; the cross-slot guard.
+  7. report  — the card's nvidia-smi line, one JSON line with every kernel's
                launches, error, times and bound, then
                ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -61,22 +68,32 @@ FLASH_CASES = [(128, 128, 4, 4, 64, True, 0), (128, 128, 8, 2, 64, True, 0),
                (96, 96, 2, 2, 128, True, 32)]
 FLASH_BWD_CASES = [(128, 128, 4, 2, 32, True, 0), (128, 128, 4, 4, 64, True, 48),
                    (64, 192, 4, 1, 32, False, 0)]
+# the grouped-GEMM cases of tests/test_kernels.py (E, C, D, F) and their
+# (atol, rtol); then tokens per expert of one slot, a decode round of 8 slots
+# and a 511-token admission of qwen3-moe-30b-a3b
+GMM_CASES = [(2, 64, 128, 96), (8, 128, 64, 256), (3, 96, 160, 32)]
+GMM_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (5e-1, 5e-2)}
+GMM_RAGGED_C = (1, 8, 40)
 TRAIN_STEPS = 4
+MOE_CONFIG = "qwen3-moe-30b-a3b"
 
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def compare(name, got, want, tol) -> float:
-    """Fail unless |got - want| <= tol + tol*|want| everywhere; → max abs err."""
+def compare(name, got, want, tol, rtol=None) -> float:
+    """Fail unless |got - want| <= tol + rtol*|want| everywhere (rtol = tol
+    unless given); → max abs err."""
     import torch
     torch.cuda.synchronize()
+    rtol = tol if rtol is None else rtol
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    if not bool(torch.isfinite(g).all()) or bool((err > tol + tol * w.abs()).any()):
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()) \
+            or bool((err > tol + rtol * w.abs()).any()):
         fail(f"{name}: kernel disagrees with its plain version "
-             f"(max abs err {float(err.max()):.3g}, tol {tol})")
+             f"(max abs err {float(err.max()):.3g}, tol {tol}, rtol {rtol})")
     return float(err.max())
 
 
@@ -139,10 +156,12 @@ def rmsnorm_phase(gen):
             s = (1 + 0.1 * torch.randn(shape[-1:], generator=gen, device="cuda")).to(dt)
             worst = max(worst, compare(f"rmsnorm {shape} {dt}", rmsnorm_cuda(x, s),
                                        rmsnorm_plain(x, s), TOL[str(dt)[6:]]))
-    rows_by_path = {"prefill": 4 * 1024, "decode": 8}
+    # (rows, d): qwen1.5-0.5b's prefill step and decode round, then
+    # qwen3-moe-30b-a3b's
+    shape_by_path = {"prefill": (4 * 1024, 1024), "decode": (8, 1024),
+                     "moe_prefill": (4 * 1024, 2048), "moe_decode": (8, 2048)}
     timed = {}
-    for path, rows in rows_by_path.items():
-        d = 1024
+    for path, (rows, d) in shape_by_path.items():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
         s = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
         err = compare(f"rmsnorm {path} ({rows}, {d})", rmsnorm_cuda(x, s),
@@ -170,10 +189,6 @@ def _flash_pair(q, k, v, causal, window, kv_len=None):
 
 def flash_phase(gen):
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_plain)
-    from repro_torch.launch.kernel_times import device_ms, wrapper_ms
     worst = 0.0
     for (S, T, Hq, Hkv, D, causal, window) in FLASH_CASES:
         for dt in (torch.float32, torch.bfloat16):
@@ -185,63 +200,126 @@ def flash_phase(gen):
             worst = max(worst, compare(name + " O", o, po, TOL[str(dt)[6:]]),
                         compare(name + " lse", lse, plse, LSE_TOL))
 
-    bf16 = torch.bfloat16
-    timed = {}
-    # prefill: B=4, S=T=1024, 16 heads of 64, causal
-    B, S, H, D = 4, 1024, 16, 64
-    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(bf16)
-               for _ in range(3))
-    o, lse, po, plse = _flash_pair(q, k, v, True, 0)
-    err = max(compare("flash prefill O", o, po, TOL["bfloat16"]),
-              compare("flash prefill lse", lse, plse, LSE_TOL))
-    worst = max(worst, err)
-    pairs = B * H * S * (S + 1) // 2
-    b_ms, b_by = bound(4 * B * S * H * D * 2 + B * H * S * 4, 4.0 * D * pairs,
-                       PEAK_BF16_FLOPS)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    timed["prefill"] = {
-        "shape": f"B={B} S=T={S} H={H} D={D} causal bf16", "max_abs_err": err,
-        "ms": device_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=0)),
-        "wrapper_ms": wrapper_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
-                                                              window=0)),
-        "plain_ms": device_ms(lambda: flash_attention_plain(q, k, v, causal=True,
-                                                            window=0), iters=5),
-        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
-        "bound_ms": b_ms, "bound_by": b_by}
-    print(f"flash_fwd prefill: {json.dumps(timed['prefill'])}")
-
-    # decode: B=8, S=1 against T=2048 cache slots, per-row kv_len 1..2048
-    B, T = 8, 2048
-    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(bf16)
-    k, v = (torch.randn(B, T, H, D, generator=gen, device="cuda").to(bf16)
-            for _ in range(2))
-    kv_len = torch.linspace(1, T, B, device="cuda").round().to(torch.int32)
-    o, lse, po, plse = _flash_pair(q, k, v, False, 0, kv_len)
-    err = max(compare("flash decode O", o, po, TOL["bfloat16"]),
-              compare("flash decode lse", lse, plse, LSE_TOL))
-    worst = max(worst, err)
-    valid = int(kv_len.sum())
-    b_ms, b_by = bound(2 * B * H * D * 2 + 2 * valid * H * D * 2 + B * H * 4 + B * 4,
-                       4.0 * H * D * valid, PEAK_BF16_FLOPS)
-    mask = (torch.arange(T, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    timed["decode"] = {
-        "shape": f"B={B} S=1 T={T} H={H} D={D} kv_len 1..{T} bf16", "max_abs_err": err,
-        "ms": device_ms(lambda: flash_attention_cuda(q, k, v, causal=False, window=0,
-                                                     kv_len=kv_len)),
-        "wrapper_ms": wrapper_ms(lambda: flash_attention_cuda(
-            q, k, v, causal=False, window=0, kv_len=kv_len)),
-        "plain_ms": device_ms(lambda: flash_attention_plain(q, k, v, causal=False,
-                                                            window=0, kv_len=kv_len)),
-        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask)),
-        "bound_ms": b_ms, "bound_by": b_by}
-    print(f"flash_fwd decode: {json.dumps(timed['decode'])}")
+    timed = {
+        # qwen1.5-0.5b: B=4, S=T=1024, 16 heads of 64, causal; decode B=8, S=1
+        # against T=2048 cache slots, per-row kv_len 1..2048
+        "prefill": _flash_path("prefill", gen, 4, 1024, 1024, 16, 16, 64,
+                               "B=4 S=T=1024 H=16 D=64 causal bf16"),
+        "decode": _flash_path("decode", gen, 8, 1, 2048, 16, 16, 64,
+                              "B=8 S=1 T=2048 H=16 D=64 kv_len 1..2048 bf16"),
+        # qwen3-moe-30b-a3b: the same with GQA 8:1, 32 query and 4 KV heads of 128
+        "moe_prefill": _flash_path("moe_prefill", gen, 4, 1024, 1024, 32, 4, 128,
+                                   "B=4 S=T=1024 Hq=32 Hkv=4 D=128 causal bf16"),
+        "moe_decode": _flash_path("moe_decode", gen, 8, 1, 2048, 32, 4, 128,
+                                  "B=8 S=1 T=2048 Hq=32 Hkv=4 D=128 kv_len 1..2048 bf16"),
+    }
+    for t in timed.values():
+        worst = max(worst, t["max_abs_err"])
     return worst, timed
 
 
-def serve_phase():
+def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape):
+    """The forward kernel at one main-path shape (bf16): checked against the
+    plain version, device times of kernel, plain and SDPA, wrapper time and
+    the bound. S = T is a causal prefill; S = 1 a decode step with per-row
+    kv_len spread over 1..T."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain)
+    from repro_torch.launch.kernel_times import device_ms, wrapper_ms
+    bf16 = torch.bfloat16
+    q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").to(bf16)
+    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(bf16)
+            for _ in range(2))
+    causal = S == T
+    kv_len = None if causal else \
+        torch.linspace(1, T, B, device="cuda").round().to(torch.int32)
+    o, lse, po, plse = _flash_pair(q, k, v, causal, 0, kv_len)
+    err = max(compare(f"flash {path} O", o, po, TOL["bfloat16"]),
+              compare(f"flash {path} lse", lse, plse, LSE_TOL))
+    # bytes: q and O, the K/V each row may see, lse (and kv_len); operations:
+    # 4·D per valid (query, key) pair
+    if causal:
+        pairs, kv_bytes = B * Hq * S * (S + 1) // 2, 2 * B * T * Hkv * D * 2
+    else:
+        valid = int(kv_len.sum())
+        pairs, kv_bytes = Hq * valid, 2 * valid * Hkv * D * 2 + B * 4
+    b_ms, b_by = bound(2 * B * S * Hq * D * 2 + kv_bytes + B * Hq * S * 4,
+                       4.0 * D * pairs, PEAK_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = {"enable_gqa": True} if Hq != Hkv else {}
+    if causal:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+    else:
+        mask = (torch.arange(T, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)
+
+    def kernel():
+        return flash_attention_cuda(q, k, v, causal=causal, window=0, kv_len=kv_len)
+
+    timed = {
+        "shape": shape, "max_abs_err": err, "ms": device_ms(kernel),
+        "wrapper_ms": wrapper_ms(kernel),
+        "plain_ms": device_ms(lambda: flash_attention_plain(
+            q, k, v, causal=causal, window=0, kv_len=kv_len), iters=5 if causal else 20),
+        "library_ms": device_ms(library), "bound_ms": b_ms, "bound_by": b_by}
+    print(f"flash_fwd {path}: {json.dumps(timed)}")
+    return timed
+
+
+def gmm_phase(gen):
+    """The grouped expert GEMM against its plain version: the JAX test cases
+    (f32 and bf16, tests/test_kernels.py's tolerances), ragged C at
+    qwen3-moe-30b-a3b's widths (f32 and bf16), and the four main-path shapes
+    of one MoE layer (bf16), which are also timed."""
+    import torch
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
+    from repro_torch.launch.kernel_times import (
+        MOE_C, MOE_D, MOE_E, MOE_F, device_ms, wrapper_ms)
+
+    def inputs(E, C, D, F, dt, w_std):
+        buf = torch.randn(E, C, D, generator=gen, device="cuda").to(dt)
+        return buf, (w_std * torch.randn(E, D, F, generator=gen, device="cuda")).to(dt)
+
+    worst = 0.0
+    for (E, C, D, F) in GMM_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            buf, w = inputs(E, C, D, F, dt, 0.5)
+            atol, rtol = GMM_TOL[str(dt)[6:]]
+            worst = max(worst, compare(f"moe_gmm {(E, C, D, F)} {dt}", moe_gmm_cuda(buf, w),
+                                       moe_gmm_plain(buf, w), atol, rtol))
+    for C in GMM_RAGGED_C:
+        for dt in (torch.float32, torch.bfloat16):
+            buf, w = inputs(MOE_E, C, MOE_D, MOE_F, dt, MOE_D ** -0.5)
+            worst = max(worst, compare(f"moe_gmm ragged C={C} {dt}", moe_gmm_cuda(buf, w),
+                                       moe_gmm_plain(buf, w), TOL[str(dt)[6:]]))
+    timed = {}
+    for path, C in MOE_C.items():
+        for part, (D, F) in (("gate_up", (MOE_D, MOE_F)), ("down", (MOE_F, MOE_D))):
+            buf, w = inputs(MOE_E, C, D, F, torch.bfloat16, D ** -0.5)
+            err = compare(f"moe_gmm {path} {part}", moe_gmm_cuda(buf, w),
+                          moe_gmm_plain(buf, w), TOL["bfloat16"])
+            worst = max(worst, err)
+            # each of buf, w and out once; 2 operations per multiply-add
+            b_ms, b_by = bound((MOE_E * C * D + MOE_E * D * F + MOE_E * C * F) * 2,
+                               2.0 * MOE_E * C * D * F, PEAK_BF16_FLOPS)
+            name = f"{path}_{part}"
+            timed[name] = {
+                "shape": f"buf ({MOE_E}, {C}, {D}) x w ({MOE_E}, {D}, {F}) bf16",
+                "max_abs_err": err, "ms": device_ms(lambda: moe_gmm_cuda(buf, w)),
+                "wrapper_ms": wrapper_ms(lambda: moe_gmm_cuda(buf, w)),
+                "plain_ms": device_ms(lambda: moe_gmm_plain(buf, w)),
+                "library_ms": device_ms(lambda: torch.bmm(buf, w)),
+                "bound_ms": b_ms, "bound_by": b_by}
+            print(f"moe_gmm {name}: {json.dumps(timed[name])}")
+    return worst, timed
+
+
+def serve_phase(config="qwen1.5-0.5b"):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -250,11 +328,16 @@ def serve_phase():
     from repro_torch.models import build_model
     from repro_torch.runtime.serve import ContinuousBatcher, Request, make_prefill_step
 
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = get_config(config)
     model = build_model(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params = model.init(torch.Generator("cuda").manual_seed(0))
-    print(f"model: {cfg.name} full width, {model.n_params() / 1e6:.1f}M params, "
-          f"{cfg.param_dtype}")
+    torch.cuda.synchronize()
+    print(f"model: {cfg.name} full width, {cfg.n_layers} layers, "
+          f"{model.n_params() / 1e6:.1f}M params, {cfg.param_dtype}; init "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
     B, S = 4, 1024
     step = make_prefill_step(model, ShapeConfig("prefill_1k", S, B, "prefill"))
     tokens = torch.randint(2, cfg.vocab, (B, S), device="cuda",
@@ -285,20 +368,33 @@ def serve_phase():
     # prefill steps, one prefill per admission, then the engine's rounds
     prefills, rounds = 2 + batcher.prefills, batcher.steps
     per_round = {}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):       # no Function on this path
+    not_on_path = ["flash_bwd_dq", "flash_bwd_dkv"]       # no Function on this path
+    if cfg.family != "moe":
+        not_on_path.append("moe_gmm")
+    for name in not_on_path:
         if launches.pop(name) + per_prefill.pop(name):
-            fail(f"kernel {name} launched while serving")
+            fail(f"kernel {name} launched while serving {cfg.name}")
     for name, n in launches.items():
         decode_launches = n - per_prefill[name] * prefills
         if rounds <= 0 or decode_launches <= 0 or decode_launches % rounds:
             fail(f"kernel {name}: {n} launches do not split into {prefills} prefills "
                  f"of {per_prefill[name]} and {rounds} equal decode rounds")
         per_round[name] = decode_launches // rounds
+    # per prefill and per decode round: attention once per layer, two norms
+    # per layer and the final one, three expert GEMMs per MoE layer
+    L = cfg.n_layers
+    expected = {"flash_fwd": L, "rmsnorm": 2 * L + 1}
+    if cfg.family == "moe":
+        expected["moe_gmm"] = 3 * L
+    if per_prefill != expected or per_round != expected:
+        fail(f"{cfg.name}: launches per prefill {per_prefill} and per decode round "
+             f"{per_round}, expected {expected}")
     tok_s = served["tokens"] / served["seconds"]
     print(f"prefill step B={B} S={S}: {prefill_ms:.3f} ms")
     print(f"served {served['served']} requests, {served['tokens']} tokens in "
           f"{served['seconds']:.3f} s: {tok_s:.1f} generated tokens/s "
           f"({served['engine_steps']} engine rounds, prefills included)")
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
     # guard against cross-slot writes: first-token logits alone vs batched
     for r in (served["order"][1], served["order"][-1]):   # first and last wave
@@ -414,6 +510,8 @@ def train_phase():
     launches = ops.launch_counts()
     # ---- end of the main path ----
 
+    if launches.pop("moe_gmm") + sum(c.pop("moe_gmm") for c in counts):
+        fail(f"train: moe_gmm launched while training the dense {cfg.name}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in losses + gnorms):
         fail(f"train: non-finite loss or grad norm: {losses} {gnorms}")
@@ -448,6 +546,20 @@ def train_phase():
     return launches, per_step
 
 
+def release_memory():
+    """Give the earlier phases' device memory back before the MoE phase,
+    whose weights alone take 61.1 GB of the card's 80."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"memory before {MOE_CONFIG}: {held:.3f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    if held > 1.0:
+        fail(f"{held:.3f} GB still allocated before the MoE phase")
+
+
 def main() -> int:
     card = device_phase()
     import torch
@@ -456,8 +568,11 @@ def main() -> int:
     rms_err, rms_t = rmsnorm_phase(gen)
     flash_err, flash_t = flash_phase(gen)
     bwd_err, bwd_t = flash_bwd_phase(gen)
+    gmm_err, gmm_t = gmm_phase(gen)
     launches, per_prefill, per_round = serve_phase()
     train_launches, per_step = train_phase()
+    release_memory()
+    moe_launches, moe_prefill, moe_round = serve_phase(MOE_CONFIG)
 
     def entry(name, source, replaces, err, timed):
         top = timed["prefill"]     # serving's launches below; "launches" is the train path's
@@ -470,7 +585,11 @@ def main() -> int:
                 "launches_per_train_step": per_step[name],
                 "launches_serve": launches[name],
                 "launches_per_prefill": per_prefill[name],
-                "launches_per_decode_round": per_round[name]}
+                "launches_per_decode_round": per_round[name],
+                "moe_prefill": timed["moe_prefill"], "moe_decode": timed["moe_decode"],
+                "launches_moe_serve": moe_launches[name],
+                "launches_per_moe_prefill": moe_prefill[name],
+                "launches_per_moe_decode_round": moe_round[name]}
 
     def bwd_entry(name, line):
         return {"name": name, "route": "cuda",
@@ -486,6 +605,14 @@ def main() -> int:
         bwd_entry("flash_bwd_dkv", 207),
         entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm.py:17", rms_err, rms_t),
+        # top level: one gate/up call of a decode round, the path's most
+        # frequent shape; "launches" is the MoE serving path's
+        {**gmm_t["decode_gate_up"], "name": "moe_gmm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+         "replaces": "src/repro/kernels/moe_gmm.py:21",
+         "launches": moe_launches["moe_gmm"], "max_abs_err": gmm_err, "paths": gmm_t,
+         "launches_per_prefill": moe_prefill["moe_gmm"],
+         "launches_per_decode_round": moe_round["moe_gmm"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,6 +3,7 @@
 #   flash_attention — causal / sliding-window / kv_len / GQA attention
 #                     forward (csrc/flash_fwd.cu), for prefill and decode
 #   rmsnorm         — fused single-pass norm (csrc/rmsnorm.cu)
+#   moe_gmm         — grouped expert GEMM of the MoE FFN (csrc/moe_gmm.cu)
 # ops.py dispatches by device (CPU → plain, CUDA → kernel) and counts
 # launches; build.py compiles csrc/ with nvcc at first use.
 from . import ops  # noqa: F401

@@ -12,7 +12,9 @@ whose forward is the same dispatch and whose backward is the flash backward
 kernels (attention; plain version on the CPU) or plain PyTorch (RMSNorm,
 whose gradient JAX leaves to XLA: there is no Pallas kernel to port).
 Elsewhere (serving) they call the forward dispatch directly, so the
-Function layer adds no launch there.
+Function layer adds no launch there. ``moe_gmm`` has no backward on the
+card yet (JAX has none for its kernel either; MoE training is a later
+item): on a CUDA tensor that would need one it raises.
 """
 from __future__ import annotations
 
@@ -28,11 +30,12 @@ from .flash_attention import (
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
 )
+from .moe_gmm import moe_gmm_cuda, moe_gmm_plain
 from .rmsnorm import rmsnorm_cuda, rmsnorm_plain
 
 _CUDA_WRAPPERS = {"rmsnorm": rmsnorm_cuda, "flash_fwd": flash_attention_cuda,
                   "flash_bwd_dq": flash_bwd_dq_cuda,
-                  "flash_bwd_dkv": flash_bwd_dkv_cuda}
+                  "flash_bwd_dkv": flash_bwd_dkv_cuda, "moe_gmm": moe_gmm_cuda}
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -144,6 +147,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]
+
+
+# ---------------------------------------------------------------------------
+# grouped expert GEMM
+# ---------------------------------------------------------------------------
+def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, D) x (E, D, F) -> (E, C, F), f32 accumulation, buf's dtype.
+    Differentiable on the CPU only (plain PyTorch); on the card a call that
+    would need a gradient is refused, not taken to another path."""
+    if _on_cuda(buf, "moe_gmm"):
+        if _needs_grad(buf, w):
+            raise NotImplementedError(
+                "moe_gmm: no backward kernel on the card yet; it comes with MoE "
+                "training (dX = dY·Wᵀ and dW = Xᵀ·dY through the grouped GEMM)")
+        return moe_gmm_cuda(buf, w)
+    return moe_gmm_plain(buf, w)
 
 
 def launch_counts() -> Dict[str, int]:

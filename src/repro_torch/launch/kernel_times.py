@@ -2,12 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_times [--repeats 3]
 
-Times each kernel of the serving path on the card: flash attention at the
-prefill shape (B=4, S=T=1024, 16 heads of 64, causal) and at the decode
-shape (B=8, S=1, T=2048, kv_len 1..2048), RMSNorm at 4096 and at 8 rows of
-1024, all bf16. A time is the summed duration of what one call runs on the
-device, traced by ``torch.profiler``; host time between launches does not
-count. Prints one JSON line with ``--repeats`` readings per kernel and
+Times each kernel of the serving paths on the card, all bf16. qwen1.5-0.5b:
+flash attention at the prefill shape (B=4, S=T=1024, 16 heads of 64,
+causal) and at the decode shape (B=8, S=1, T=2048, kv_len 1..2048), RMSNorm
+at 4096 and at 8 rows of 1024. qwen3-moe-30b-a3b: flash attention at the
+same two shapes with 32 query and 4 KV heads of 128, RMSNorm at d = 2048,
+and the grouped expert GEMM of one MoE layer (128 experts, d 2048, ff 768)
+at a decode round of 8 slots (C = 8) and at the prefill step (C = 320),
+gate/up (2048 -> 768) and down (768 -> 2048). A time is the summed
+duration of what one call runs on the device, traced by
+``torch.profiler``; host time between launches does not count. Prints one JSON line with ``--repeats`` readings per kernel and
 shape. To compare two versions of a kernel, run this from both checkouts in
 one call to the card, alternating. Needs a CUDA card.
 """
@@ -19,7 +23,13 @@ import json
 import torch
 
 from ..kernels.flash_attention import flash_attention_cuda
+from ..kernels.moe_gmm import moe_gmm_cuda
 from ..kernels.rmsnorm import rmsnorm_cuda
+
+# qwen3-moe-30b-a3b's MoE layer: experts, d_model, d_ff_expert; tokens per
+# expert in a decode round of 8 slots and in a B=4 x S=1024 prefill step
+MOE_E, MOE_D, MOE_F = 128, 2048, 768
+MOE_C = {"decode": 8, "prefill": 320}
 
 
 # Now and then a profiler session on the card records no device event at
@@ -82,6 +92,13 @@ def main(repeats: int = 3) -> dict:
     qd, kd, vd = randn(8, 1, H, D), randn(8, 2048, H, D), randn(8, 2048, H, D)
     kv_len = torch.linspace(1, 2048, 8, device="cuda").round().to(torch.int32)
     xp, xd, scale = randn(4096, 1024), randn(8, 1024), randn(1024)
+    # qwen3-moe-30b-a3b: GQA 8:1 at D = 128, d = 2048, one layer's experts
+    qp2, kp2, vp2 = randn(4, 1024, 32, 128), randn(4, 1024, 4, 128), randn(4, 1024, 4, 128)
+    qd2, kd2, vd2 = randn(8, 1, 32, 128), randn(8, 2048, 4, 128), randn(8, 2048, 4, 128)
+    xp2, xd2, scale2 = randn(4096, 2048), randn(8, 2048), randn(2048)
+    w_up, w_down = randn(MOE_E, MOE_D, MOE_F), randn(MOE_E, MOE_F, MOE_D)
+    bufs = {path: (randn(MOE_E, c, MOE_D), randn(MOE_E, c, MOE_F))
+            for path, c in MOE_C.items()}
     calls = {
         "flash_fwd prefill": lambda: flash_attention_cuda(qp, kp, vp, causal=True,
                                                           window=0),
@@ -89,7 +106,18 @@ def main(repeats: int = 3) -> dict:
                                                          window=0, kv_len=kv_len),
         "rmsnorm 4096x1024": lambda: rmsnorm_cuda(xp, scale),
         "rmsnorm 8x1024": lambda: rmsnorm_cuda(xd, scale),
+        "flash_fwd prefill GQA 32:4 D=128": lambda: flash_attention_cuda(
+            qp2, kp2, vp2, causal=True, window=0),
+        "flash_fwd decode GQA 32:4 D=128": lambda: flash_attention_cuda(
+            qd2, kd2, vd2, causal=False, window=0, kv_len=kv_len),
+        "rmsnorm 4096x2048": lambda: rmsnorm_cuda(xp2, scale2),
+        "rmsnorm 8x2048": lambda: rmsnorm_cuda(xd2, scale2),
     }
+    for path, (x_d, x_f) in bufs.items():
+        calls[f"moe_gmm {path} gate/up C={MOE_C[path]}"] = \
+            lambda x=x_d: moe_gmm_cuda(x, w_up)
+        calls[f"moe_gmm {path} down C={MOE_C[path]}"] = \
+            lambda x=x_f: moe_gmm_cuda(x, w_down)
     out = {name: [] for name in calls}
     for _ in range(repeats):
         for name, fn in calls.items():

@@ -1,16 +1,19 @@
 """Where the serving time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--config qwen3-moe-30b-a3b]
 
-Serves ``serve_workload``'s full burst (full-width qwen1.5-0.5b, bf16,
-random weights from seed 0, 8 slots) once to warm up, once unprofiled, then
-again under ``torch.profiler``. Prints the unprofiled wall time; for the
-profiled run the wall time split into admission prefills and decode rounds
-(host clock, each call ending in a synchronize), the device's busy time
+Serves ``serve_workload``'s full burst (a full-width model, default
+qwen1.5-0.5b, bf16, random weights from seed 0, 8 slots) once to warm up,
+once unprofiled, then again under ``torch.profiler``. Prints the
+unprofiled wall time; for the profiled run the wall time split into
+admission prefills and decode rounds (host clock, each call ending in a
+synchronize), the device's busy time
 (sum of kernel times on the one stream) and device time by kernel family;
 the idle share of the unprofiled run (its wall time against the profiled
-run's busy time: the profiler slows the host, not the kernels); and the
-kernels launched by one decode round. Needs a CUDA card.
+run's busy time: the profiler slows the host, not the kernels); the
+kernels launched by one decode round; and one ``make_prefill_step`` call
+at B=4, S=1024 (``chip_smoke.py``'s): its host time unprofiled, then its
+device time by kernel family and its top kernels. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -22,11 +25,15 @@ from collections import defaultdict
 import torch
 
 from ..configs import get_config
+from ..configs.base import ShapeConfig
 from ..models import build_model
+from ..runtime.serve import make_prefill_step
 from . import serve_workload
 
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
             ("rmsnorm", ("rmsnorm_kernel",)),
+            ("moe_gmm", ("moe_gmm",)),
+            ("scan", ("scan",)),
             ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas", "splitk")),
             ("index/copy", ("index", "copy", "scatter", "gather", "cat")),
             ("elementwise", ("elementwise", "vectorized", "reduce")))
@@ -38,6 +45,23 @@ def family(kernel_name: str) -> str:
         if any(k in low for k in keys):
             return fam
     return "other"
+
+
+def _split(prof):
+    """→ (device busy µs, µs by family, µs by kernel name, kernel count)."""
+    busy_us, by_family, by_kernel, n = 0.0, defaultdict(float), defaultdict(float), 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            n += 1
+            by_family[family(e.name)] += us
+            by_kernel[e.name[:90]] += us
+    return busy_us, by_family, by_kernel, n
+
+
+def _top(d, scale, n=None):
+    return {k: v / scale for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:n]}
 
 
 class _Timed:
@@ -55,11 +79,11 @@ class _Timed:
         return out
 
 
-def main(seed: int = 0) -> dict:
+def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = build_model(get_config("qwen1.5-0.5b"), "cuda")
+    model = build_model(get_config(config), "cuda")
     params = model.init(torch.Generator("cuda").manual_seed(seed))
     serve_workload.run(model, params, smoke=False, seed=seed)        # warm-up
     plain = serve_workload.run(model, params, smoke=False, seed=seed)
@@ -73,22 +97,31 @@ def main(seed: int = 0) -> dict:
     per_round = sum(e.device_type == torch.autograd.DeviceType.CUDA
                     for e in prof.events())
 
+    # one prefill step at B=4, S=1024, after a warm-up call
+    step = make_prefill_step(model, ShapeConfig("prefill_1k", 1024, 4, "prefill"))
+    batch = {"params": params, "tokens": torch.randint(
+        2, model.cfg.vocab, (4, 1024), device="cuda",
+        generator=torch.Generator("cuda").manual_seed(1))}
+    step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=acts) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    step_us, step_family, step_kernel, step_n = _split(prof)
+
     prefill, decode = _Timed(model.prefill_into), _Timed(model.decode_step)
     model.prefill_into, model.decode_step = prefill, decode
     with torch.profiler.profile(activities=acts) as prof:
         out = serve_workload.run(model, params, smoke=False, seed=seed)
-    busy_us, by_family, n_kernels = 0.0, defaultdict(float), 0
-    by_kernel = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            busy_us += us
-            n_kernels += 1
-            by_family[family(e.name)] += us
-            by_kernel[e.name[:90]] += us
+    busy_us, by_family, by_kernel, n_kernels = _split(prof)
     wall = out["seconds"]
     report = {
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "config": config,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "unprofiled_wall_s": plain["seconds"],
         "unprofiled_tok_per_s": plain["tokens"] / plain["seconds"],
         "unprofiled_device_idle_share": 1.0 - busy_us / 1e6 / plain["seconds"],
@@ -100,10 +133,13 @@ def main(seed: int = 0) -> dict:
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "kernels": n_kernels,
-        "device_s_by_family": {k: v / 1e6 for k, v in sorted(
-            by_family.items(), key=lambda kv: -kv[1])},
-        "top_kernels_s": {k: v / 1e6 for k, v in sorted(
-            by_kernel.items(), key=lambda kv: -kv[1])[:8]},
+        "device_s_by_family": _top(by_family, 1e6),
+        "top_kernels_s": _top(by_kernel, 1e6, 8),
+        "prefill_step_ms": step_ms,
+        "prefill_step_device_ms": step_us / 1e3,
+        "prefill_step_kernels": step_n,
+        "prefill_step_device_ms_by_family": _top(step_family, 1e3),
+        "prefill_step_top_kernels_ms": _top(step_kernel, 1e3, 8),
     }
     print(json.dumps(report, indent=1))
     if busy_us == 0:
@@ -114,4 +150,7 @@ def main(seed: int = 0) -> dict:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    main(ap.parse_args().seed)
+    ap.add_argument("--config", default=serve_workload.DEFAULT_CONFIG,
+                    help="model config name")
+    a = ap.parse_args()
+    main(a.seed, a.config)

@@ -1,8 +1,10 @@
 """End-to-end serving entry point: continuous batching under Lotaru ordering.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_workload [--device cpu] [--smoke]
+        [--config qwen3-moe-30b-a3b]
 
-qwen1.5-0.5b serves a burst of requests through the ContinuousBatcher.
+A model (``--config``, default qwen1.5-0.5b; a dense or an MoE config)
+serves a burst of requests through the ContinuousBatcher.
 Admission order is shortest-predicted-first: the Lotaru runtime predictor
 ranks each request by its predicted decode time (the CWS rank_min analogue
 for serving), which minimises mean latency. The engine decodes one token
@@ -76,8 +78,12 @@ def run(model: Model, params: Any, smoke: bool, seed: int = 0) -> Dict[str, Any]
             "engine_steps": batcher.steps}
 
 
-def main(device: Optional[str] = None, smoke: bool = False, seed: int = 0) -> Dict[str, Any]:
-    cfg = get_config("qwen1.5-0.5b", smoke=smoke)
+DEFAULT_CONFIG = "qwen1.5-0.5b"
+
+
+def main(device: Optional[str] = None, smoke: bool = False, seed: int = 0,
+         config: str = DEFAULT_CONFIG) -> Dict[str, Any]:
+    cfg = get_config(config, smoke=smoke)
     model = build_model(cfg, device)
     params = model.init(torch.Generator(model.device).manual_seed(seed))
     out = run(model, params, smoke, seed)
@@ -101,5 +107,6 @@ if __name__ == "__main__":
     ap.add_argument("--device", default=None, help="torch device (default cuda)")
     ap.add_argument("--smoke", action="store_true", help="smoke-size config")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--config", default=DEFAULT_CONFIG, help="model config name")
     a = ap.parse_args()
-    main(a.device, a.smoke, a.seed)
+    main(a.device, a.smoke, a.seed, a.config)

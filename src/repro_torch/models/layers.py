@@ -42,6 +42,10 @@ def stack_schema(schema: Schema, n: int, axis_name: Optional[str] = "layers") ->
     return out
 
 
+# most elements drawn at once in f32 by ``_init_leaf``: 1 GiB of scratch
+INIT_CHUNK = 1 << 28
+
+
 def _init_leaf(p: P, gen: torch.Generator, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     if p.init == "zeros":
@@ -51,12 +55,23 @@ def _init_leaf(p: P, gen: torch.Generator, dtype: torch.dtype,
     if p.init != "normal":       # ssm_a, dt_bias
         raise NotImplementedError(f"init {p.init!r} comes with the SSM/hybrid slice")
     # truncated-normal fan-in init: the distribution of repro's init (its
-    # threefry values cannot be reproduced here)
+    # threefry values cannot be reproduced here). A leaf of more than
+    # INIT_CHUNK elements is drawn a block of whole rows at a time, straight
+    # into the result: a stacked expert leaf (48 layers x 128 experts x
+    # 2048 x 768) would otherwise need twice its size again in f32 scratch.
     fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
     std = p.scale / math.sqrt(max(fan_in, 1))
-    u = torch.empty(p.shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(u, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (u * std).to(dtype)
+    out = torch.empty(p.shape, dtype=dtype, device=device)
+    if out.numel() == 0:
+        return out
+    rows = out.view(-1, p.shape[-1])
+    step = max(1, INIT_CHUNK // p.shape[-1])
+    for r0 in range(0, rows.shape[0], step):
+        dst = rows[r0:r0 + step]
+        u = torch.empty(dst.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(u, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        dst.copy_(u.mul_(std))
+    return out
 
 
 def init_params(schema: Schema, gen: torch.Generator, dtype=torch.bfloat16,

@@ -1,4 +1,4 @@
-"""Model API (port of ``repro.models.model``), dense family.
+"""Model API (port of ``repro.models.model``), dense and MoE families.
 
 ``Model`` is a stateless ``nn.Module``: parameters are nested dicts of
 tensors passed to each call, as in ``repro``, so the public functions keep
@@ -25,7 +25,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
-        transformer.require_dense(cfg)
+        transformer.require_ported(cfg)
         self.cfg = cfg
         self.device = torch.device(device if device is not None else DEFAULT_DEVICE)
         self.param_dtype = _DTYPES[cfg.param_dtype]
@@ -58,7 +58,10 @@ class Model(nn.Module):
         lse = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, batch["labels"][..., None].long())[..., 0]
         ce = (lse - gold).mean()
-        return ce, {"ce": ce, "aux": aux,
+        total = ce
+        if self.cfg.moe is not None:
+            total = total + self.cfg.moe.aux_loss_weight * aux
+        return total, {"ce": ce, "aux": aux,
                     "ppl_proxy": torch.exp(torch.clamp(ce, 0, 20.0))}
 
     # ---------------- serving ----------------

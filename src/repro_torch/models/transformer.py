@@ -1,4 +1,4 @@
-"""Decoder-only transformer stack, dense family (port of
+"""Decoder-only transformer stack, dense and MoE families (port of
 ``repro.models.transformer``).
 
 Parameters keep ``repro``'s scan-stacked layout: every block leaf carries a
@@ -7,14 +7,15 @@ index) takes the place of ``lax.scan``. Architectures with a repeating
 layer pattern (gemma3's local:global) unroll the pattern inside each group.
 
 KV caches are per-kind: "full" layers cache all positions; "window" and
-"local" (sliding-window) layers keep a ring buffer of window slots. Norms
-and attention go through ``kernels.ops`` (hand-written kernels on CUDA,
-their plain versions on CPU; differentiable where the inputs require
-grad); the large products stay ``torch.matmul``.
+"local" (sliding-window) layers keep a ring buffer of window slots. Norms,
+attention and the MoE expert products go through ``kernels.ops``
+(hand-written kernels on CUDA, their plain versions on CPU; norms and
+attention differentiable where the inputs require grad); the other large
+products stay ``torch.matmul``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -31,12 +32,13 @@ from .layers import (
     stack_schema,
     swiglu,
 )
+from .moe import moe_ffn, moe_schema
 
 REMAT = ("none", "block", "full")
 
+PORTED = ("dense", "moe")
 # the slice of the port that brings each family not ported yet
 LATER_SLICE = {
-    "moe": "the MoE slice (models/moe.py, kernel _gmm_kernel)",
     "ssm": "the SSM/hybrid slice (models/mamba2.py, kernel _ssd_kernel)",
     "hybrid": "the SSM/hybrid slice (models/hybrid.py, kernel _ssd_kernel)",
     "vlm": "the VLM/audio slice (patch prefix in embed_inputs)",
@@ -44,8 +46,8 @@ LATER_SLICE = {
 }
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
             f"with {LATER_SLICE.get(cfg.family, 'a later slice')}")
@@ -90,13 +92,14 @@ def _kind_slots(pat: List[str]) -> List[Tuple[str, int]]:
 # schema
 # ---------------------------------------------------------------------------
 def block_schema(cfg: ModelConfig) -> Schema:
-    require_dense(cfg)
+    require_ported(cfg)
     return {
         "ln1": P((cfg.d_model,), ("embed",), "ones"),
         "attn": attention_schema(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                  cfg.head_dim_, cfg.qkv_bias),
         "ln2": P((cfg.d_model,), ("embed",), "ones"),
-        "ffn": mlp_schema(cfg.d_model, cfg.d_ff),
+        "ffn": (moe_schema(cfg.d_model, cfg.moe) if cfg.family == "moe"
+                else mlp_schema(cfg.d_model, cfg.d_ff)),
     }
 
 
@@ -132,10 +135,19 @@ def _unstack(tree: Any) -> List[List[Dict[str, Any]]]:
 # ---------------------------------------------------------------------------
 # forward (prefill): full-sequence causal
 # ---------------------------------------------------------------------------
+def _ffn(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN: → (y, the MoE aux loss, or None for a dense FFN)."""
+    if cfg.family == "moe":
+        return moe_ffn(h, p, cfg.moe)
+    return swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None
+
+
 def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
            positions: torch.Tensor, kind: str,
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """→ (block output, roped K, V) for a full causal sequence."""
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """→ (block output, roped K, V, MoE aux or None) for a full causal
+    sequence."""
     h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = qkv_project(h, p["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
     q = apply_rope(q, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
@@ -143,20 +155,20 @@ def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     o = ops.flash_attention(q, k, v, causal=True, window=_window_of(cfg, kind))
     B, S = x.shape[:2]
     x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
-    h = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    y = swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"])
-    return x + y, k, v
+    y, aux = _ffn(cfg, p["ffn"], ops.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x + y, k, v, aux
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict[str, Any],
                  tokens: torch.Tensor) -> torch.Tensor:
-    require_dense(cfg)
+    require_ported(cfg)
     return params["embed"]["table"][tokens]
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
             remat: str = "block") -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (logits (B, S, V), aux_loss). ``remat`` other than "none" keeps no
+    """→ (logits (B, S, V), aux_loss: the layers' MoE aux losses summed, 0
+    for a dense model). ``remat`` other than "none" keeps no
     activation of a layer group for the backward pass: each group's body
     runs under ``torch.utils.checkpoint`` and is recomputed there, as
     ``jax.checkpoint(group_body, policy=nothing_saveable)`` does in
@@ -170,19 +182,22 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     pat = layer_pattern(cfg)
     layers = _unstack(params["blocks"])
 
-    def group_body(h: torch.Tensor, gi: int) -> torch.Tensor:
+    def group_body(h: torch.Tensor, aux: torch.Tensor, gi: int,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         for i, kind in enumerate(pat):
-            h, _, _ = _block(cfg, layers[gi][i], h, positions, kind)
-        return h
+            h, _, _, a = _block(cfg, layers[gi][i], h, positions, kind)
+            if a is not None:
+                aux = aux + a
+        return h, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi in range(n_groups(cfg)):
         if remat != "none" and torch.is_grad_enabled():
-            x = checkpoint(group_body, x, gi, use_reentrant=False)
+            x, aux = checkpoint(group_body, x, aux, gi, use_reentrant=False)
         else:
-            x = group_body(x, gi)
+            x, aux = group_body(x, aux, gi)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(cfg, params, x), torch.zeros((), dtype=torch.float32,
-                                                device=x.device)
+    return unembed(cfg, params, x), aux
 
 
 def unembed(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
@@ -276,9 +291,8 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
             o, _ = ops.flash_attention_fwd(q, kc, vc, causal=False, window=0,
                                            kv_len=kv_len[knd])
             x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
-            hh = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + swiglu(hh, p["ffn"]["w_gate"], p["ffn"]["w_up"],
-                           p["ffn"]["w_down"])
+            y, _ = _ffn(cfg, p["ffn"], ops.rmsnorm(x, p["ln2"], cfg.norm_eps))
+            x = x + y
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)[:, 0, :], cache
 
@@ -316,7 +330,7 @@ def prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     layers = _unstack(params["blocks"])
     for gi in range(n_groups(cfg)):
         for i, kind in enumerate(pat):
-            x, k, v = _block(cfg, layers[gi][i], x, positions, kind)
+            x, k, v, _ = _block(cfg, layers[gi][i], x, positions, kind)
             _, slot = kind_of[i]
             _to_cache_slots(cache[kind]["k"][gi, slot, rows], k)
             _to_cache_slots(cache[kind]["v"][gi, slot, rows], v)

@@ -5,7 +5,8 @@ Needs no JAX, so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Elsewhere it skips (the kernels have no CPU mode). Tolerances are those of
-tests/test_kernels.py (f32 2e-3, bf16 2e-2); lse is f32 statistics in both
+tests/test_kernels.py (f32 2e-3, bf16 2e-2; for the grouped GEMM f32 1e-3,
+bf16 5e-2 relative and 5e-1 absolute); lse is f32 statistics in both
 versions, 2e-3.
 """
 import pytest
@@ -18,6 +19,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
+from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
 
 FLASH_CASES = [
@@ -35,6 +37,19 @@ FLASH_BWD_CASES = [
     (64, 192, 4, 1, 32, False, 0),
     (100, 100, 8, 2, 128, True, 40),
 ]
+# (E, C, D, F): the cases of tests/test_kernels.py, ragged C (1, 8 and 40
+# tokens per expert: one slot, a decode round of 8, a 511-token admission
+# of qwen3-moe), D and F that are no multiple of 8 (no 16-byte loads), and
+# qwen3-moe's decode shape at 16 experts
+GMM_CASES = [
+    (2, 64, 128, 96), (8, 128, 64, 256), (3, 96, 160, 32),
+    (4, 1, 256, 64), (4, 8, 256, 64), (4, 40, 256, 64),
+    (3, 17, 100, 36), (2, 70, 33, 129),
+    (16, 8, 2048, 768),
+]
+# tests/test_kernels.py's tolerances for the grouped GEMM
+GMM_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
+           torch.bfloat16: dict(rtol=5e-2, atol=5e-1)}
 
 
 def test_cuda_kernels_match_plain_versions_on_the_card():
@@ -84,7 +99,7 @@ def test_cuda_wrappers_count_their_launches():
                             kv_len=torch.tensor([3, 16], dtype=torch.int32))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"rmsnorm": 1, "flash_fwd": 1, "flash_bwd_dq": 0,
-                                   "flash_bwd_dkv": 0}
+                                   "flash_bwd_dkv": 0, "moe_gmm": 0}
     # one differentiable call and its backward: one launch of each flash kernel
     ops.reset_launch_counts()
     q = torch.randn(2, 32, 4, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
@@ -92,7 +107,7 @@ def test_cuda_wrappers_count_their_launches():
     torch.autograd.grad(o.float().square().sum(), q)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_fwd": 1, "flash_bwd_dq": 1,
-                                   "flash_bwd_dkv": 1}
+                                   "flash_bwd_dkv": 1, "moe_gmm": 0}
 
 
 def test_cuda_backward_kernels_match_plain_version_on_the_card():
@@ -124,3 +139,56 @@ def test_cuda_backward_wrapper_refuses_kv_len():
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention_bwd_cuda(q, q, q, o, lse, o, causal=True, window=0,
                                  kv_len=torch.tensor([8], dtype=torch.int32))
+
+
+def test_cuda_moe_gmm_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(2)
+    for dt in (torch.float32, torch.bfloat16):
+        for E, C, D, F in GMM_CASES:
+            buf = torch.randn(E, C, D, generator=gen, device="cuda").to(dt)
+            w = (0.5 * torch.randn(E, D, F, generator=gen, device="cuda")).to(dt)
+            got = moe_gmm_cuda(buf, w)
+            want = moe_gmm_plain(buf, w)
+            torch.cuda.synchronize()
+            assert got.dtype == dt and got.shape == (E, C, F)
+            torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[dt])
+
+
+def test_cuda_moe_gmm_wrapper_refuses_bad_inputs_and_counts_launches():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    buf = torch.randn(2, 8, 64, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(2, 64, 32, device="cuda", dtype=torch.bfloat16)
+    bad = [((buf, w[:, :32]), "want buf"), ((buf, w[:1]), "want buf"),
+           ((buf, w.float()), "dtypes"), ((buf.half(), w.half()), "dtypes"),
+           ((buf.transpose(1, 2).contiguous().transpose(1, 2), w), "contiguous"),
+           ((buf, w.cpu()), "one CUDA device")]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            moe_gmm_cuda(*args)
+    ops.reset_launch_counts()
+    for _ in range(3):
+        ops.moe_gmm(buf, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["moe_gmm"] == 3
+    empty = moe_gmm_cuda(buf[:, :0], w)
+    assert empty.shape == (2, 0, 32) and ops.launch_counts()["moe_gmm"] == 3
+
+
+def test_cuda_moe_gmm_refuses_a_call_that_needs_a_gradient():
+    """No backward kernel yet: with grad on and an input that requires it
+    the call raises, and launches nothing; under no_grad it runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    buf = torch.randn(2, 8, 64, device="cuda", requires_grad=True)
+    w = torch.randn(2, 64, 32, device="cuda")
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        ops.moe_gmm(buf, w)
+    assert ops.launch_counts()["moe_gmm"] == 0
+    with torch.no_grad():
+        out = ops.moe_gmm(buf, w)
+    torch.testing.assert_close(out, moe_gmm_plain(buf.detach(), w), **GMM_TOL[torch.float32])
+    assert ops.launch_counts()["moe_gmm"] == 1

@@ -13,6 +13,7 @@ import torch
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_bwd as jax_flash_bwd
 from repro.kernels.flash_attention import flash_attention_fwd as jax_flash_fwd
+from repro.kernels.moe_gmm import moe_gmm_pallas
 from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro.models.layers import attention as jax_attention
 from repro_torch.convert import tensor_from_numpy
@@ -23,6 +24,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
+from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
 
 RNG = np.random.default_rng(42)
@@ -41,7 +43,13 @@ FLASH_BWD_CASES = [
     (128, 128, 4, 4, 64, True, 48),
     (64, 192, 4, 1, 32, False, 0),
 ]
-NO_LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# the grouped-GEMM cases of tests/test_kernels.py, then ragged C: 1, 8 and
+# 40 tokens per expert (one slot, a decode round of 8 slots, a 511-token
+# admission of qwen3-moe-30b-a3b)
+GMM_CASES = [(2, 64, 128, 96), (8, 128, 64, 256), (3, 96, 160, 32),
+             (4, 1, 128, 64), (4, 8, 128, 64), (4, 40, 128, 64)]
+NO_LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+               "moe_gmm": 0}
 
 
 def _tol(name):
@@ -142,6 +150,8 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
     want = flash_attention_plain(q, k, k, causal=True, window=8)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+    buf, w = torch.randn(3, 5, 16), torch.randn(3, 16, 8)
+    torch.testing.assert_close(ops.moe_gmm(buf, w), moe_gmm_plain(buf, w), rtol=0, atol=0)
     assert ops.launch_counts() == NO_LAUNCHES
 
 
@@ -152,6 +162,8 @@ def test_ops_reject_devices_without_a_kernel():
     q = torch.empty(1, 4, 2, 32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ops.flash_attention_fwd(q, q, q, causal=True, window=0)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.moe_gmm(torch.empty(2, 4, 8, device="meta"), torch.empty(2, 8, 4, device="meta"))
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -168,6 +180,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     o, lse = flash_attention_plain(q, q, q, causal=True, window=0)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd_cuda(q, q, q, o, lse, o, causal=True, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm_cuda(torch.randn(2, 4, 8), torch.randn(2, 8, 4))
     assert ops.launch_counts() == NO_LAUNCHES
 
 
@@ -175,9 +189,10 @@ def test_build_hash_covers_every_source():
     names = {p.name for p in build.sources()}
     assert {"flash_fwd.cu", "rmsnorm.cu", "errors.cu"} <= names
     assert build.source_hash() == build.source_hash()
-    assert {"flash_bwd.cu"} <= names
+    assert {"flash_bwd.cu", "moe_gmm.cu"} <= names
     assert set(build.SIGNATURES) == {
-        f"repro_{k}_{t}" for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        f"repro_{k}_{t}" for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                   "moe_gmm")
         for t in ("f32", "bf16")}
 
 
@@ -280,3 +295,28 @@ def test_flash_bwd_refuses_kv_len():
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention_bwd_cuda(q, q, q, o, lse, o, causal=True, window=0,
                                  kv_len=torch.tensor([4], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("E,C,D,F", GMM_CASES)
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_moe_gmm_plain_matches_pallas(E, C, D, F, name):
+    """The plain grouped GEMM against the Pallas kernel in interpret mode and
+    against ``ref.moe_gmm_ref``, with tests/test_kernels.py's tolerances
+    (f32 1e-3; bf16 5e-2 relative and 5e-1 absolute: a bf16 output of a
+    sum over D products)."""
+    bj, bt = _pair(RNG.normal(0, 1, (E, C, D)), name)
+    wj, wt = _pair(RNG.normal(0, 0.5, (E, D, F)), name)
+    got = moe_gmm_plain(bt, wt)
+    assert got.dtype == DTYPES[name][1] and got.shape == (E, C, F)
+    tol = dict(rtol=5e-2, atol=5e-1) if name == "bfloat16" else dict(rtol=1e-3, atol=1e-3)
+    for want in (moe_gmm_pallas(bj, wj, interpret=True), ref.moe_gmm_ref(bj, wj)):
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def test_moe_gmm_on_cpu_is_differentiable():
+    """On the CPU ``ops.moe_gmm`` is the plain product, gradients included
+    (dX = dY·Wᵀ, dW = Xᵀ·dY); the card refuses a call that needs them."""
+    buf = torch.randn(3, 5, 16, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(3, 16, 8, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(ops.moe_gmm, (buf, w))
+    assert ops.launch_counts() == NO_LAUNCHES

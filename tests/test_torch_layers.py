@@ -21,7 +21,7 @@ from repro_torch.models.layers import P, init_params
 RNG = np.random.default_rng(7)
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-DENSE = sorted(a for a, c in ARCHS.items() if c.family == "dense")
+PORTED = sorted(a for a, c in ARCHS.items() if c.family in ("dense", "moe"))
 
 
 def _tol(name):
@@ -98,10 +98,10 @@ def _shapes(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_specs_match_jax(arch):
-    """Every dense arch at full width: same key paths, shapes and dtype,
-    built on the meta device (no allocation)."""
+    """Every dense and MoE arch at full width: same key paths, shapes and
+    dtype, built on the meta device (no allocation)."""
     model = build_model(get_config(arch), device="cpu")
     specs = model.param_specs()
     leaves = jax.tree.leaves(specs)
@@ -116,14 +116,45 @@ def test_full_qwen_param_count_matches_config():
         JAX_ARCHS["qwen1.5-0.5b"].param_count()
 
 
-@pytest.mark.parametrize("arch,slice_word", [("mixtral-8x22b", "MoE"),
-                                             ("mamba2-370m", "SSM"),
+@pytest.mark.parametrize("arch,slice_word", [("mamba2-370m", "SSM"),
                                              ("zamba2-2.7b", "hybrid"),
                                              ("phi-3-vision-4.2b", "VLM"),
                                              ("whisper-tiny", "audio")])
 def test_families_of_later_slices_raise(arch, slice_word):
     with pytest.raises(NotImplementedError, match=slice_word):
         build_model(get_config(arch, smoke=True), device="cpu")
+
+
+def test_full_qwen3_moe_param_count_matches_config():
+    """30.53 B parameters, 61.1 GB in bf16: it fits one 80 GB card."""
+    cfg = get_config("qwen3-moe-30b-a3b")
+    n = build_model(cfg, device="cpu").n_params()
+    assert n == cfg.param_count() == JAX_ARCHS["qwen3-moe-30b-a3b"].param_count()
+    assert 30.5e9 < n < 30.6e9
+
+
+def test_chunked_init_keeps_shape_dtype_and_fan_in_std(monkeypatch):
+    """A stacked expert leaf (layers, pattern, experts, d, ff) drawn in
+    blocks of rows: the shape and dtype of the leaf, the fan-in std
+    (shape[-2]) of a N(0,1) truncated at ±2σ within 5 %, blocks that differ
+    from each other, and the same values as one draw whenever the leaf fits
+    one block."""
+    p = P((3, 1, 4, 96, 40), ("layers", "pattern", "experts", "embed", "ff"))
+    cpu = torch.device("cpu")
+    whole = tl._init_leaf(p, torch.Generator().manual_seed(5), torch.float32, cpu)
+    assert tl.INIT_CHUNK >= whole.numel()
+    monkeypatch.setattr(tl, "INIT_CHUNK", whole.numel())
+    assert torch.equal(tl._init_leaf(p, torch.Generator().manual_seed(5), torch.float32,
+                                     cpu), whole)
+    monkeypatch.setattr(tl, "INIT_CHUNK", 1000)              # 25 rows of 40 a block
+    leaf = tl._init_leaf(p, torch.Generator().manual_seed(5), torch.bfloat16, cpu)
+    assert leaf.shape == p.shape and leaf.dtype == torch.bfloat16
+    std = 1 / np.sqrt(96)
+    w = leaf.float().numpy()
+    assert abs(w.std() / std - 0.8796) < 0.05 * 0.8796
+    assert np.abs(w).max() <= 2 * std * (1 + 2 ** -8)
+    rows = w.reshape(-1, 40)
+    assert not np.array_equal(rows[:25], rows[25:50])
 
 
 def test_init_params_truncated_normal_fan_in_from_generator():

@@ -5,6 +5,14 @@ JAX's ``ContinuousBatcher`` decodes every slot row at one slot's position
 and feeds token 0 to the other rows, overwriting their KV entries; with one
 slot that cannot happen, so JAX's batcher at ``batch_slots=1`` serving one
 request at a time is the oracle for the port's batcher at two slots.
+
+For an MoE model that oracle holds only for prompts of at most 257 tokens.
+JAX's batcher feeds a prompt token by token through ``decode_step`` (one
+token per MoE call: nothing is dropped), where the port's batcher admits
+it by one causal prefill of ``prompt[:-1]``, which follows JAX's
+``prefill``: past 256 tokens per call an expert holds only
+round(T·K/E·1.25) of them and the rest are dropped. Up to 256 tokens
+capacity is T, every token is kept, and the two paths compute the same.
 """
 import jax
 import numpy as np
@@ -124,6 +132,39 @@ def test_batcher_matches_jax_batcher_serving_alone():
     assert batcher.all_logits_finite()
 
 
+def test_moe_batcher_matches_jax_batcher_serving_alone():
+    """qwen3-moe-30b-a3b smoke in f32, 4 requests, one of them with a
+    257-token prompt (a 256-token admission prefill, the longest that drops
+    nothing): the port at 2 slots gives each request JAX's greedy tokens at
+    1 slot."""
+    jcfg = JAX_SMOKE["qwen3-moe-30b-a3b"].scaled(param_dtype="float32")
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(SMOKE_ARCHS["qwen3-moe-30b-a3b"].scaled(param_dtype="float32"),
+                     device="cpu")
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(2, jcfg.vocab, n).tolist() for n in (5, 257, 7, 4)]
+    max_len = 272
+
+    ref = JaxBatcher(jm, jp, batch_slots=1, max_len=max_len)
+    want = []
+    for i, p in enumerate(prompts):
+        r = JaxRequest(f"r{i}", list(p), max_new_tokens=6)
+        ref.submit(r)
+        ref.drain()
+        want.append(r.tokens_out)
+
+    batcher = ContinuousBatcher(tm, tp, batch_slots=2, max_len=max_len)
+    reqs = [Request(f"r{i}", list(p), max_new_tokens=6) for i, p in enumerate(prompts)]
+    for r in reqs:
+        batcher.submit(r)
+    batcher.drain()
+    assert all(r.done for r in reqs) and batcher.prefills == len(prompts)
+    assert [r.tokens_out for r in reqs] == want
+    assert batcher.all_logits_finite()
+
+
 def test_batcher_refuses_prompts_that_do_not_fit():
     model, params = _f32_model("qwen1.5-0.5b")
     batcher = ContinuousBatcher(model, params, batch_slots=2, max_len=8)
@@ -142,3 +183,13 @@ def test_serve_workload_smoke_serves_every_request():
     assert all(1 <= len(r.tokens_out) <= r.max_new_tokens for r in reqs)
     assert all(r.first_logits is not None and r.first_logits.shape == (512,)
                for r in reqs)
+
+
+def test_serve_workload_smoke_serves_an_moe_model():
+    """``--config qwen3-moe-30b-a3b --smoke`` serves the burst through the
+    same entry point as the dense default."""
+    out = serve_workload.main(device="cpu", smoke=True, config="qwen3-moe-30b-a3b")
+    reqs = out["requests"]
+    assert out["served"] == len(reqs) == serve_workload.BURSTS["smoke"][0]
+    assert out["batcher"].model.cfg.family == "moe"
+    assert all(1 <= len(r.tokens_out) <= r.max_new_tokens for r in reqs)
