@@ -9,10 +9,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   2. build   — compiles the kernels from ``src/repro_torch/kernels/csrc``.
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the JAX test shapes and at the main paths' shapes (the
-               grouped expert GEMM also at ragged C = 1, 8, 40); takes
+               grouped expert GEMM also at ragged C = 1, 8, 40; the SSD
+               scan, y and final state, also at ragged S = 1, 37, 257,
+               300; flash attention also at zamba2's D = 80); takes
                the device time (``torch.profiler``) of the kernel, of the
                plain version and of one PyTorch library call of the same
-               function (a yardstick only: the port never calls it), and
+               function where there is one (a yardstick only: the port never
+               calls it; no PyTorch call computes an SSD scan), and
                the kernel's call time through its wrapper. The backward
                kernels take O and lse from the forward kernel.
   4. serve   — full-width qwen1.5-0.5b (bf16, random weights from seed 0):
@@ -31,12 +34,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                launch counters must grow and split into equal steps of the
                counts remat over 24 layers and 2 microbatches gives
                (flash_fwd 96, flash_bwd_dq 48, flash_bwd_dkv 48, rmsnorm 194).
-  6. serve MoE — after the earlier phases' memory is given back, phase 4 on
+  6. serve SSM — after the earlier phases' memory is given back, phase 4 on
+               full-width, full-depth mamba2-370m (48 layers, 419.8 M
+               parameters), then on zamba2-2.7b (54 Mamba layers and one
+               shared attention block applied 9 times, 2.42 B parameters),
+               bf16 from seed 0. Per prefill and per decode round:
+               mamba2 ssd_scan 48 / 0 and rmsnorm 97 / 97, no attention;
+               zamba2 ssd_scan 54 / 0, rmsnorm 127 / 127, flash_fwd 9 / 9.
+               A kernel that runs only in prefills passes the split check,
+               one that never runs fails it. The cross-slot guard, and a
+               state guard: a 300-token prompt admitted by one prefill (the
+               kernel's final state) against the same prompt fed token by
+               token through ``decode_step``, first-token logits compared
+               in f32 (within GUARD_TOL) and in bf16 (against the f32
+               result: the prefill no farther off than the feed).
+  7. serve MoE — after the earlier phases' memory is given back, phase 4 on
                full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
                experts top-8, 30.5 B parameters in bf16 from seed 0): per
                prefill and per decode round flash_fwd 48, rmsnorm 97 and
                moe_gmm 144 launches, no backward launch; the cross-slot guard.
-  7. report  — the card's nvidia-smi line, one JSON line with every kernel's
+  8. report  — the card's nvidia-smi line, one JSON line with every kernel's
                launches, error, times and bound, then
                ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -65,7 +82,7 @@ TILE_REL_TOL = 1e-2                               # backward, per 64-row tile
 RMSNORM_CASES = [(1, 7, 64), (4, 33, 128), (2, 256, 512)]
 FLASH_CASES = [(128, 128, 4, 4, 64, True, 0), (128, 128, 8, 2, 64, True, 0),
                (256, 256, 4, 1, 32, True, 64), (64, 192, 4, 2, 64, False, 0),
-               (96, 96, 2, 2, 128, True, 32)]
+               (96, 96, 2, 2, 128, True, 32), (96, 96, 4, 4, 80, True, 0)]
 FLASH_BWD_CASES = [(128, 128, 4, 2, 32, True, 0), (128, 128, 4, 4, 64, True, 48),
                    (64, 192, 4, 1, 32, False, 0)]
 # the grouped-GEMM cases of tests/test_kernels.py (E, C, D, F) and their
@@ -74,7 +91,16 @@ FLASH_BWD_CASES = [(128, 128, 4, 2, 32, True, 0), (128, 128, 4, 4, 64, True, 48)
 GMM_CASES = [(2, 64, 128, 96), (8, 128, 64, 256), (3, 96, 160, 32)]
 GMM_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (5e-1, 5e-2)}
 GMM_RAGGED_C = (1, 8, 40)
+# the SSD cases of tests/test_kernels.py (B, S, H, P, G, N), then ragged S
+SSD_CASES = [(1, 64, 2, 32, 1, 16), (2, 128, 4, 32, 2, 16), (1, 96, 4, 64, 1, 32),
+             (2, 256, 8, 64, 2, 64)]
+SSD_RAGGED = [(2, S, 4, 64, 1, 128) for S in (1, 37, 257, 300)]
+# the config chunk the SSD's operation count is reckoned at, whatever the
+# kernel's own tile
+SSD_CHUNK = 256
+GUARD_PROMPT = 300                                # > one SSD chunk
 TRAIN_STEPS = 4
+SSM_CONFIGS = ("mamba2-370m", "zamba2-2.7b")
 MOE_CONFIG = "qwen3-moe-30b-a3b"
 
 
@@ -157,9 +183,11 @@ def rmsnorm_phase(gen):
             worst = max(worst, compare(f"rmsnorm {shape} {dt}", rmsnorm_cuda(x, s),
                                        rmsnorm_plain(x, s), TOL[str(dt)[6:]]))
     # (rows, d): qwen1.5-0.5b's prefill step and decode round, then
-    # qwen3-moe-30b-a3b's
+    # qwen3-moe-30b-a3b's (and mamba2-370m's gated norm), then zamba2-2.7b's
+    # gated norm
     shape_by_path = {"prefill": (4 * 1024, 1024), "decode": (8, 1024),
-                     "moe_prefill": (4 * 1024, 2048), "moe_decode": (8, 2048)}
+                     "moe_prefill": (4 * 1024, 2048), "moe_decode": (8, 2048),
+                     "zamba2_prefill": (4 * 1024, 5120), "zamba2_decode": (8, 5120)}
     timed = {}
     for path, (rows, d) in shape_by_path.items():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -212,6 +240,11 @@ def flash_phase(gen):
                                    "B=4 S=T=1024 Hq=32 Hkv=4 D=128 causal bf16"),
         "moe_decode": _flash_path("moe_decode", gen, 8, 1, 2048, 32, 4, 128,
                                   "B=8 S=1 T=2048 Hq=32 Hkv=4 D=128 kv_len 1..2048 bf16"),
+        # zamba2-2.7b's shared block: 32 heads of 80
+        "zamba2_prefill": _flash_path("zamba2_prefill", gen, 4, 1024, 1024, 32, 32, 80,
+                                      "B=4 S=T=1024 H=32 D=80 causal bf16"),
+        "zamba2_decode": _flash_path("zamba2_decode", gen, 8, 1, 2048, 32, 32, 80,
+                                     "B=8 S=1 T=2048 H=32 D=80 kv_len 1..2048 bf16"),
     }
     for t in timed.values():
         worst = max(worst, t["max_abs_err"])
@@ -319,6 +352,149 @@ def gmm_phase(gen):
     return worst, timed
 
 
+def _ssd_inputs(gen, B, S, H, P, G, N, dt, a_range=(0.5, 2.0)):
+    """xh, B_ and C_ as views into one (B, S, H·P + 2·G·N) tensor, as the
+    model splits its xBC; dt ~ U[1e-3, 0.1] and a ~ -U[a_range] (the JAX
+    tests' ranges; the model's init gives -U[1, 16])."""
+    import torch
+    xbc = torch.randn(B, S, H * P + 2 * G * N, generator=gen, device="cuda")
+    xbc[..., H * P:] *= 0.5
+    xs, b, c = torch.split(xbc.to(dt), [H * P, G * N, G * N], dim=-1)
+    d = 1e-3 + 0.099 * torch.rand(B, S, H, generator=gen, device="cuda")
+    lo, hi = a_range
+    a = -(lo + (hi - lo) * torch.rand(H, generator=gen, device="cuda"))
+    return (xs.reshape(B, S, H, P), d.to(dt), a.to(dt), b.reshape(B, S, G, N),
+            c.reshape(B, S, G, N))
+
+
+def ssd_phase(gen):
+    """The SSD scan against its plain version, y and the final state: the
+    JAX test cases and ragged S (f32 and bf16), then the three main-path
+    shapes (bf16, the model's a range), which are also timed."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+    from repro_torch.launch.kernel_times import SSD_PATHS, device_ms, wrapper_ms
+
+    def check(name, ins, tol):
+        """y at the inputs' tolerance; h_final at f32's whatever their type:
+        both versions compute it in f32 from the same inputs."""
+        y, h = ssd_scan_cuda(*ins)
+        py, ph = ssd_scan_plain(*ins, chunk=SSD_CHUNK)
+        return max(compare(f"{name} y", y, py, tol),
+                   compare(f"{name} h_final", h, ph, TOL["float32"]))
+
+    worst = 0.0
+    for case in SSD_CASES + SSD_RAGGED:
+        for dt in (torch.float32, torch.bfloat16):
+            worst = max(worst, check(f"ssd_scan {case} {dt}", _ssd_inputs(gen, *case, dt),
+                                     TOL[str(dt)[6:]]))
+    timed = {}
+    for path, (B, S, H, P, G, N) in SSD_PATHS.items():
+        ins = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16, a_range=(1.0, 16.0))
+        err = check(f"ssd_scan {path}", ins, TOL["bfloat16"])
+        worst = max(worst, err)
+        # bytes: x, dt, B, C read once, y and the f32 final state written once;
+        # operations of the chunked form at the config's chunk Q, counting
+        # only the causal half (j <= i: (Q+1)/2 per row) of the Q x Q
+        # products C·Bᵀ and M·x, and the state's two products in full
+        nbytes = (2 * B * S * H * P + B * S * H + 2 * B * S * G * N) * 2 + B * H * P * N * 4
+        flops = float(B * H * S) * ((SSD_CHUNK + 1) * (N + P) + 4 * P * N)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        timed[path] = {
+            "shape": f"B={B} S={S} H={H} P={P} G={G} N={N} bf16, strided xh/B/C",
+            "max_abs_err": err, "ms": device_ms(lambda: ssd_scan_cuda(*ins)),
+            "wrapper_ms": wrapper_ms(lambda: ssd_scan_cuda(*ins)),
+            "plain_ms": device_ms(lambda: ssd_scan_plain(*ins, chunk=SSD_CHUNK), iters=5),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"ssd_scan {path}: {json.dumps(timed[path])}")
+    return worst, timed
+
+
+def expected_launches(cfg):
+    """Launches per prefill and per decode round of the serving path: → two
+    dicts over the kernels on the path."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":         # per layer: the SSD, the pre-norm, the gated norm
+        norms = 2 * L + 1
+        return {"ssd_scan": L, "rmsnorm": norms}, {"ssd_scan": 0, "rmsnorm": norms}
+    if cfg.family == "hybrid":      # and per shared-block application 2 norms, 1 attention
+        g = L // cfg.hybrid.attn_every
+        norms = 2 * L + 2 * g + 1
+        return ({"ssd_scan": L, "rmsnorm": norms, "flash_fwd": g},
+                {"ssd_scan": 0, "rmsnorm": norms, "flash_fwd": g})
+    # attention once per layer, two norms per layer and the final one, three
+    # expert GEMMs per MoE layer
+    each = {"flash_fwd": L, "rmsnorm": 2 * L + 1}
+    if cfg.family == "moe":
+        each["moe_gmm"] = 3 * L
+    return each, dict(each)
+
+
+def first_logits_alone(model, params, prompt):
+    """First-token logits of ``prompt`` served alone (one slot: one prefill
+    of ``prompt[:-1]``, one decode step)."""
+    from repro_torch.runtime.serve import ContinuousBatcher, Request
+    solo = ContinuousBatcher(model, params, batch_slots=1, max_len=2048)
+    alone = Request("alone", list(prompt), max_new_tokens=1)
+    solo.submit(alone)
+    solo.drain()
+    return alone.first_logits
+
+
+def guard(name, a, b):
+    rel = float((a - b).abs().max() / b.abs().max())
+    print(f"{name}: rel err {rel:.3g}")
+    if not rel <= GUARD_TOL:
+        fail(f"{name}: first-token logits differ by {rel:.3g} of the largest")
+    return rel
+
+
+def _prefilled_and_fed(model, params, prompt):
+    """First-token logits of ``prompt`` admitted by one prefill (the
+    kernel's final state, cast once to the cache's dtype), and after feeding
+    it token by token through ``decode_step`` from an empty cache (the
+    recurrent form, the state rounded to the cache's dtype at every step),
+    as repro's batcher admits it."""
+    import torch
+    prefilled = first_logits_alone(model, params, prompt).float()
+    cache = model.init_cache(1, 2048)
+    for t, tok in enumerate(prompt):
+        logits, cache = model.decode_step(
+            params, cache, torch.tensor([tok], device="cuda"), t)
+    return prefilled, logits[0].float()
+
+
+def state_guard(model, params):
+    """The two admissions of one prompt against each other. In f32 (the same
+    weights cast up) they differ only by how the state was reached, so they
+    must agree within GUARD_TOL. In bf16 each sits some 6 % of the largest
+    logit from the f32 result (full-width models, seed 0; as far at 64
+    tokens as at 300, so bf16 rounding through the layers, not the state):
+    there the prefill must be no farther from the f32 result than the
+    token-by-token feed is, plus GUARD_TOL."""
+    import torch
+    from repro_torch.models import build_model
+
+    def cast(t):
+        return {k: cast(v) for k, v in t.items()} if isinstance(t, dict) else t.float()
+
+    rng = torch.Generator("cuda").manual_seed(2)
+    prompt = torch.randint(2, model.cfg.vocab, (GUARD_PROMPT,), device="cuda",
+                           generator=rng).tolist()
+    m32 = build_model(model.cfg.scaled(param_dtype="float32"), "cuda")
+    pre32, fed32 = _prefilled_and_fed(m32, cast(params), prompt)
+    guard(f"state guard f32 (prompt {GUARD_PROMPT}): prefill vs token by token",
+          pre32, fed32)
+    pre, fed = _prefilled_and_fed(model, params, prompt)
+    rel = {name: float((x - fed32).abs().max() / fed32.abs().max())
+           for name, x in (("prefill", pre), ("token_by_token", fed))}
+    print(f"state guard bf16 (prompt {GUARD_PROMPT}): rel err against f32 {rel}, "
+          f"prefill vs token by token {float((pre - fed).abs().max() / fed.abs().max()):.3g}")
+    if not rel["prefill"] <= rel["token_by_token"] + GUARD_TOL:
+        fail(f"state guard bf16: the prefill is {rel['prefill']:.3g} from the f32 "
+             f"result, the token-by-token feed {rel['token_by_token']:.3g}")
+
+
 def serve_phase(config="qwen1.5-0.5b"):
     import torch
     from repro_torch.configs import get_config
@@ -326,7 +502,8 @@ def serve_phase(config="qwen1.5-0.5b"):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_workload
     from repro_torch.models import build_model
-    from repro_torch.runtime.serve import ContinuousBatcher, Request, make_prefill_step
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.runtime.serve import make_prefill_step
 
     cfg = get_config(config)
     model = build_model(cfg, "cuda")
@@ -357,7 +534,7 @@ def serve_phase(config="qwen1.5-0.5b"):
     # ---- end of the main path ----
 
     if nxt.shape != (B,) or not all(bool(torch.isfinite(c).all())
-                                    for d in cache.values() for c in d.values()):
+                                    for c in tree_leaves(cache)):
         fail("prefill step: wrong shape or non-finite cache")
     reqs, batcher = served["requests"], served["batcher"]
     if served["served"] != len(reqs) or not all(r.tokens_out for r in reqs):
@@ -367,28 +544,22 @@ def serve_phase(config="qwen1.5-0.5b"):
     # launches of one decode round, from the main path's own counts: two
     # prefill steps, one prefill per admission, then the engine's rounds
     prefills, rounds = 2 + batcher.prefills, batcher.steps
-    per_round = {}
-    not_on_path = ["flash_bwd_dq", "flash_bwd_dkv"]       # no Function on this path
-    if cfg.family != "moe":
-        not_on_path.append("moe_gmm")
-    for name in not_on_path:
+    want_prefill, want_round = expected_launches(cfg)
+    for name in [k for k in launches if k not in want_prefill]:   # not on this path
         if launches.pop(name) + per_prefill.pop(name):
             fail(f"kernel {name} launched while serving {cfg.name}")
+    # a kernel of the path must run in it; one that runs only in prefills
+    # (the SSD scan) leaves 0 launches to the decode rounds
+    per_round = {}
     for name, n in launches.items():
         decode_launches = n - per_prefill[name] * prefills
-        if rounds <= 0 or decode_launches <= 0 or decode_launches % rounds:
+        if n <= 0 or rounds <= 0 or decode_launches < 0 or decode_launches % rounds:
             fail(f"kernel {name}: {n} launches do not split into {prefills} prefills "
                  f"of {per_prefill[name]} and {rounds} equal decode rounds")
         per_round[name] = decode_launches // rounds
-    # per prefill and per decode round: attention once per layer, two norms
-    # per layer and the final one, three expert GEMMs per MoE layer
-    L = cfg.n_layers
-    expected = {"flash_fwd": L, "rmsnorm": 2 * L + 1}
-    if cfg.family == "moe":
-        expected["moe_gmm"] = 3 * L
-    if per_prefill != expected or per_round != expected:
+    if per_prefill != want_prefill or per_round != want_round:
         fail(f"{cfg.name}: launches per prefill {per_prefill} and per decode round "
-             f"{per_round}, expected {expected}")
+             f"{per_round}, expected {want_prefill} and {want_round}")
     tok_s = served["tokens"] / served["seconds"]
     print(f"prefill step B={B} S={S}: {prefill_ms:.3f} ms")
     print(f"served {served['served']} requests, {served['tokens']} tokens in "
@@ -396,18 +567,13 @@ def serve_phase(config="qwen1.5-0.5b"):
           f"({served['engine_steps']} engine rounds, prefills included)")
     print(f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
-    # guard against cross-slot writes: first-token logits alone vs batched
+    # guard against cross-slot writes (K/V or state): first-token logits
+    # alone vs batched
     for r in (served["order"][1], served["order"][-1]):   # first and last wave
-        solo = ContinuousBatcher(model, params, batch_slots=1, max_len=2048)
-        alone = Request(r.req_id, list(r.prompt), max_new_tokens=1)
-        solo.submit(alone)
-        solo.drain()
-        a, b = r.first_logits, alone.first_logits
-        rel = float((a - b).abs().max() / b.abs().max())
-        print(f"cross-slot guard {r.req_id} (prompt {len(r.prompt)}): "
-              f"rel err {rel:.3g}")
-        if rel > GUARD_TOL:
-            fail(f"{r.req_id}: batched first-token logits differ from solo ({rel:.3g})")
+        guard(f"cross-slot guard {r.req_id} (prompt {len(r.prompt)})", r.first_logits,
+              first_logits_alone(model, params, r.prompt))
+    if cfg.family in ("ssm", "hybrid"):
+        state_guard(model, params)
 
     print(f"launches: main path {launches} over {prefills} prefills and {rounds} "
           f"decode rounds; per prefill {per_prefill}, per decode round {per_round}")
@@ -510,8 +676,9 @@ def train_phase():
     launches = ops.launch_counts()
     # ---- end of the main path ----
 
-    if launches.pop("moe_gmm") + sum(c.pop("moe_gmm") for c in counts):
-        fail(f"train: moe_gmm launched while training the dense {cfg.name}")
+    for name in ("moe_gmm", "ssd_scan"):                 # not on the dense train path
+        if launches.pop(name) + sum(c.pop(name) for c in counts):
+            fail(f"train: {name} launched while training the dense {cfg.name}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in losses + gnorms):
         fail(f"train: non-finite loss or grad norm: {losses} {gnorms}")
@@ -546,18 +713,18 @@ def train_phase():
     return launches, per_step
 
 
-def release_memory():
-    """Give the earlier phases' device memory back before the MoE phase,
-    whose weights alone take 61.1 GB of the card's 80."""
+def release_memory(next_phase):
+    """Give the earlier phases' device memory back before the next model's
+    phase (the MoE model's weights alone take 61.1 GB of the card's 80)."""
     import gc
     import torch
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 1e9
-    print(f"memory before {MOE_CONFIG}: {held:.3f} GB allocated, "
+    print(f"memory before {next_phase}: {held:.3f} GB allocated, "
           f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
     if held > 1.0:
-        fail(f"{held:.3f} GB still allocated before the MoE phase")
+        fail(f"{held:.3f} GB still allocated before {next_phase}")
 
 
 def main() -> int:
@@ -569,9 +736,14 @@ def main() -> int:
     flash_err, flash_t = flash_phase(gen)
     bwd_err, bwd_t = flash_bwd_phase(gen)
     gmm_err, gmm_t = gmm_phase(gen)
+    ssd_err, ssd_t = ssd_phase(gen)
     launches, per_prefill, per_round = serve_phase()
     train_launches, per_step = train_phase()
-    release_memory()
+    ssm = {}
+    for config in SSM_CONFIGS:
+        release_memory(config)
+        ssm[config] = serve_phase(config)
+    release_memory(MOE_CONFIG)
     moe_launches, moe_prefill, moe_round = serve_phase(MOE_CONFIG)
 
     def entry(name, source, replaces, err, timed):
@@ -589,7 +761,19 @@ def main() -> int:
                 "moe_prefill": timed["moe_prefill"], "moe_decode": timed["moe_decode"],
                 "launches_moe_serve": moe_launches[name],
                 "launches_per_moe_prefill": moe_prefill[name],
-                "launches_per_moe_decode_round": moe_round[name]}
+                "launches_per_moe_decode_round": moe_round[name],
+                "zamba2_prefill": timed["zamba2_prefill"],
+                "zamba2_decode": timed["zamba2_decode"], **ssm_launches(name)}
+
+    def ssm_launches(name):
+        """The kernel's launches on each SSM serving path it runs in."""
+        out = {}
+        for config, (n, pre, rnd) in ssm.items():
+            if name in n:
+                out.update({f"launches_{config}_serve": n[name],
+                            f"launches_per_{config}_prefill": pre[name],
+                            f"launches_per_{config}_decode_round": rnd[name]})
+        return out
 
     def bwd_entry(name, line):
         return {"name": name, "route": "cuda",
@@ -613,6 +797,14 @@ def main() -> int:
          "launches": moe_launches["moe_gmm"], "max_abs_err": gmm_err, "paths": gmm_t,
          "launches_per_prefill": moe_prefill["moe_gmm"],
          "launches_per_decode_round": moe_round["moe_gmm"]},
+        # top level: mamba2-370m's prefill step shape; "launches" is the
+        # mamba2-370m serving path's
+        {**ssd_t["mamba2_prefill"], "name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:26",
+         "launches": ssm["mamba2-370m"][0]["ssd_scan"], "max_abs_err": ssd_err,
+         "library_ms": None, "library": "none: no single PyTorch call computes an SSD scan",
+         "paths": ssd_t, **ssm_launches("ssd_scan")},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,10 @@
 // shared memory (no tensor cores): it is right and simple; wgmma, TMA and
 // split-KV decode are later work. Two tile shapes are compiled: BQ = 64
 // rows x 4 lanes for prefill, BQ = 4 rows x 32 lanes for S <= 4 (decode), so
-// that a decode block spends its threads on loading K/V, not on empty rows.
+// that a decode block spends its threads on loading K/V, not on empty rows
+// (4 rows x 16 lanes at D = 80, zamba2's shared attention block, so that the
+// lanes of a row split its columns evenly). Head dims 32, 64, 80 and 128 are
+// compiled; shared memory is 78.6 KB a block at D = 80 and 115.5 KB at 128.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -200,7 +203,9 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch_for_rows(const FlashParams& p, cudaStream_t stream) {
-  if (p.S <= 4) return launch<T, D, 4, 32, 64>(p, stream);
+  // a decode row's lanes split its D columns evenly: 16 lanes for D = 80
+  constexpr int kDecodeLanes = D % 32 == 0 ? 32 : 16;
+  if (p.S <= 4) return launch<T, D, 4, kDecodeLanes, 64>(p, stream);
   return launch<T, D, 64, 4, 64>(p, stream);
 }
 
@@ -219,6 +224,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   switch (D) {
     case 32: return launch_for_rows<T, 32>(p, st);
     case 64: return launch_for_rows<T, 64>(p, st);
+    case 80: return launch_for_rows<T, 80>(p, st);
     case 128: return launch_for_rows<T, 128>(p, st);
     default: return cudaErrorInvalidValue;
   }

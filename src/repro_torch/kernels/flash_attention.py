@@ -41,7 +41,8 @@ from . import build
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)            # the backward kernels'
+FWD_HEAD_DIMS = (32, 64, 80, 128)    # the forward kernel's (80: zamba2's shared block)
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -112,8 +113,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention_cuda: shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)} do not match")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
+    if D not in FWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {D} not in {FWD_HEAD_DIMS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_cuda: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; want one of {DTYPES} for all")

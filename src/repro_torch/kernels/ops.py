@@ -12,9 +12,10 @@ whose forward is the same dispatch and whose backward is the flash backward
 kernels (attention; plain version on the CPU) or plain PyTorch (RMSNorm,
 whose gradient JAX leaves to XLA: there is no Pallas kernel to port).
 Elsewhere (serving) they call the forward dispatch directly, so the
-Function layer adds no launch there. ``moe_gmm`` has no backward on the
-card yet (JAX has none for its kernel either; MoE training is a later
-item): on a CUDA tensor that would need one it raises.
+Function layer adds no launch there. ``moe_gmm`` and ``ssd_scan`` have no
+backward on the card yet (JAX has none for their kernels either; MoE and
+SSM training are later items): on a CUDA tensor that would need one they
+raise.
 """
 from __future__ import annotations
 
@@ -32,10 +33,12 @@ from .flash_attention import (
 )
 from .moe_gmm import moe_gmm_cuda, moe_gmm_plain
 from .rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
 _CUDA_WRAPPERS = {"rmsnorm": rmsnorm_cuda, "flash_fwd": flash_attention_cuda,
                   "flash_bwd_dq": flash_bwd_dq_cuda,
-                  "flash_bwd_dkv": flash_bwd_dkv_cuda, "moe_gmm": moe_gmm_cuda}
+                  "flash_bwd_dkv": flash_bwd_dkv_cuda, "moe_gmm": moe_gmm_cuda,
+                  "ssd_scan": ssd_scan_cuda}
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -163,6 +166,25 @@ def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                 "training (dX = dY·Wᵀ and dW = Xᵀ·dY through the grouped GEMM)")
         return moe_gmm_cuda(buf, w)
     return moe_gmm_plain(buf, w)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunked scan
+# ---------------------------------------------------------------------------
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B_: torch.Tensor,
+             C_: torch.Tensor, *, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (y (B, S, H, P) in xh's dtype, final state (B, H, P, N) f32); see
+    ``kernels.ssd_scan``. ``chunk`` is the plain version's chunk length (the
+    kernel tiles by 64 rows; the result is the same up to rounding).
+    Differentiable on the CPU only (plain PyTorch); on the card a call that
+    would need a gradient is refused."""
+    if _on_cuda(xh, "ssd_scan"):
+        if _needs_grad(xh, dt, a, B_, C_):
+            raise NotImplementedError(
+                "ssd_scan: no backward kernel on the card yet; it comes with SSM "
+                "training")
+        return ssd_scan_cuda(xh, dt, a, B_, C_)
+    return ssd_scan_plain(xh, dt, a, B_, C_, chunk)
 
 
 def launch_counts() -> Dict[str, int]:

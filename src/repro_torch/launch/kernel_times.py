@@ -9,7 +9,11 @@ at 4096 and at 8 rows of 1024. qwen3-moe-30b-a3b: flash attention at the
 same two shapes with 32 query and 4 KV heads of 128, RMSNorm at d = 2048,
 and the grouped expert GEMM of one MoE layer (128 experts, d 2048, ff 768)
 at a decode round of 8 slots (C = 8) and at the prefill step (C = 320),
-gate/up (2048 -> 768) and down (768 -> 2048). A time is the summed
+gate/up (2048 -> 768) and down (768 -> 2048). The SSD scan at mamba2-370m's
+prefill step (B=4, S=1024, 32 heads of 64, N=128), at zamba2-2.7b's (80
+heads, N=64) and at one 511-token mamba2-370m admission; flash attention at
+zamba2-2.7b's 32 heads of 80 (prefill and decode shapes as above), RMSNorm
+at its d_inner 5120. A time is the summed
 duration of what one call runs on the device, traced by
 ``torch.profiler``; host time between launches does not count. Prints one JSON line with ``--repeats`` readings per kernel and
 shape. To compare two versions of a kernel, run this from both checkouts in
@@ -25,11 +29,16 @@ import torch
 from ..kernels.flash_attention import flash_attention_cuda
 from ..kernels.moe_gmm import moe_gmm_cuda
 from ..kernels.rmsnorm import rmsnorm_cuda
+from ..kernels.ssd_scan import ssd_scan_cuda
 
 # qwen3-moe-30b-a3b's MoE layer: experts, d_model, d_ff_expert; tokens per
 # expert in a decode round of 8 slots and in a B=4 x S=1024 prefill step
 MOE_E, MOE_D, MOE_F = 128, 2048, 768
 MOE_C = {"decode": 8, "prefill": 320}
+# the SSD scan's main-path shapes (B, S, H, P, G, N)
+SSD_PATHS = {"mamba2_prefill": (4, 1024, 32, 64, 1, 128),
+             "zamba2_prefill": (4, 1024, 80, 64, 1, 64),
+             "mamba2_admission": (1, 511, 32, 64, 1, 128)}
 
 
 # Now and then a profiler session on the card records no device event at
@@ -99,6 +108,16 @@ def main(repeats: int = 3) -> dict:
     w_up, w_down = randn(MOE_E, MOE_D, MOE_F), randn(MOE_E, MOE_F, MOE_D)
     bufs = {path: (randn(MOE_E, c, MOE_D), randn(MOE_E, c, MOE_F))
             for path, c in MOE_C.items()}
+    # zamba2-2.7b: its shared block's 32 heads of 80, its gated norm
+    qp3, kp3, vp3 = randn(4, 1024, 32, 80), randn(4, 1024, 32, 80), randn(4, 1024, 32, 80)
+    qd3, kd3, vd3 = randn(8, 1, 32, 80), randn(8, 2048, 32, 80), randn(8, 2048, 32, 80)
+    xp3, scale3 = randn(4096, 5120), randn(5120)
+    ssd = {}
+    for path, (B, S, Hs, P, G, N) in SSD_PATHS.items():
+        dt = (1e-3 + 0.099 * torch.rand(B, S, Hs, generator=gen, device="cuda")).to(bf16)
+        a = -(1 + 15 * torch.rand(Hs, generator=gen, device="cuda")).to(bf16)
+        ssd[path] = (randn(B, S, Hs, P), dt, a, 0.5 * randn(B, S, G, N),
+                     0.5 * randn(B, S, G, N))
     calls = {
         "flash_fwd prefill": lambda: flash_attention_cuda(qp, kp, vp, causal=True,
                                                           window=0),
@@ -112,7 +131,14 @@ def main(repeats: int = 3) -> dict:
             qd2, kd2, vd2, causal=False, window=0, kv_len=kv_len),
         "rmsnorm 4096x2048": lambda: rmsnorm_cuda(xp2, scale2),
         "rmsnorm 8x2048": lambda: rmsnorm_cuda(xd2, scale2),
+        "flash_fwd prefill H=32 D=80": lambda: flash_attention_cuda(
+            qp3, kp3, vp3, causal=True, window=0),
+        "flash_fwd decode H=32 D=80": lambda: flash_attention_cuda(
+            qd3, kd3, vd3, causal=False, window=0, kv_len=kv_len),
+        "rmsnorm 4096x5120": lambda: rmsnorm_cuda(xp3, scale3),
     }
+    for path, ins in ssd.items():
+        calls[f"ssd_scan {path}"] = lambda ins=ins: ssd_scan_cuda(*ins)
     for path, (x_d, x_f) in bufs.items():
         calls[f"moe_gmm {path} gate/up C={MOE_C[path]}"] = \
             lambda x=x_d: moe_gmm_cuda(x, w_up)

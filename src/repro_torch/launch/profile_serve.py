@@ -1,6 +1,7 @@
 """Where the serving time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--config qwen3-moe-30b-a3b]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--config qwen3-moe-30b-a3b|mamba2-370m|zamba2-2.7b]
 
 Serves ``serve_workload``'s full burst (a full-width model, default
 qwen1.5-0.5b, bf16, random weights from seed 0, 8 slots) once to warm up,
@@ -33,6 +34,7 @@ from . import serve_workload
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
             ("rmsnorm", ("rmsnorm_kernel",)),
             ("moe_gmm", ("moe_gmm",)),
+            ("ssd_scan", ("ssd_scan_kernel",)),      # before "scan", which it contains
             ("scan", ("scan",)),
             ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas", "splitk")),
             ("index/copy", ("index", "copy", "scatter", "gather", "cat")),

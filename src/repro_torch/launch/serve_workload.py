@@ -1,10 +1,10 @@
 """End-to-end serving entry point: continuous batching under Lotaru ordering.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_workload [--device cpu] [--smoke]
-        [--config qwen3-moe-30b-a3b]
+        [--config qwen3-moe-30b-a3b|mamba2-370m|zamba2-2.7b]
 
-A model (``--config``, default qwen1.5-0.5b; a dense or an MoE config)
-serves a burst of requests through the ContinuousBatcher.
+A model (``--config``, default qwen1.5-0.5b; a dense, MoE, SSM or hybrid
+config) serves a burst of requests through the ContinuousBatcher.
 Admission order is shortest-predicted-first: the Lotaru runtime predictor
 ranks each request by its predicted decode time (the CWS rank_min analogue
 for serving), which minimises mean latency. The engine decodes one token

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,8 +52,15 @@ def _init_leaf(p: P, gen: torch.Generator, dtype: torch.dtype,
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dtype, device=device)
-    if p.init != "normal":       # ssm_a, dt_bias
-        raise NotImplementedError(f"init {p.init!r} comes with the SSM/hybrid slice")
+    if p.init in ("ssm_a", "dt_bias"):
+        # Mamba2's: A_log = log U[1, 16]; dt_bias = softplus^-1 of dt ~
+        # U[1e-3, 1e-1]; drawn in f32, cast once
+        lo, hi = (1.0, 16.0) if p.init == "ssm_a" else (1e-3, 1e-1)
+        u = torch.empty(p.shape, dtype=torch.float32, device=device).uniform_(
+            lo, hi, generator=gen)
+        return (torch.log(u) if p.init == "ssm_a" else torch.log(torch.expm1(u))).to(dtype)
+    if p.init != "normal":
+        raise ValueError(f"unknown init {p.init!r}")
     # truncated-normal fan-in init: the distribution of repro's init (its
     # threefry values cannot be reproduced here). A leaf of more than
     # INIT_CHUNK elements is drawn a block of whole rows at a time, straight
@@ -109,6 +116,13 @@ def _unflatten(leaves: Dict[str, Any]) -> Dict[str, Any]:
             d = d.setdefault(p, {})
         d[parts[-1]] = v
     return root
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of nested dicts (parameters, caches), in key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
 
 
 def count_params(tree) -> int:

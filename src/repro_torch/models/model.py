@@ -1,13 +1,18 @@
-"""Model API (port of ``repro.models.model``), dense and MoE families.
+"""Model API (port of ``repro.models.model``): dense, MoE, SSM and hybrid
+families.
 
 ``Model`` is a stateless ``nn.Module``: parameters are nested dicts of
 tensors passed to each call, as in ``repro``, so the public functions keep
 ``repro``'s signatures (``init``, ``param_specs``, ``logits``, ``loss``,
-``init_cache``, ``prefill``, ``decode_step``). The model's device is the
-one its tensors are made on: ``cuda`` unless the caller passes another.
+``init_cache``, ``prefill``, ``decode_step``) and dispatch by family as
+``repro``'s does. The model's device is the one its tensors are made on:
+``cuda`` unless the caller passes another. Unlike ``repro``'s, ``prefill``
+and ``prefill_into`` serve the SSM and hybrid families too: they leave in
+the cache the state that feeding the prompt token by token would.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -15,11 +20,33 @@ from torch import nn
 
 from .. import DEFAULT_DEVICE
 from ..configs.base import ModelConfig
-from . import transformer
+from . import hybrid, mamba2, transformer
 from .layers import Schema, count_params, init_params, param_specs
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+
+# each family's functions, as repro's model.py dispatches them
+_FAMILIES = {
+    "dense": SimpleNamespace(schema=transformer.lm_schema, forward=transformer.forward,
+                             cache_shapes=transformer.cache_shapes,
+                             init_cache=transformer.init_cache,
+                             decode_step=transformer.decode_step,
+                             prefill=transformer.prefill,
+                             prefill_into=transformer.prefill_into),
+    "ssm": SimpleNamespace(schema=mamba2.ssm_lm_schema, forward=mamba2.ssm_forward,
+                           cache_shapes=mamba2.ssm_cache_shapes,
+                           init_cache=mamba2.ssm_init_cache,
+                           decode_step=mamba2.ssm_decode_step,
+                           prefill=mamba2.ssm_prefill,
+                           prefill_into=mamba2.ssm_prefill_into),
+    "hybrid": SimpleNamespace(schema=hybrid.hybrid_schema, forward=hybrid.forward,
+                              cache_shapes=hybrid.cache_shapes,
+                              init_cache=hybrid.init_cache,
+                              decode_step=hybrid.decode_step, prefill=hybrid.prefill,
+                              prefill_into=hybrid.prefill_into),
+}
+_FAMILIES["moe"] = _FAMILIES["dense"]
 
 
 class Model(nn.Module):
@@ -29,7 +56,8 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = torch.device(device if device is not None else DEFAULT_DEVICE)
         self.param_dtype = _DTYPES[cfg.param_dtype]
-        self.schema: Schema = transformer.lm_schema(cfg)
+        self.family = _FAMILIES[cfg.family]
+        self.schema: Schema = self.family.schema(cfg)
 
     # ---------------- params ----------------
     def init(self, rng: torch.Generator) -> Dict[str, Any]:
@@ -47,7 +75,7 @@ class Model(nn.Module):
     # ---------------- forward ----------------
     def logits(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                remat: str = "block") -> Tuple[torch.Tensor, torch.Tensor]:
-        return transformer.forward(self.cfg, params, batch["tokens"], remat=remat)
+        return self.family.forward(self.cfg, params, batch["tokens"], remat=remat)
 
     forward = logits
 
@@ -65,15 +93,20 @@ class Model(nn.Module):
                     "ppl_proxy": torch.exp(torch.clamp(ce, 0, 20.0))}
 
     # ---------------- serving ----------------
+    def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """The cache's leaf shapes (nested dicts of tuples)."""
+        return self.family.cache_shapes(self.cfg, batch, max_len)
+
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        return transformer.init_cache(self.cfg, batch, max_len,
-                                      self.param_dtype, self.device)
+        return self.family.init_cache(self.cfg, batch, max_len, self.param_dtype,
+                                      self.device)
 
     def decode_step(self, params: Dict[str, Any], cache: Dict[str, Any],
                     token: torch.Tensor, pos: Union[int, torch.Tensor],
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Updates ``cache`` in place; see ``transformer.decode_step``."""
-        return transformer.decode_step(self.cfg, params, cache, token, pos)
+        """Updates ``cache`` in place; ``pos`` is an int or per row (see
+        ``transformer.decode_step``; an SSM does not read it)."""
+        return self.family.decode_step(self.cfg, params, cache, token, pos)
 
     def prefill(self, params: Dict[str, Any], tokens: torch.Tensor,
                 max_len: int, extra: Optional[Dict[str, torch.Tensor]] = None,
@@ -81,13 +114,13 @@ class Model(nn.Module):
         if extra:
             raise NotImplementedError("prefill inputs beyond tokens come with "
                                       "the VLM/audio slice")
-        return transformer.prefill(self.cfg, params, tokens, max_len)
+        return self.family.prefill(self.cfg, params, tokens, max_len)
 
     def prefill_into(self, params: Dict[str, Any], tokens: torch.Tensor,
                      cache: Dict[str, Any], row: int = 0) -> torch.Tensor:
         """Prefill into rows ``row ..`` of an existing cache, in place; →
-        last-position logits. See ``transformer.prefill_into``."""
-        return transformer.prefill_into(self.cfg, params, tokens, cache, row)
+        last-position logits. See each family's ``prefill_into``."""
+        return self.family.prefill_into(self.cfg, params, tokens, cache, row)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -1,5 +1,5 @@
 """Decoder-only transformer stack, dense and MoE families (port of
-``repro.models.transformer``).
+``repro.models.transformer``); which families the port serves.
 
 Parameters keep ``repro``'s scan-stacked layout: every block leaf carries a
 leading (groups, pattern_len) stack, and a Python loop over (group, pattern
@@ -36,11 +36,9 @@ from .moe import moe_ffn, moe_schema
 
 REMAT = ("none", "block", "full")
 
-PORTED = ("dense", "moe")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 # the slice of the port that brings each family not ported yet
 LATER_SLICE = {
-    "ssm": "the SSM/hybrid slice (models/mamba2.py, kernel _ssd_kernel)",
-    "hybrid": "the SSM/hybrid slice (models/hybrid.py, kernel _ssd_kernel)",
     "vlm": "the VLM/audio slice (patch prefix in embed_inputs)",
     "audio": "the VLM/audio slice (models/encdec.py)",
 }
@@ -118,18 +116,22 @@ def lm_schema(cfg: ModelConfig) -> Schema:
     return s
 
 
-def _unstack(tree: Any) -> List[List[Dict[str, Any]]]:
-    """[group][pattern index] → views of that layer's params in the
-    (groups, pattern, ...) stack, by one ``unbind`` per stack dim. Its
-    backward stacks the layers' gradients once; indexing each layer out
-    (``v[gi, i]``) would give each layer's gradient a zero-filled stack of
-    its own for autograd to sum, L full-size adds per leaf."""
+def unstack(tree: Any, depth: int = 2) -> List[Any]:
+    """Views of each layer's params in a stack of ``depth`` leading dims
+    ([group][pattern index] for 2, [layer] for 1), by one ``unbind`` per
+    stack dim. Its backward stacks the layers' gradients once; indexing each
+    layer out (``v[gi, i]``) would give each layer's gradient a zero-filled
+    stack of its own for autograd to sum, L full-size adds per leaf."""
     if not isinstance(tree, dict):
-        return [list(t.unbind(0)) for t in tree.unbind(0)]
-    parts = {k: _unstack(v) for k, v in tree.items()}
-    first = next(iter(parts.values()))
-    return [[{k: p[gi][i] for k, p in parts.items()} for i in range(len(row))]
-            for gi, row in enumerate(first)]
+        return [t if depth == 1 else unstack(t, depth - 1) for t in tree.unbind(0)]
+    return _zip({k: unstack(v, depth) for k, v in tree.items()}, depth)
+
+
+def _zip(parts: Dict[str, List[Any]], depth: int) -> List[Any]:
+    """{key: nested lists} → nested lists of {key: leaf}."""
+    n = len(next(iter(parts.values())))
+    rows = [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return rows if depth == 1 else [_zip(r, depth - 1) for r in rows]
 
 
 # ---------------------------------------------------------------------------
@@ -143,18 +145,60 @@ def _ffn(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
     return swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None
 
 
+def _roped_qkv(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
+               positions: torch.Tensor,
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q, k, v = qkv_project(h, p, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+    q = apply_rope(q, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+    k = apply_rope(k, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def attend(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor, positions: torch.Tensor,
+           window: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal attention over a full sequence: normed input h (B, S, d) →
+    (output projection (B, S, d), roped K, V)."""
+    q, k, v = _roped_qkv(cfg, p, h, positions)
+    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    B, S = h.shape[:2]
+    return o.reshape(B, S, -1) @ p["wo"], k, v
+
+
+def decode_slots(pos_t: torch.Tensor, slots: int, window: int = 0,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where a decode step at per-row positions ``pos_t`` (B,) writes and
+    reads a cache of ``slots`` slots: → (rows, write slot, kv_len). Row b
+    writes at ``pos[b] % slots`` in a window layer's ring and at ``pos[b]``
+    in a full layer, clamped to the last slot as ``dynamic_update_slice``
+    does in ``repro``; it attends to ``min(pos[b] + 1, slots)`` slots."""
+    write = pos_t % slots if window > 0 else pos_t.clamp(max=slots - 1)
+    return (torch.arange(pos_t.shape[0], device=pos_t.device), write,
+            (pos_t + 1).clamp(max=slots).to(torch.int32))
+
+
+def attend_one(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
+               positions: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+               at: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """A decode step's attention: normed input h (B, 1, d) at RoPE positions
+    (B, 1) → output projection (B, 1, d). Each row's K/V go into its cache
+    rows kc/vc (B, slots, hkv, hd) in place, where ``at`` (``decode_slots``)
+    says, and it attends to its first kv_len slots."""
+    q, k, v = _roped_qkv(cfg, p, h, positions)
+    rows, write, kv_len = at
+    kc[rows, write] = k[:, 0]
+    vc[rows, write] = v[:, 0]
+    o, _ = ops.flash_attention_fwd(q, kc, vc, causal=False, window=0, kv_len=kv_len)
+    return o.reshape(h.shape[0], 1, -1) @ p["wo"]
+
+
 def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
            positions: torch.Tensor, kind: str,
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """→ (block output, roped K, V, MoE aux or None) for a full causal
     sequence."""
-    h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = qkv_project(h, p["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
-    q = apply_rope(q, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
-    k = apply_rope(k, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
-    o = ops.flash_attention(q, k, v, causal=True, window=_window_of(cfg, kind))
-    B, S = x.shape[:2]
-    x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+    o, k, v = attend(cfg, p["attn"], ops.rmsnorm(x, p["ln1"], cfg.norm_eps), positions,
+                     _window_of(cfg, kind))
+    x = x + o
     y, aux = _ffn(cfg, p["ffn"], ops.rmsnorm(x, p["ln2"], cfg.norm_eps))
     return x + y, k, v, aux
 
@@ -180,7 +224,7 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     pat = layer_pattern(cfg)
-    layers = _unstack(params["blocks"])
+    layers = unstack(params["blocks"])
 
     def group_body(h: torch.Tensor, aux: torch.Tensor, gi: int,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -235,6 +279,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for kind, d in cache_shapes(cfg, batch, max_len).items()}
 
 
+def row_positions(pos: Union[int, torch.Tensor], B: int, device) -> torch.Tensor:
+    """An int or a (B,) int tensor of per-row positions → (B,) int64 on
+    ``device``; a host tensor is checked for positions below 0."""
+    pos_t = torch.as_tensor(pos, dtype=torch.int64)
+    if pos_t.dim() == 0:
+        pos_t = pos_t.expand(B)
+    if pos_t.shape != (B,):
+        raise ValueError(f"pos: want an int or shape ({B},), got {tuple(pos_t.shape)}")
+    if pos_t.device.type == "cpu" and bool((pos_t < 0).any()):
+        raise ValueError("pos: positions must be >= 0")
+    return pos_t.to(device)
+
+
 def decode_step(cfg: ModelConfig, params: Dict[str, Any],
                 cache: Dict[str, Any], token: torch.Tensor,
                 pos: Union[int, torch.Tensor],
@@ -243,54 +300,26 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
     per-row positions (number of tokens already in that row's cache).
     Returns (logits (B, V), cache).
 
-    The cache is updated **in place** and returned: row b writes its new K/V
-    at slot ``pos[b]`` (``pos[b] % slots`` for window layers; a full layer
-    clamps to its last slot, as ``dynamic_update_slice`` does in ``repro``)
-    and attends to ``min(pos[b] + 1, slots)`` slots at its own RoPE
-    position. With all positions equal this is ``repro``'s scalar-pos step.
+    The cache is updated **in place** and returned: each row writes its new
+    K/V and attends where ``decode_slots`` says, at its own RoPE position.
+    With all positions equal this is ``repro``'s scalar-pos step.
     """
-    B = token.shape[0]
-    dev = token.device
-    pos_t = torch.as_tensor(pos, dtype=torch.int64)
-    if pos_t.dim() == 0:
-        pos_t = pos_t.expand(B)
-    if pos_t.shape != (B,):
-        raise ValueError(f"pos: want an int or shape ({B},), got {tuple(pos_t.shape)}")
-    if pos_t.device.type == "cpu" and bool((pos_t < 0).any()):
-        raise ValueError("pos: positions must be >= 0")
-    pos_t = pos_t.to(dev)
-    rows = torch.arange(B, device=dev)
-    write: Dict[str, torch.Tensor] = {}
-    kv_len: Dict[str, torch.Tensor] = {}
-    for knd, d in cache.items():
-        slots = d["k"].shape[3]
-        w = _window_of(cfg, knd)
-        write[knd] = pos_t % slots if w > 0 else pos_t.clamp(max=slots - 1)
-        kv_len[knd] = (pos_t + 1).clamp(max=slots).to(torch.int32)
+    pos_t = row_positions(pos, token.shape[0], token.device)
+    at = {knd: decode_slots(pos_t, d["k"].shape[3], _window_of(cfg, knd))
+          for knd, d in cache.items()}
 
     x = params["embed"]["table"][token][:, None, :]            # (B, 1, d)
     positions = pos_t[:, None]
     pat = layer_pattern(cfg)
     kind_of = _kind_slots(pat)
-    layers = _unstack(params["blocks"])
+    layers = unstack(params["blocks"])
     for gi in range(n_groups(cfg)):
         for i in range(len(pat)):
             p = layers[gi][i]
             knd, slot = kind_of[i]
-            hh = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = qkv_project(hh, p["attn"], cfg.n_heads, cfg.n_kv_heads,
-                                  cfg.head_dim_)
-            q = apply_rope(q, positions, fraction=cfg.rope_fraction,
-                           theta=cfg.rope_theta)
-            k = apply_rope(k, positions, fraction=cfg.rope_fraction,
-                           theta=cfg.rope_theta)
-            kc = cache[knd]["k"][gi, slot]                     # (B, slots, hkv, hd)
-            vc = cache[knd]["v"][gi, slot]
-            kc[rows, write[knd]] = k[:, 0]
-            vc[rows, write[knd]] = v[:, 0]
-            o, _ = ops.flash_attention_fwd(q, kc, vc, causal=False, window=0,
-                                           kv_len=kv_len[knd])
-            x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+            x = x + attend_one(cfg, p["attn"], ops.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                               positions, cache[knd]["k"][gi, slot],
+                               cache[knd]["v"][gi, slot], at[knd])
             y, _ = _ffn(cfg, p["ffn"], ops.rmsnorm(x, p["ln2"], cfg.norm_eps))
             x = x + y
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -327,7 +356,7 @@ def prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     positions = torch.arange(S, device=x.device)[None, :]
     pat = layer_pattern(cfg)
     kind_of = _kind_slots(pat)
-    layers = _unstack(params["blocks"])
+    layers = unstack(params["blocks"])
     for gi in range(n_groups(cfg)):
         for i, kind in enumerate(pat):
             x, k, v, _ = _block(cfg, layers[gi][i], x, positions, kind)

@@ -10,7 +10,10 @@ sequence ``repro``'s teacher-forced feed gives), and every engine round
 decodes all active slots in one ``decode_step`` with per-slot positions.
 ``repro``'s batcher instead decodes every row at one slot's position and
 feeds token 0 to the other rows, which overwrites their KV entries; this
-one serves each request as if it were alone.
+one serves each request as if it were alone. For an SSM or hybrid model the
+prefill also leaves the slot's conv and SSM state, which have no positions:
+an admission overwrites them (a 1-token prompt zeroes them), so a reused
+slot keeps nothing of its last request.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ShapeConfig
+from ..models.layers import tree_leaves
 from ..models.model import Model
 
 
@@ -84,6 +88,12 @@ class ContinuousBatcher:
         self.steps = 0                                  # decode rounds
         self.prefills = 0                               # admission prefills
         self._finite = torch.ones((), dtype=torch.bool, device=model.device)
+        # each cache leaf's batch dim, from the cache shapes at two batch
+        # sizes (as repro's batcher finds it)
+        a = tree_leaves(model.cache_shapes(batch_slots, max_len))
+        b = tree_leaves(model.cache_shapes(batch_slots + 1, max_len))
+        self._batch_dims = [next(i for i, (x, y) in enumerate(zip(sa, sb)) if x != y)
+                            for sa, sb in zip(a, b)]
 
     def submit(self, req: Request) -> None:
         if not 1 <= len(req.prompt) < self.max_len:
@@ -100,12 +110,12 @@ class ContinuousBatcher:
                 self.pos[i] = len(req.prompt) - 1
 
     def _load_slot(self, slot: int, prefix: List[int]) -> None:
-        """Prefill ``prefix``'s K/V into the slot's cache row in place; the
-        rest of the row is cleared."""
+        """Prefill ``prefix`` into the slot's cache row in place (K/V, and
+        for an SSM or hybrid model its conv and SSM state); the rest of the
+        row is cleared. An empty prefix clears the whole row."""
         if not prefix:
-            for d in self.cache.values():
-                for c in d.values():                # (g, cnt, B, slots, hkv, hd)
-                    c[:, :, slot].zero_()
+            for c, d in zip(tree_leaves(self.cache), self._batch_dims):
+                c.select(d, slot).zero_()
             return
         tokens = torch.tensor([prefix], dtype=torch.int64, device=self.model.device)
         self.model.prefill_into(self.params, tokens, self.cache, slot)

@@ -7,7 +7,8 @@ Needs no JAX, so it runs on the GPU machine:
 Elsewhere it skips (the kernels have no CPU mode). Tolerances are those of
 tests/test_kernels.py (f32 2e-3, bf16 2e-2; for the grouped GEMM f32 1e-3,
 bf16 5e-2 relative and 5e-1 absolute); lse is f32 statistics in both
-versions, 2e-3.
+versions, 2e-3. The SSD scan's final state is f32 in both versions, its y
+in the input dtype; each is held to the input dtype's tolerance.
 """
 import pytest
 import torch
@@ -21,6 +22,7 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
 FLASH_CASES = [
     (128, 128, 4, 4, 64, True, 0),
@@ -29,6 +31,8 @@ FLASH_CASES = [
     (64, 192, 4, 2, 64, False, 0),
     (96, 96, 2, 2, 128, True, 32),
     (1, 2048, 16, 16, 64, False, 0),    # decode against a 2048-slot cache
+    (200, 200, 4, 4, 80, True, 0),      # zamba2's shared block: D = 80
+    (1, 300, 4, 4, 80, False, 0),       # and its decode
 ]
 # the backward cases of tests/test_kernels.py, then a ragged GQA one at D=128
 FLASH_BWD_CASES = [
@@ -46,6 +50,13 @@ GMM_CASES = [
     (4, 1, 256, 64), (4, 8, 256, 64), (4, 40, 256, 64),
     (3, 17, 100, 36), (2, 70, 33, 129),
     (16, 8, 2048, 768),
+]
+# (B, S, H, P, G, N): the SSD cases of tests/test_kernels.py, ragged S, and
+# strided inputs at mamba2-370m's widths
+SSD_CASES = [
+    (1, 64, 2, 32, 1, 16), (2, 128, 4, 32, 2, 16), (1, 96, 4, 64, 1, 32),
+    (2, 256, 8, 64, 2, 64), (2, 1, 4, 64, 1, 128), (1, 37, 4, 64, 2, 64),
+    (2, 300, 4, 32, 1, 16), (1, 257, 32, 64, 1, 128),
 ]
 # tests/test_kernels.py's tolerances for the grouped GEMM
 GMM_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
@@ -99,7 +110,7 @@ def test_cuda_wrappers_count_their_launches():
                             kv_len=torch.tensor([3, 16], dtype=torch.int32))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"rmsnorm": 1, "flash_fwd": 1, "flash_bwd_dq": 0,
-                                   "flash_bwd_dkv": 0, "moe_gmm": 0}
+                                   "flash_bwd_dkv": 0, "moe_gmm": 0, "ssd_scan": 0}
     # one differentiable call and its backward: one launch of each flash kernel
     ops.reset_launch_counts()
     q = torch.randn(2, 32, 4, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
@@ -107,7 +118,7 @@ def test_cuda_wrappers_count_their_launches():
     torch.autograd.grad(o.float().square().sum(), q)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_fwd": 1, "flash_bwd_dq": 1,
-                                   "flash_bwd_dkv": 1, "moe_gmm": 0}
+                                   "flash_bwd_dkv": 1, "moe_gmm": 0, "ssd_scan": 0}
 
 
 def test_cuda_backward_kernels_match_plain_version_on_the_card():
@@ -192,3 +203,73 @@ def test_cuda_moe_gmm_refuses_a_call_that_needs_a_gradient():
         out = ops.moe_gmm(buf, w)
     torch.testing.assert_close(out, moe_gmm_plain(buf.detach(), w), **GMM_TOL[torch.float32])
     assert ops.launch_counts()["moe_gmm"] == 1
+
+
+def _ssd_inputs(B, S, H, P, G, N, dt, gen, strided=False):
+    """tests/test_kernels.py's distributions in dtype ``dt``; ``strided``:
+    xh, B_ and C_ as views into one (B, S, H·P + 2·G·N) tensor, as the model
+    passes them."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if strided:
+        xbc = randn(B, S, H * P + 2 * G * N)
+        xbc[..., H * P:] *= 0.5
+        xs, b, c = torch.split(xbc.to(dt), [H * P, G * N, G * N], dim=-1)
+        xh, b, c = xs.reshape(B, S, H, P), b.reshape(B, S, G, N), c.reshape(B, S, G, N)
+    else:
+        xh, b, c = (t.to(dt) for t in (randn(B, S, H, P), 0.5 * randn(B, S, G, N),
+                                       0.5 * randn(B, S, G, N)))
+    d = 1e-3 + 0.099 * torch.rand(B, S, H, generator=gen, device="cuda")
+    a = -(0.5 + 1.5 * torch.rand(H, generator=gen, device="cuda"))
+    return [xh, d.to(dt), a.to(dt), b, c]
+
+
+def test_cuda_ssd_scan_matches_plain_version_on_the_card():
+    """y and the final state, f32 and bf16, contiguous and strided inputs
+    (the strided ones keep their views: the kernel reads the strides). The
+    final state is held to f32's tolerance whatever the inputs' type: both
+    versions compute it in f32 from the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(3)
+    for dt, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
+        for case in SSD_CASES:
+            for strided in (False, True):
+                ins = _ssd_inputs(*case, dt, gen, strided)
+                if strided:
+                    assert not any(t.is_contiguous() for t in (ins[0], ins[3], ins[4]))
+                y, h = ssd_scan_cuda(*ins)
+                py, ph = ssd_scan_plain(*ins)
+                torch.cuda.synchronize()
+                assert y.dtype == dt and h.dtype == torch.float32
+                torch.testing.assert_close(y.float(), py.float(), rtol=tol, atol=tol)
+                torch.testing.assert_close(h, ph, rtol=2e-3, atol=2e-3)
+
+
+def test_cuda_ssd_scan_refuses_bad_inputs_and_a_call_that_needs_a_gradient():
+    """No backward kernel yet (JAX has none): with grad on and an input that
+    requires it ``ops.ssd_scan`` raises and launches nothing; under no_grad
+    it runs and counts one launch. Unsupported state dims, head dims, mixed
+    dtypes and a non-contiguous last dim are refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(4)
+    xh, dt, a, b, c = _ssd_inputs(1, 16, 2, 32, 1, 16, torch.float32, gen)
+    bad = [((xh, dt, a, b[..., :8], c[..., :8]), "state dim"),
+           ((xh[..., :16], dt, a, b, c), "head dim"),
+           ((xh, dt.bfloat16(), a, b, c), "dtypes"),
+           ((xh.transpose(1, 3).contiguous().transpose(1, 3), dt, a, b, c), "contiguous"),
+           ((xh, dt, a.cpu(), b, c), "one CUDA device")]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            ssd_scan_cuda(*args)
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="SSM training"):
+        ops.ssd_scan(xh.requires_grad_(), dt, a, b, c)
+    assert ops.launch_counts()["ssd_scan"] == 0
+    with torch.no_grad():
+        y, h = ops.ssd_scan(xh, dt, a, b, c)
+    py, ph = ssd_scan_plain(xh.detach(), dt, a, b, c)
+    torch.testing.assert_close(y, py, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(h, ph, rtol=2e-3, atol=2e-3)
+    assert ops.launch_counts()["ssd_scan"] == 1

@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
 RNG = np.random.default_rng(42)
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -36,6 +37,7 @@ FLASH_CASES = [
     (256, 256, 4, 1, 32, True, 64),     # MQA + sliding window
     (64, 192, 4, 2, 64, False, 0),      # cross-length, bidirectional
     (96, 96, 2, 2, 128, True, 32),      # non-pow2 seq, window
+    (96, 96, 4, 4, 80, True, 0),        # zamba2's shared block: D = 80
 ]
 # the backward cases of tests/test_kernels.py
 FLASH_BWD_CASES = [
@@ -49,7 +51,7 @@ FLASH_BWD_CASES = [
 GMM_CASES = [(2, 64, 128, 96), (8, 128, 64, 256), (3, 96, 160, 32),
              (4, 1, 128, 64), (4, 8, 128, 64), (4, 40, 128, 64)]
 NO_LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-               "moe_gmm": 0}
+               "moe_gmm": 0, "ssd_scan": 0}
 
 
 def _tol(name):
@@ -152,6 +154,11 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     buf, w = torch.randn(3, 5, 16), torch.randn(3, 16, 8)
     torch.testing.assert_close(ops.moe_gmm(buf, w), moe_gmm_plain(buf, w), rtol=0, atol=0)
+    xh, bc = torch.randn(2, 9, 2, 32), torch.randn(2, 9, 1, 16)
+    dt, a = torch.rand(2, 9, 2) * 0.1, -torch.rand(2)
+    for g, w in zip(ops.ssd_scan(xh, dt, a, bc, bc, chunk=4),
+                    ssd_scan_plain(xh, dt, a, bc, bc, chunk=4)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert ops.launch_counts() == NO_LAUNCHES
 
 
@@ -182,6 +189,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_attention_bwd_cuda(q, q, q, o, lse, o, causal=True, window=0)
     with pytest.raises(ValueError, match="CUDA"):
         moe_gmm_cuda(torch.randn(2, 4, 8), torch.randn(2, 8, 4))
+    xh, bc = torch.randn(1, 8, 2, 32), torch.randn(1, 8, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_cuda(xh, torch.rand(1, 8, 2), -torch.rand(2), bc, bc)
     assert ops.launch_counts() == NO_LAUNCHES
 
 
@@ -189,10 +199,10 @@ def test_build_hash_covers_every_source():
     names = {p.name for p in build.sources()}
     assert {"flash_fwd.cu", "rmsnorm.cu", "errors.cu"} <= names
     assert build.source_hash() == build.source_hash()
-    assert {"flash_bwd.cu", "moe_gmm.cu"} <= names
+    assert {"flash_bwd.cu", "moe_gmm.cu", "ssd_scan.cu"} <= names
     assert set(build.SIGNATURES) == {
         f"repro_{k}_{t}" for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                                   "moe_gmm")
+                                   "moe_gmm", "ssd_scan")
         for t in ("f32", "bf16")}
 
 
