@@ -11,7 +11,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                the JAX test shapes and at the main paths' shapes (the
                grouped expert GEMM also at ragged C = 1, 8, 40; the SSD
                scan, y and final state, also at ragged S = 1, 37, 257,
-               300; flash attention also at zamba2's D = 80); takes
+               300; the flash forward's three variants (tensor-core
+               prefill, split-KV decode, f32 FMA) at ragged S, decode
+               kv_len at chunk edges, GQA 1:1 to 8:1, windows, every D,
+               strided q/k/v and cache views, in f32 and bf16, with the
+               launches by variant checked and a misaligned view refused); takes
                the device time (``torch.profiler``) of the kernel, of the
                plain version and of one PyTorch library call of the same
                function where there is one (a yardstick only: the port never
@@ -25,7 +29,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                The forward kernels' launch counters must grow over this
                main path and split into equal prefills and equal decode
                rounds of the counts its layers give (flash_fwd 24, rmsnorm
-               49); two requests' first-token logits must match the same
+               49), the prefills' attention all on the tensor-core
+               variant, the rounds' on the split-KV one, none on the FMA
+               one; two requests' first-token logits must match the same
                requests served alone (guard against cross-slot KV writes).
   5. train   — the same model trained 4 steps on one batch
                (``launch.profile_train.setup``: B=8, S=1024, two microbatches,
@@ -33,7 +39,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                finite, the last loss below the first, and all four kernels'
                launch counters must grow and split into equal steps of the
                counts remat over 24 layers and 2 microbatches gives
-               (flash_fwd 96, flash_bwd_dq 48, flash_bwd_dkv 48, rmsnorm 194).
+               (flash_fwd 96, flash_bwd_dq 48, flash_bwd_dkv 48, rmsnorm 194),
+               every forward attention on the tensor-core variant.
   6. serve SSM — after the earlier phases' memory is given back, phase 4 on
                full-width, full-depth mamba2-370m (48 layers, 419.8 M
                parameters), then on zamba2-2.7b (54 Mamba layers and one
@@ -83,6 +90,21 @@ RMSNORM_CASES = [(1, 7, 64), (4, 33, 128), (2, 256, 512)]
 FLASH_CASES = [(128, 128, 4, 4, 64, True, 0), (128, 128, 8, 2, 64, True, 0),
                (256, 256, 4, 1, 32, True, 64), (64, 192, 4, 2, 64, False, 0),
                (96, 96, 2, 2, 128, True, 32), (96, 96, 4, 4, 80, True, 0)]
+# the forward kernel's variants (B, S, T, Hq, Hkv, D, causal, window, kv_len):
+# ragged prefill at S = T in {1, 2, 5, 37, 300, 511}; decode at S = 1 with
+# GQA 1:1, 2:1 and 8:1 against T = 300 (no multiple of the 256-key chunk),
+# kv_len at 1, 63, 64, 65, 255, 256, 257 and T; S = 2..4 causal; a window in
+# both regimes; every head dim (tests/test_torch_cuda.py's cases)
+DECODE_LENS = [1, 63, 64, 65, 255, 256, 257, 300]
+FLASH_VARIANT_CASES = [
+    (2, 1, 1, 4, 4, 64, True, 0, None), (2, 2, 2, 4, 2, 32, True, 0, None),
+    (2, 5, 5, 4, 4, 80, True, 0, None), (2, 37, 37, 8, 2, 128, True, 0, None),
+    (2, 300, 300, 4, 4, 64, True, 0, None), (2, 511, 511, 4, 1, 80, True, 0, None),
+    (8, 1, 300, 4, 4, 64, False, 0, DECODE_LENS), (8, 1, 300, 8, 4, 32, False, 0, DECODE_LENS),
+    (8, 1, 300, 32, 4, 128, False, 0, DECODE_LENS), (8, 1, 300, 4, 4, 80, False, 0, DECODE_LENS),
+    (2, 2, 40, 4, 4, 64, True, 0, [40, 17]), (2, 3, 300, 8, 1, 128, True, 0, None),
+    (2, 4, 100, 16, 2, 32, True, 0, [100, 3]), (2, 4, 300, 4, 4, 64, True, 2, [300, 150]),
+    (2, 300, 300, 4, 2, 80, True, 64, None), (2, 200, 256, 4, 4, 32, False, 100, [256, 180])]
 FLASH_BWD_CASES = [(128, 128, 4, 2, 32, True, 0), (128, 128, 4, 4, 64, True, 48),
                    (64, 192, 4, 1, 32, False, 0)]
 # the grouped-GEMM cases of tests/test_kernels.py (E, C, D, F) and their
@@ -215,18 +237,72 @@ def _flash_pair(q, k, v, causal, window, kv_len=None):
     return o, lse, po, plse
 
 
+def _flash_check(name, q, k, v, causal, window, kv_len=None):
+    """One forward call against the plain version: → (max abs err, variant)."""
+    from repro_torch.kernels.flash_attention import _variant
+    o, lse, po, plse = _flash_pair(q, k, v, causal, window, kv_len)
+    err = max(compare(name + " O", o, po, TOL[str(q.dtype)[6:]]),
+              compare(name + " lse", lse, plse, LSE_TOL))
+    return err, _variant(q, k)
+
+
 def flash_phase(gen):
+    """The forward kernel against its plain version: the JAX test cases, the
+    variants' cases (FLASH_VARIANT_CASES), q/k/v split from one fused
+    projection, K/V as views of a stacked and of a fused cache, each in f32
+    (the FMA kernel) and bf16 (tensor-core prefill or split-KV decode); the
+    variant counts must match the shapes, FMA only for f32; a misaligned
+    bf16 view must be refused. Then the six main-path shapes, timed."""
     import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     worst = 0.0
-    for (S, T, Hq, Hkv, D, causal, window) in FLASH_CASES:
-        for dt in (torch.float32, torch.bfloat16):
-            q = torch.randn(2, S, Hq, D, generator=gen, device="cuda").to(dt)
-            k = torch.randn(2, T, Hkv, D, generator=gen, device="cuda").to(dt)
-            v = torch.randn(2, T, Hkv, D, generator=gen, device="cuda").to(dt)
-            o, lse, po, plse = _flash_pair(q, k, v, causal, window)
-            name = f"flash {(S, T, Hq, Hkv, D, causal, window)} {dt}"
-            worst = max(worst, compare(name + " O", o, po, TOL[str(dt)[6:]]),
-                        compare(name + " lse", lse, plse, LSE_TOL))
+    ops.reset_launch_counts()
+    want = {"tc_prefill": 0, "split_decode": 0, "fma": 0}
+
+    def randn(*shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    for dt in (torch.float32, torch.bfloat16):
+        cases = [(2, S, T, Hq, Hkv, D, c, w, None) for (S, T, Hq, Hkv, D, c, w) in FLASH_CASES]
+        for (B, S, T, Hq, Hkv, D, causal, window, lens) in cases + FLASH_VARIANT_CASES:
+            q, k, v = randn(B, S, Hq, D, dt=dt), randn(B, T, Hkv, D, dt=dt), \
+                randn(B, T, Hkv, D, dt=dt)
+            kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                            device="cuda")
+            err, variant = _flash_check(f"flash {(B, S, T, Hq, Hkv, D, causal, window)} {dt}",
+                                        q, k, v, causal, window, kv_len)
+            worst, want[variant] = max(worst, err), want[variant] + 1
+        for (B, S, Hq, Hkv, D) in ((2, 300, 8, 2, 128), (2, 200, 32, 32, 80)):
+            qkv = randn(B, S, (Hq + 2 * Hkv) * D, dt=dt)
+            q, k, v = torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], dim=-1)
+            err, variant = _flash_check(f"flash fused qkv {(B, S, Hq, Hkv, D)} {dt}",
+                                        q.view(B, S, Hq, D), k.view(B, S, Hkv, D),
+                                        v.view(B, S, Hkv, D), True, 0)
+            worst, want[variant] = max(worst, err), want[variant] + 1
+        for (S, Hq, Hkv, D, causal) in ((1, 32, 4, 128, False), (1, 16, 16, 64, False),
+                                        (4, 8, 2, 64, True), (1, 32, 32, 80, False)):
+            L, B, slots = 3, 4, 700
+            q = randn(B, S, Hq, D, dt=dt)
+            kv_len = torch.tensor([1, 256, 513, slots], dtype=torch.int32, device="cuda")
+            stacked, fused = randn(2, L, B, slots, Hkv, D, dt=dt), randn(B, slots, 2, Hkv, D, dt=dt)
+            for kind, kc, vc in (("stacked", stacked[0, 1], stacked[1, 1]),
+                                 ("fused", fused[:, :, 0], fused[:, :, 1])):
+                err, variant = _flash_check(f"flash {kind} cache {(S, Hq, Hkv, D)} {dt}",
+                                            q, kc, vc, causal, 0, kv_len)
+                worst, want[variant] = max(worst, err), want[variant] + 1
+    got = ops.flash_variant_counts()
+    if got != want or want["fma"] != sum(want.values()) // 2:
+        fail(f"flash variants launched {got}, expected {want} (FMA for f32 only)")
+    shifted = torch.zeros(2 * 64 * 4 * 64 + 1, device="cuda", dtype=torch.bfloat16)[1:]
+    try:
+        flash_attention_cuda(shifted.view(2, 64, 4, 64), *(randn(2, 64, 4, 64,
+                             dt=torch.bfloat16) for _ in range(2)), causal=True, window=0)
+    except ValueError as e:
+        print(f"flash: misaligned bf16 q refused ({e})")
+    else:
+        fail("flash: a misaligned bf16 view was not refused")
+    print(f"flash: checked cases by variant {want}")
 
     timed = {
         # qwen1.5-0.5b: B=4, S=T=1024, 16 heads of 64, causal; decode B=8, S=1
@@ -531,6 +607,7 @@ def serve_phase(config="qwen1.5-0.5b"):
     prefill_ms = (time.perf_counter() - t0) * 1e3
     served = serve_workload.run(model, params, smoke=False, seed=0)
     launches = ops.launch_counts()
+    variants = ops.flash_variant_counts()
     # ---- end of the main path ----
 
     if nxt.shape != (B,) or not all(bool(torch.isfinite(c).all())
@@ -560,6 +637,16 @@ def serve_phase(config="qwen1.5-0.5b"):
     if per_prefill != want_prefill or per_round != want_round:
         fail(f"{cfg.name}: launches per prefill {per_prefill} and per decode round "
              f"{per_round}, expected {want_prefill} and {want_round}")
+    # bf16 attention: every prefill (prompts of 32 tokens and more) on the
+    # tensor-core kernel, every decode round on the split-KV one, never FMA
+    if "flash_fwd" in per_prefill:
+        want_variants = {"tc_prefill": per_prefill["flash_fwd"] * prefills,
+                         "split_decode": per_round["flash_fwd"] * rounds, "fma": 0}
+        if variants != want_variants:
+            fail(f"{cfg.name}: flash variants {variants}, expected {want_variants}")
+        print(f"flash variants: {variants}")
+    elif any(variants.values()):
+        fail(f"{cfg.name}: flash variants {variants} launched without attention")
     tok_s = served["tokens"] / served["seconds"]
     print(f"prefill step B={B} S={S}: {prefill_ms:.3f} ms")
     print(f"served {served['served']} requests, {served['tokens']} tokens in "
@@ -577,6 +664,7 @@ def serve_phase(config="qwen1.5-0.5b"):
 
     print(f"launches: main path {launches} over {prefills} prefills and {rounds} "
           f"decode rounds; per prefill {per_prefill}, per decode round {per_round}")
+    launches["flash_fwd_variants"] = variants
     return launches, per_prefill, per_round
 
 
@@ -674,6 +762,7 @@ def train_phase():
         gnorms.append(float(metrics["grad_norm"]))
         counts.append(ops.launch_counts())
     launches = ops.launch_counts()
+    variants = ops.flash_variant_counts()
     # ---- end of the main path ----
 
     for name in ("moe_gmm", "ssd_scan"):                 # not on the dense train path
@@ -700,6 +789,11 @@ def train_phase():
                 "flash_bwd_dkv": n_micro * L, "rmsnorm": n_micro * (2 * L + 1 + 2 * L)}
     if per_step != expected:
         fail(f"train launches per step {per_step}, expected {expected}")
+    # bf16 at S = 1024: every forward on the tensor-core kernel
+    want_variants = {"tc_prefill": launches["flash_fwd"], "split_decode": 0, "fma": 0}
+    if variants != want_variants:
+        fail(f"train: flash variants {variants}, expected {want_variants}")
+    launches["flash_fwd_variants"] = variants
     timed_ms = step_ms[1:]                       # after one warm-up step
     mean_ms = sum(timed_ms) / len(timed_ms)
     tokens = shape.global_batch * shape.seq_len
@@ -763,7 +857,17 @@ def main() -> int:
                 "launches_per_moe_prefill": moe_prefill[name],
                 "launches_per_moe_decode_round": moe_round[name],
                 "zamba2_prefill": timed["zamba2_prefill"],
-                "zamba2_decode": timed["zamba2_decode"], **ssm_launches(name)}
+                "zamba2_decode": timed["zamba2_decode"], **ssm_launches(name),
+                **variant_launches(name)}
+
+    def variant_launches(name):
+        """The forward flash kernel's launches by variant on each path."""
+        if name != "flash_fwd":
+            return {}
+        paths = {"train": train_launches, "serve": launches, "moe_serve": moe_launches,
+                 **{f"{c}_serve": n for c, (n, _, _) in ssm.items()}}
+        return {"launches_by_variant": {path: n["flash_fwd_variants"]
+                                        for path, n in paths.items()}}
 
     def ssm_launches(name):
         """The kernel's launches on each SSM serving path it runs in."""

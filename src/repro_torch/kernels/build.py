@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` and linked into one shared library with a plain C
 interface. The library lands in ``build/repro_torch_kernels/<hash>/`` under
-the repository root, keyed by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one loads at once. The build runs only on
+the repository root, keyed by a hash of the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header rebuilds and
+an unchanged tree loads at once. The build runs only on
 a machine with the CUDA toolkit: nothing on the CPU path calls it.
 """
 from __future__ import annotations
@@ -33,6 +34,8 @@ SIGNATURES = {
     "repro_rmsnorm_bf16": [_P, _P, _P, _LL, _I, _F, _P],
     "repro_flash_fwd_f32": [_P] * 6 + [_I] * 6 + [_LL] * 9 + [_I, _I, _F, _P],
     "repro_flash_fwd_bf16": [_P] * 6 + [_I] * 6 + [_LL] * 9 + [_I, _I, _F, _P],
+    "repro_flash_decode_bf16": [_P] * 6 + [_I] * 6 + [_LL] * 9 + [_I, _I, _F, _P]
+                               + [_P, _P, _I, _I],
     "repro_flash_bwd_dq_f32": [_P] * 7 + [_I] * 6 + [_I, _I, _F, _P],
     "repro_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_I, _I, _F, _P],
     "repro_flash_bwd_dkv_f32": [_P] * 8 + [_I] * 6 + [_I, _I, _F, _P],
@@ -48,7 +51,9 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
+    """Everything the library is built from: the ``.cu`` files nvcc compiles
+    and the ``.cuh`` headers they include."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def source_hash() -> str:
@@ -85,7 +90,7 @@ def build() -> Path:
     compiler = nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         jobs = []
-        for src in sources():
+        for src in (s for s in sources() if s.suffix == ".cu"):
             obj = Path(tmp) / f"{src.stem}.o"
             cmd = [compiler, *GENCODE, *CFLAGS, "-c", str(src), "-o", str(obj)]
             jobs.append((src, obj, subprocess.Popen(

@@ -17,10 +17,26 @@ needs ``kv_len >= 1``. A query row with no valid key (a window wholly past
 on which tiles it visits. Both versions here return O = 0 and lse = -1e30
 for such a row, by the port's own choice.
 
-On an H100 SXM prefill at the path's shape (S = T = 1024, D = 64) needs
-about as long for its bytes as for its operations (4*S*T*D/2 per head,
-causal), ~0.01 ms each; decode is bound by the bytes of the valid K/V
-prefix. The kernel's design notes are in its source.
+``flash_attention_cuda`` takes one of three hand-written kernels of
+``csrc/flash_fwd.cu`` by dtype and shape, a documented choice and never a
+fallback from a kernel that failed (``_variant``):
+
+- ``tc_prefill``: bf16 with more than ``DECODE_MAX_ROWS`` query rows (or a
+  GQA group too large for the decode block): TMA loads and ``wgmma`` tensor
+  cores. On an H100 SXM prefill at S = T = 1024 needs about as long for its
+  operations as for its bytes.
+- ``split_decode``: bf16 with S <= ``DECODE_MAX_ROWS`` and
+  (Hq/Hkv)·S <= ``DECODE_MAX_GROUP_ROWS``: split-KV, one block per
+  (batch row, KV head, chunk of ``_decode_plan(T)``), each KV head read
+  once, the chunks' partials merged in the same launch. Bound by the bytes
+  of the valid K/V prefix. ``flash_decode_split_plain`` computes its
+  partials and merge in PyTorch, for the tests.
+- ``fma``: f32, any shape: f32 FMAs.
+
+The bf16 kernels read q, k and v through TMA or 16-byte ``cp.async``: each
+base pointer and each stride of a dim longer than 1 must be a multiple of
+16 bytes, or the wrapper raises. The kernels' design notes are in their
+source.
 
 The backward kernels (``csrc/flash_bwd.cu``: ``flash_bwd_dq``,
 ``flash_bwd_dkv``) replace ``_flash_bwd_dq_kernel`` and
@@ -42,7 +58,11 @@ from . import build
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)            # the backward kernels'
-FWD_HEAD_DIMS = (32, 64, 80, 128)    # the forward kernel's (80: zamba2's shared block)
+FWD_HEAD_DIMS = (32, 64, 80, 128)    # the forward kernels' (80: zamba2's shared block)
+DECODE_MAX_ROWS = 4          # S up to this takes the split-KV decode kernel (bf16)
+DECODE_MAX_GROUP_ROWS = 32   # ... when its block's Hq/Hkv · S query rows fit
+DECODE_CHUNK = 256           # keys a decode block takes (a multiple of 4 warps x 32 keys)
+VARIANTS = ("tc_prefill", "split_decode", "fma")
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -97,15 +117,106 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, S, Hq, D).to(q.dtype), lse.reshape(B * Hq, S)
 
 
+def _decode_plan(T: int, chunk: Optional[int] = None) -> Tuple[int, int]:
+    """→ (chunk, splits) of the split-KV decode for a cache of T keys: split
+    i takes keys [i·chunk, (i+1)·chunk), chunk ``DECODE_CHUNK`` unless
+    given. From T alone: ``kv_len`` lies on the device and is not read here."""
+    chunk = chunk or DECODE_CHUNK
+    return chunk, max(1, -(-T // chunk))
+
+
+def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             *, causal: bool = True, window: int = 0,
+                             kv_len: Optional[torch.Tensor] = None,
+                             chunk: Optional[int] = None,
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-KV decode's arithmetic in PyTorch, for the tests: per chunk
+    of ``_decode_plan(T, chunk)`` each row's partial (max m, sum l and the
+    unnormalised O of its valid keys; l = 0 and O = 0 for a chunk without
+    one), then the kernel's merge: M = max of m over chunks with l > 0,
+    L = Σ l·exp(m − M), O = Σ O_c·exp(m_c − M) / L, lse = M + log L (O = 0,
+    lse = -1e30 where L = 0). Shapes and result as ``flash_attention_plain``."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    chunk, splits = _decode_plan(T, chunk)
+    acc = _acc_dtype(q)
+    mask = _mask(S, T, causal, window, q.device).expand(B, S, T)
+    if kv_len is not None:
+        _check_kv_len(kv_len, B)
+        k_pos = torch.arange(T, device=q.device)[None, :]
+        mask = mask & (k_pos < kv_len.to(q.device).view(B, 1, 1))
+    pad = splits * chunk - T
+    qh = q.to(acc).reshape(B, S, Hkv, g, D)
+    kf, vf = (torch.nn.functional.pad(t.to(acc), (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    mask = torch.nn.functional.pad(mask, (0, pad)).view(B, 1, 1, S, splits, chunk)
+    s = torch.einsum("bskgd,btkd->bkgst", qh, kf) * (1.0 / math.sqrt(D))
+    s = s.view(B, Hkv, g, S, splits, chunk).masked_fill(~mask, NEG_INF)
+    m = s.amax(-1)                                             # (B, Hkv, g, S, splits)
+    p = torch.exp(s - m[..., None]) * mask
+    l = p.sum(-1)
+    o = torch.einsum("bkgsnc,bnckd->bkgsnd", p, vf.view(B, splits, chunk, Hkv, D))
+    has = l > 0
+    M = m.masked_fill(~has, NEG_INF).amax(-1, keepdim=True)
+    w = torch.exp(m - M) * has
+    L = (l * w).sum(-1)
+    out = (o * w[..., None]).sum(-2) / torch.where(L > 0, L, torch.ones_like(L))[..., None]
+    lse = torch.where(L > 0, M[..., 0] + torch.log(torch.where(L > 0, L, torch.ones_like(L))),
+                      torch.full_like(L, NEG_INF))
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
+    return out.to(q.dtype), lse.reshape(B * Hq, S)
+
+
+def _variant(q: torch.Tensor, k: torch.Tensor) -> str:
+    """Which forward kernel a (checked) call takes: by dtype and shape."""
+    S, Hq, Hkv = q.shape[1], q.shape[2], k.shape[2]
+    if q.dtype == torch.float32:
+        return "fma"
+    if S <= DECODE_MAX_ROWS and (Hq // Hkv) * S <= DECODE_MAX_GROUP_ROWS:
+        return "split_decode"
+    return "tc_prefill"
+
+
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    """TMA and 16-byte cp.async need the base and every stride of a dim
+    longer than 1 at a multiple of 16 bytes: raise, never copy quietly."""
+    for name, t in tensors.items():
+        size, shape, stride = t.element_size(), t.shape, t.stride()
+        bad = t.data_ptr() % 16
+        for i in range(3):
+            if shape[i] > 1:
+                bad |= stride[i] * size % 16
+        if bad:
+            raise ValueError(f"flash_attention_cuda: {name} (shape {tuple(shape)}, strides "
+                             f"{stride}) is not 16-byte aligned: the bf16 kernels need its "
+                             f"base pointer and strides at multiples of 16 bytes")
+
+
+_decode_counters: dict = {}
+
+
+def _decode_counter(device: torch.device, n: int) -> torch.Tensor:
+    """The split-KV kernel's per-(batch row, KV head) arrival counters on
+    ``device``: zeroed once, and reset to 0 by the merging block of every
+    launch, so launches on one stream reuse them."""
+    buf = _decode_counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _decode_counters[device] = buf
+    return buf
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          kv_len: Optional[torch.Tensor] = None,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` on the current stream; counts each launch
-    in ``flash_attention_cuda.launches``. q, k, v may be strided views as
-    long as their last dim is contiguous (e.g. a KV-cache slice). A host
-    ``kv_len`` is checked (``>= 1``) and copied over; on a device one below
-    1 the kernel traps, and the launch fails."""
+    """Launch one kernel of ``csrc/flash_fwd.cu`` on the current stream
+    (``_variant``); counts each launch in ``flash_attention_cuda.launches``
+    and by variant in ``flash_attention_cuda.variant_launches``. q, k, v may
+    be strided views as long as their last dim is contiguous (e.g. a
+    KV-cache slice); in bf16 they must be 16-byte aligned. A host ``kv_len``
+    is checked (``>= 1``) and copied over; on a device one below 1 the
+    kernel traps, and the launch fails."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_attention_cuda: want q (B,S,Hq,D), k/v (B,T,Hkv,D)")
     B, S, Hq, D = q.shape
@@ -129,22 +240,36 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B * Hq, S), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0 or T == 0:
         return o, lse
+    variant = _variant(q, k)
+    if variant != "fma":
+        _check_aligned(q=q, k=k, v=v)
     lib = build.library()
-    fn = (lib.repro_flash_fwd_bf16 if q.dtype == torch.bfloat16
-          else lib.repro_flash_fwd_f32)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            kv_len.data_ptr() if kv_len is not None else None, B, S, T, Hq, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), int(window), 1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), kv_len.data_ptr() if kv_len is not None else None,
-                 B, S, T, Hq, Hkv, D,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 int(causal), int(window), 1.0 / math.sqrt(D), stream)
-    build.check(err, "flash_fwd")
+        if variant == "split_decode":
+            chunk, splits = _decode_plan(T)
+            rows = (Hq // Hkv) * S
+            part = torch.empty(B * Hkv * splits * rows * (D + 2), dtype=torch.float32,
+                               device=q.device)
+            err = lib.repro_flash_decode_bf16(
+                *args, stream, part.data_ptr(),
+                _decode_counter(q.device, B * Hkv).data_ptr(), chunk, splits)
+        elif variant == "tc_prefill":
+            err = lib.repro_flash_fwd_bf16(*args, stream)
+        else:
+            err = lib.repro_flash_fwd_f32(*args, stream)
+    build.check(err, f"flash_fwd ({variant})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.variant_launches[variant] += 1
     return o, lse
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 A CPU tensor takes the kernel's plain PyTorch version (the tests run there);
 a CUDA tensor launches the hand-written kernel or raises. There is no
 fallback from one to the other and no switch. Each CUDA wrapper counts its
-launches; ``launch_counts`` reads the counts and ``reset_launch_counts``
-sets them to 0, so a run can show that its path went through the kernels.
+launches; ``launch_counts`` reads the counts (``flash_variant_counts`` the
+forward flash kernel's by variant) and ``reset_launch_counts`` sets them to
+0, so a run can show that its path went through the kernels.
 
 ``flash_attention`` and ``rmsnorm`` are differentiable: where grad is
 enabled and an input requires it, they go through a ``torch.autograd.Function``
@@ -191,6 +192,14 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _CUDA_WRAPPERS.items()}
 
 
+def flash_variant_counts() -> Dict[str, int]:
+    """The forward flash launches by kernel variant (``tc_prefill``,
+    ``split_decode``, ``fma``); they sum to ``launch_counts()["flash_fwd"]``."""
+    return dict(flash_attention_cuda.variant_launches)
+
+
 def reset_launch_counts() -> None:
     for fn in _CUDA_WRAPPERS.values():
         fn.launches = 0
+    for name in flash_attention_cuda.variant_launches:
+        flash_attention_cuda.variant_launches[name] = 0

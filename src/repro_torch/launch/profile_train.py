@@ -33,7 +33,7 @@ from ..runtime.train import init_state, make_train_step
 SHAPE = ShapeConfig("train_1k", 1024, 8, "train")
 TCFG = TrainConfig(remat="block", opt_dtype="bfloat16", microbatch_per_device=4,
                    warmup_steps=2, learning_rate=1e-3)
-FAMILIES = (("flash fwd", ("flash_fwd_kernel",)),
+FAMILIES = (("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),
             ("flash bwd dq", ("flash_bwd_dq_kernel",)),
             ("flash bwd dkv", ("flash_bwd_dkv_kernel",)),
             ("rmsnorm", ("rmsnorm_kernel",)),

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
+    _variant,
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
     flash_attention_cuda,
@@ -86,6 +87,115 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
                 torch.cuda.synchronize()
                 torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
                 torch.testing.assert_close(lse, plse, rtol=2e-3, atol=2e-3)
+
+
+# The forward kernel's three variants: (B, S, T, Hq, Hkv, D, causal, window,
+# kv_len or None). Ragged prefill at S = T in {1, 2, 5, 37, 300, 511};
+# decode at S = 1 with GQA 1:1, 2:1 and 8:1 against T = 300 (no multiple of
+# the 256-key chunk) with kv_len at 1, 63, 64, 65, 255, 256, 257 and T;
+# S = 2..4 causal (admissions); a window in both regimes; every head dim.
+DECODE_LENS = [1, 63, 64, 65, 255, 256, 257, 300]
+FLASH_VARIANT_CASES = [
+    (2, 1, 1, 4, 4, 64, True, 0, None),
+    (2, 2, 2, 4, 2, 32, True, 0, None),
+    (2, 5, 5, 4, 4, 80, True, 0, None),
+    (2, 37, 37, 8, 2, 128, True, 0, None),
+    (2, 300, 300, 4, 4, 64, True, 0, None),
+    (2, 511, 511, 4, 1, 80, True, 0, None),
+    (8, 1, 300, 4, 4, 64, False, 0, DECODE_LENS),
+    (8, 1, 300, 8, 4, 32, False, 0, DECODE_LENS),
+    (8, 1, 300, 32, 4, 128, False, 0, DECODE_LENS),
+    (8, 1, 300, 4, 4, 80, False, 0, DECODE_LENS),
+    (2, 2, 40, 4, 4, 64, True, 0, [40, 17]),
+    (2, 3, 300, 8, 1, 128, True, 0, None),
+    (2, 4, 100, 16, 2, 32, True, 0, [100, 3]),
+    (2, 4, 300, 4, 4, 64, True, 2, [300, 150]),
+    (2, 300, 300, 4, 2, 80, True, 64, None),
+    (2, 200, 256, 4, 4, 32, False, 100, [256, 180]),
+]
+
+
+def _fused_qkv(B, S, Hq, Hkv, D, dt, gen):
+    """q, k, v as views of one (B, S, (Hq + 2·Hkv)·D) projection."""
+    qkv = torch.randn(B, S, (Hq + 2 * Hkv) * D, generator=gen, device="cuda").to(dt)
+    q, k, v = torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], dim=-1)
+    return q.view(B, S, Hq, D), k.view(B, S, Hkv, D), v.view(B, S, Hkv, D)
+
+
+def _check_flash(q, k, v, causal, window, kv_len, tol):
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    po, plse = flash_attention_plain(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and o.shape == po.shape and lse.shape == plse.shape
+    torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, plse, rtol=2e-3, atol=2e-3)
+
+
+def test_cuda_flash_forward_variants_match_plain_version_on_the_card():
+    """Every case in f32 (the FMA kernel) and bf16 (tensor-core prefill or
+    split-KV decode, by shape), then strided views as the model passes
+    them: q/k/v split from one fused projection (prefill) and K/V as slices
+    of a stacked (L, B, slots, Hkv, D) cache (decode and an admission).
+    Each bf16 call takes the variant ``_variant`` names, never the FMA one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(5)
+    ops.reset_launch_counts()
+    want = dict.fromkeys(("tc_prefill", "split_decode", "fma"), 0)
+    for dt, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
+        for B, S, T, Hq, Hkv, D, causal, window, lens in FLASH_VARIANT_CASES:
+            q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                            device="cuda")
+            _check_flash(q, k, v, causal, window, kv_len, tol)
+            want[_variant(q, k)] += 1
+        for B, S, Hq, Hkv, D in ((2, 300, 8, 2, 128), (2, 200, 32, 32, 80)):
+            q, k, v = _fused_qkv(B, S, Hq, Hkv, D, dt, gen)
+            _check_flash(q, k, v, True, 0, None, tol)
+            want[_variant(q, k)] += 1
+        for S, Hq, Hkv, D, causal in ((1, 32, 4, 128, False), (1, 16, 16, 64, False),
+                                      (4, 8, 2, 64, True), (1, 32, 32, 80, False)):
+            L, B, slots = 3, 4, 700
+            q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").to(dt)
+            kv_len = torch.tensor([1, 256, 513, slots], dtype=torch.int32, device="cuda")
+            # layer 1 of a stacked (L, B, slots, Hkv, D) cache, as decode_step
+            # passes it (an offset view), then K and V of one fused
+            # (B, slots, 2, Hkv, D) cache (strided views)
+            stacked = torch.randn(2, L, B, slots, Hkv, D, generator=gen, device="cuda").to(dt)
+            fused = torch.randn(B, slots, 2, Hkv, D, generator=gen, device="cuda").to(dt)
+            for kc, vc in ((stacked[0, 1], stacked[1, 1]), (fused[:, :, 0], fused[:, :, 1])):
+                assert kc.storage_offset() > 0 or not kc.is_contiguous()
+                _check_flash(q, kc, vc, causal, 0, kv_len, tol)
+                want[_variant(q, kc)] += 1
+    torch.cuda.synchronize()
+    assert ops.flash_variant_counts() == want
+    assert want["fma"] == len(FLASH_VARIANT_CASES) + 10      # the f32 calls only
+    assert ops.launch_counts()["flash_fwd"] == sum(want.values())
+
+
+def test_cuda_flash_forward_refuses_misaligned_bf16_views():
+    """TMA and cp.async need 16-byte aligned bases and strides: a view that
+    is not raises (naming the tensor) and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    bf16 = torch.bfloat16
+    q = torch.randn(2, 64, 4, 64, device="cuda", dtype=bf16)
+    k = torch.randn(2, 64, 4, 64, device="cuda", dtype=bf16)
+    shifted = torch.randn(2 * 64 * 4 * 64 + 1, device="cuda", dtype=bf16)[1:].view(2, 64, 4, 64)
+    padded = torch.randn(2, 64, 4, 65, device="cuda", dtype=bf16)[..., :64]
+    ops.reset_launch_counts()
+    for args, name in (((shifted, k, k), "q"), ((q, padded, k), "k"),
+                       ((q, k, shifted), "v"), ((q[:, :1], padded, k), "k")):
+        with pytest.raises(ValueError, match=f"{name} .*16-byte aligned"):
+            flash_attention_cuda(*args, causal=True, window=0)
+    assert ops.launch_counts()["flash_fwd"] == 0
+    # f32 takes the FMA kernel, which has no such need
+    o, _ = flash_attention_cuda(padded.float(), padded.float(), padded.float(),
+                                causal=True, window=0)
+    torch.cuda.synchronize()
+    assert ops.flash_variant_counts() == {"tc_prefill": 0, "split_decode": 0, "fma": 1}
 
 
 def test_cuda_wrapper_rejects_a_host_kv_len_below_one():

@@ -19,6 +19,9 @@ from repro.models.layers import attention as jax_attention
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import (
+    DECODE_CHUNK,
+    _decode_plan,
+    flash_decode_split_plain,
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
     flash_attention_cuda,
@@ -130,6 +133,80 @@ def test_flash_plain_rows_without_a_valid_key_are_zero():
     torch.testing.assert_close(o[:1], full, rtol=0, atol=0)
 
 
+# the split-KV decode: (B, S, T, Hq, Hkv, D, causal, window, kv_len) at
+# 64-key chunks, so that kv_len falls at 1, on chunk edges (63, 64, 65, 128,
+# 129) and at T, and empty chunks occur; GQA 8:1, 2:1 and 1:1, S = 1..4,
+# every head dim. The last case has a row without a valid key (window 1,
+# kv_len 2: row 3 sees key 3 only).
+SPLIT_CHUNK = 64
+SPLIT_CASES = [
+    (3, 1, 300, 8, 1, 32, False, 0, [1, 64, 300]),
+    (3, 1, 257, 4, 2, 64, False, 0, [63, 65, 257]),
+    (2, 3, 130, 4, 4, 80, True, 0, [130, 129]),
+    (2, 4, 200, 2, 1, 128, True, 2, [200, 128]),
+    (2, 4, 70, 2, 2, 32, True, 1, [70, 2]),
+]
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 255, 256, 257, 300, 2048, 2049])
+def test_decode_plan_puts_every_key_in_one_chunk(T):
+    chunk, splits = _decode_plan(T)
+    assert chunk == DECODE_CHUNK and chunk % 128 == 0  # 4 warps x 32-key steps
+    assert (splits - 1) * chunk < T <= splits * chunk    # no chunk starts past T
+    owner = torch.zeros(T, dtype=torch.int64)
+    for i in range(splits):
+        owner[i * chunk:(i + 1) * chunk] += 1
+    assert bool((owner == 1).all())
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_flash_decode_split_plain_matches_plain_and_jax(case, name):
+    B, S, T, Hq, Hkv, D, causal, window, lens = case
+    qj, qt = _pair(RNG.normal(0, 1, (B, S, Hq, D)), name)
+    kj, kt = _pair(RNG.normal(0, 1, (B, T, Hkv, D)), name)
+    vj, vt = _pair(RNG.normal(0, 1, (B, T, Hkv, D)), name)
+    kv_len = torch.tensor(lens, dtype=torch.int32)
+    o, lse = flash_decode_split_plain(qt, kt, vt, causal=causal, window=window,
+                                      kv_len=kv_len, chunk=SPLIT_CHUNK)
+    po, plse = flash_attention_plain(qt, kt, vt, causal=causal, window=window,
+                                     kv_len=kv_len)
+    assert o.dtype == qt.dtype and o.shape == po.shape and lse.shape == plse.shape
+    np.testing.assert_allclose(_np(o), _np(po), **_tol(name))
+    np.testing.assert_allclose(_np(lse), _np(plse), rtol=2e-3, atol=2e-3)
+    # JAX on each row's valid prefix (its kernels take no kv_len): the
+    # oracle for O where every query row sees a key
+    for b, n in enumerate(lens):
+        cut = (slice(b, b + 1), slice(0, n))
+        seen = flash_attention_plain(qt[b:b + 1], kt[cut], vt[cut], causal=causal,
+                                     window=window)[1] > -1e29
+        if bool(seen.all()):
+            want = ref.flash_attention_ref(qj[b:b + 1], kj[cut], vj[cut], causal=causal,
+                                           window=window)
+            np.testing.assert_allclose(_np(o[b:b + 1]), _np(want), **_tol(name))
+        else:   # the rows without a key are 0, the others as the oracle's
+            empty = ~seen.view(Hq, S).T                       # (S, Hq)
+            assert bool((o[b][empty] == 0).all())
+            want = ref.flash_attention_ref(qj[b:b + 1], kj[cut], vj[cut], causal=causal,
+                                           window=window)
+            np.testing.assert_allclose(_np(o[b][~empty]), _np(want[0])[~empty.numpy()],
+                                       **_tol(name))
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_flash_decode_split_plain_matches_pallas_without_kv_len(name):
+    """Whole cache valid: O and lse against the Pallas kernel (interpret)."""
+    B, S, T, Hq, Hkv, D = 2, 2, 192, 4, 1, 64
+    qj, qt = _pair(RNG.normal(0, 1, (B, S, Hq, D)), name)
+    kj, kt = _pair(RNG.normal(0, 1, (B, T, Hkv, D)), name)
+    vj, vt = _pair(RNG.normal(0, 1, (B, T, Hkv, D)), name)
+    want_o, want_lse = jax_flash_fwd(qj, kj, vj, causal=False, window=0, block_q=2,
+                                     block_k=64, interpret=True)
+    o, lse = flash_decode_split_plain(qt, kt, vt, causal=False, window=0, chunk=SPLIT_CHUNK)
+    np.testing.assert_allclose(_np(o), _np(want_o), **_tol(name))
+    np.testing.assert_allclose(_np(lse), _np(want_lse), **_tol(name))
+
+
 def test_flash_plain_rejects_empty_kv_len():
     q = torch.zeros(2, 1, 2, 32)
     k = torch.zeros(2, 8, 2, 32)
@@ -160,6 +237,7 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
                     ssd_scan_plain(xh, dt, a, bc, bc, chunk=4)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert ops.launch_counts() == NO_LAUNCHES
+    assert ops.flash_variant_counts() == {"tc_prefill": 0, "split_decode": 0, "fma": 0}
 
 
 def test_ops_reject_devices_without_a_kernel():
@@ -195,15 +273,26 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert ops.launch_counts() == NO_LAUNCHES
 
 
-def test_build_hash_covers_every_source():
+def test_build_hash_covers_every_source(tmp_path, monkeypatch):
     names = {p.name for p in build.sources()}
     assert {"flash_fwd.cu", "rmsnorm.cu", "errors.cu"} <= names
     assert build.source_hash() == build.source_hash()
-    assert {"flash_bwd.cu", "moe_gmm.cu", "ssd_scan.cu"} <= names
+    assert {"flash_bwd.cu", "moe_gmm.cu", "ssd_scan.cu", "hopper.cuh"} <= names
     assert set(build.SIGNATURES) == {
         f"repro_{k}_{t}" for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                                    "moe_gmm", "ssd_scan")
-        for t in ("f32", "bf16")}
+        for t in ("f32", "bf16")} | {"repro_flash_decode_bf16"}
+    # a change to any source, the shared header included, changes the hash
+    for src in build.sources():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.source_hash()
+    for name in ("hopper.cuh", "flash_fwd.cu"):
+        path = tmp_path / name
+        path.write_text(path.read_text() + "\n// edited\n")
+        after = build.source_hash()
+        assert after != before, name
+        before = after
 
 
 def _bwd_inputs(S, T, Hq, Hkv, D, name):
