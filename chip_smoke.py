@@ -13,9 +13,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                scan, y and final state, also at ragged S = 1, 37, 257,
                300; the flash forward's three variants (tensor-core
                prefill, split-KV decode, f32 FMA) at ragged S, decode
-               kv_len at chunk edges, GQA 1:1 to 8:1, windows, every D,
-               strided q/k/v and cache views, in f32 and bf16, with the
-               launches by variant checked and a misaligned view refused); takes
+               kv_len at chunk edges, GQA 1:1 to 8:1, windows, every D
+               (32, 64, 80, 96, 128, 256), strided q/k/v and cache views,
+               in f32 and bf16, with the launches by variant checked and a
+               misaligned view refused; the backward's two variants
+               (tensor-core for bf16, FMA for f32) at every D with ragged
+               S, windows and GQA up to 8:1, and at four timed shapes: the
+               train step's, qwen3-moe's 32/4 heads of 128, zamba2's 32
+               of 80, gemma3's 16/8 of 256 with its window); takes
                the device time (``torch.profiler``) of the kernel, of the
                plain version and of one PyTorch library call of the same
                function where there is one (a yardstick only: the port never
@@ -40,7 +45,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                launch counters must grow and split into equal steps of the
                counts remat over 24 layers and 2 microbatches gives
                (flash_fwd 96, flash_bwd_dq 48, flash_bwd_dkv 48, rmsnorm 194),
-               every forward attention on the tensor-core variant.
+               every forward and backward attention launch on the
+               tensor-core variants.
   6. serve SSM — after the earlier phases' memory is given back, phase 4 on
                full-width, full-depth mamba2-370m (48 layers, 419.8 M
                parameters), then on zamba2-2.7b (54 Mamba layers and one
@@ -60,7 +66,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                experts top-8, 30.5 B parameters in bf16 from seed 0): per
                prefill and per decode round flash_fwd 48, rmsnorm 97 and
                moe_gmm 144 launches, no backward launch; the cross-slot guard.
-  8. report  — the card's nvidia-smi line, one JSON line with every kernel's
+  8. serve gemma3 — after the earlier phases' memory is given back, phase 4
+               on full-width, full-depth gemma3-12b (48 layers, 5 local
+               layers of window 1024 to 1 global, 16 query and 8 KV heads of
+               256, 12.77 B parameters in bf16 from seed 0): per prefill and
+               per decode round flash_fwd 48 and rmsnorm 97 launches; the
+               cross-slot guard.
+  9. report  — the card's nvidia-smi line, one JSON line with every kernel's
                launches, error, times and bound, then
                ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -68,6 +80,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -104,9 +117,21 @@ FLASH_VARIANT_CASES = [
     (8, 1, 300, 32, 4, 128, False, 0, DECODE_LENS), (8, 1, 300, 4, 4, 80, False, 0, DECODE_LENS),
     (2, 2, 40, 4, 4, 64, True, 0, [40, 17]), (2, 3, 300, 8, 1, 128, True, 0, None),
     (2, 4, 100, 16, 2, 32, True, 0, [100, 3]), (2, 4, 300, 4, 4, 64, True, 2, [300, 150]),
-    (2, 300, 300, 4, 2, 80, True, 64, None), (2, 200, 256, 4, 4, 32, False, 100, [256, 180])]
+    (2, 300, 300, 4, 2, 80, True, 64, None), (2, 200, 256, 4, 4, 32, False, 100, [256, 180]),
+    (2, 37, 37, 4, 2, 96, True, 0, None), (2, 300, 300, 4, 2, 256, True, 128, None),
+    (8, 1, 300, 8, 1, 96, False, 0, DECODE_LENS), (8, 1, 300, 4, 2, 256, False, 0, DECODE_LENS),
+    (2, 4, 300, 4, 2, 256, True, 0, [300, 65])]
+# the backward's: the JAX test cases, then every head dim with ragged S,
+# windows and GQA up to 8:1 (gemma3's 2:1 at D = 256 with a window), each in
+# f32 (the FMA kernels) and bf16 (the tensor-core kernels)
 FLASH_BWD_CASES = [(128, 128, 4, 2, 32, True, 0), (128, 128, 4, 4, 64, True, 48),
-                   (64, 192, 4, 1, 32, False, 0)]
+                   (64, 192, 4, 1, 32, False, 0), (100, 100, 8, 2, 128, True, 40),
+                   (77, 77, 8, 1, 32, True, 0), (300, 300, 16, 2, 64, True, 0),
+                   (200, 200, 4, 4, 80, True, 0), (129, 129, 8, 1, 80, False, 0),
+                   (150, 150, 8, 2, 96, True, 50), (70, 190, 4, 4, 96, False, 0),
+                   (257, 257, 8, 1, 128, True, 0), (300, 300, 4, 2, 256, True, 128),
+                   (65, 130, 8, 1, 256, False, 0), (3, 3, 4, 2, 128, True, 0),
+                   (1, 40, 2, 1, 80, False, 0)]
 # the grouped-GEMM cases of tests/test_kernels.py (E, C, D, F) and their
 # (atol, rtol); then tokens per expert of one slot, a decode round of 8 slots
 # and a 511-token admission of qwen3-moe-30b-a3b
@@ -124,6 +149,12 @@ GUARD_PROMPT = 300                                # > one SSD chunk
 TRAIN_STEPS = 4
 SSM_CONFIGS = ("mamba2-370m", "zamba2-2.7b")
 MOE_CONFIG = "qwen3-moe-30b-a3b"
+GEMMA3_CONFIG = "gemma3-12b"
+# the backward's timed shapes (B, S = T, Hq, Hkv, D, window), all causal:
+# the train step's microbatch (qwen1.5-0.5b), qwen3-moe-30b-a3b's heads,
+# zamba2-2.7b's shared block, a gemma3-12b local layer
+BWD_PATHS = {"train": (4, 1024, 16, 16, 64, 0), "moe": (4, 1024, 32, 4, 128, 0),
+             "zamba2": (4, 1024, 32, 32, 80, 0), "gemma3": (4, 1024, 16, 8, 256, 1024)}
 
 
 def fail(msg: str) -> None:
@@ -187,9 +218,28 @@ def build_phase():
     lib = build.build()
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f}s -> {lib.relative_to(ROOT)}")
+    kernel = "?"
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas {line.strip()}")
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = _kernel_label(entry.group(1))
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {kernel}: {line.replace('ptxas info    :', '').strip()}")
+
+
+def _kernel_label(mangled: str) -> str:
+    """A mangled kernel name as ``name<template ints>`` (and its element
+    type where the template has one), for the ptxas lines."""
+    for run in re.finditer(r"\d+", mangled):
+        for k in range(len(run.group())):
+            n = int(run.group()[k:])
+            name = mangled[run.end():run.end() + n]
+            if len(name) == n and name.endswith("_kernel") and re.fullmatch(r"[a-z0-9_]+", name):
+                head = mangled[run.end() + n:].split("EE")[0]
+                args = re.findall(r"Li(\d+)", head)
+                args += ["bf16"] if "bfloat16" in head else ["f32"] if head.startswith("If") else []
+                return f"{name}<{', '.join(args)}>" if args else name
+    return mangled
 
 
 def rmsnorm_phase(gen):
@@ -206,10 +256,11 @@ def rmsnorm_phase(gen):
                                        rmsnorm_plain(x, s), TOL[str(dt)[6:]]))
     # (rows, d): qwen1.5-0.5b's prefill step and decode round, then
     # qwen3-moe-30b-a3b's (and mamba2-370m's gated norm), then zamba2-2.7b's
-    # gated norm
+    # gated norm, then gemma3-12b's
     shape_by_path = {"prefill": (4 * 1024, 1024), "decode": (8, 1024),
                      "moe_prefill": (4 * 1024, 2048), "moe_decode": (8, 2048),
-                     "zamba2_prefill": (4 * 1024, 5120), "zamba2_decode": (8, 5120)}
+                     "zamba2_prefill": (4 * 1024, 5120), "zamba2_decode": (8, 5120),
+                     "gemma3_prefill": (4 * 1024, 3840), "gemma3_decode": (8, 3840)}
     timed = {}
     for path, (rows, d) in shape_by_path.items():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -273,7 +324,8 @@ def flash_phase(gen):
             err, variant = _flash_check(f"flash {(B, S, T, Hq, Hkv, D, causal, window)} {dt}",
                                         q, k, v, causal, window, kv_len)
             worst, want[variant] = max(worst, err), want[variant] + 1
-        for (B, S, Hq, Hkv, D) in ((2, 300, 8, 2, 128), (2, 200, 32, 32, 80)):
+        for (B, S, Hq, Hkv, D) in ((2, 300, 8, 2, 128), (2, 200, 32, 32, 80),
+                                   (2, 150, 32, 32, 96), (2, 200, 16, 8, 256)):
             qkv = randn(B, S, (Hq + 2 * Hkv) * D, dt=dt)
             q, k, v = torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], dim=-1)
             err, variant = _flash_check(f"flash fused qkv {(B, S, Hq, Hkv, D)} {dt}",
@@ -281,7 +333,9 @@ def flash_phase(gen):
                                         v.view(B, S, Hkv, D), True, 0)
             worst, want[variant] = max(worst, err), want[variant] + 1
         for (S, Hq, Hkv, D, causal) in ((1, 32, 4, 128, False), (1, 16, 16, 64, False),
-                                        (4, 8, 2, 64, True), (1, 32, 32, 80, False)):
+                                        (4, 8, 2, 64, True), (1, 32, 32, 80, False),
+                                        (1, 32, 32, 96, False), (1, 16, 8, 256, False),
+                                        (3, 16, 8, 256, True)):
             L, B, slots = 3, 4, 700
             q = randn(B, S, Hq, D, dt=dt)
             kv_len = torch.tensor([1, 256, 513, slots], dtype=torch.int32, device="cuda")
@@ -321,17 +375,30 @@ def flash_phase(gen):
                                       "B=4 S=T=1024 H=32 D=80 causal bf16"),
         "zamba2_decode": _flash_path("zamba2_decode", gen, 8, 1, 2048, 32, 32, 80,
                                      "B=8 S=1 T=2048 H=32 D=80 kv_len 1..2048 bf16"),
+        # gemma3-12b: 16 query and 8 KV heads of 256; a local layer's window
+        # of 1024 (at S = 1024 every causal key lies inside it)
+        "gemma3_prefill": _flash_path("gemma3_prefill", gen, 4, 1024, 1024, 16, 8, 256,
+                                      "B=4 S=T=1024 Hq=16 Hkv=8 D=256 causal window 1024 bf16",
+                                      window=1024),
+        "gemma3_decode": _flash_path("gemma3_decode", gen, 8, 1, 2048, 16, 8, 256,
+                                     "B=8 S=1 T=2048 Hq=16 Hkv=8 D=256 kv_len 1..2048 bf16"),
     }
     for t in timed.values():
         worst = max(worst, t["max_abs_err"])
     return worst, timed
 
 
-def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape):
+def _causal_pairs(S, window):
+    """Valid (query, key) pairs of one causal S x S head under ``window``."""
+    return sum(min(q + 1, window) if window > 0 else q + 1 for q in range(S))
+
+
+def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape, window=0):
     """The forward kernel at one main-path shape (bf16): checked against the
     plain version, device times of kernel, plain and SDPA, wrapper time and
-    the bound. S = T is a causal prefill; S = 1 a decode step with per-row
-    kv_len spread over 1..T."""
+    the bound. S = T is a causal prefill (a window of at least S changes
+    nothing, so SDPA's causal call computes the same); S = 1 a decode step
+    with per-row kv_len spread over 1..T."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
@@ -344,13 +411,15 @@ def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape):
     causal = S == T
     kv_len = None if causal else \
         torch.linspace(1, T, B, device="cuda").round().to(torch.int32)
-    o, lse, po, plse = _flash_pair(q, k, v, causal, 0, kv_len)
+    if window and not (causal and window >= S):
+        fail(f"flash {path}: SDPA takes no window: want one of at least S")
+    o, lse, po, plse = _flash_pair(q, k, v, causal, window, kv_len)
     err = max(compare(f"flash {path} O", o, po, TOL["bfloat16"]),
               compare(f"flash {path} lse", lse, plse, LSE_TOL))
     # bytes: q and O, the K/V each row may see, lse (and kv_len); operations:
     # 4·D per valid (query, key) pair
     if causal:
-        pairs, kv_bytes = B * Hq * S * (S + 1) // 2, 2 * B * T * Hkv * D * 2
+        pairs, kv_bytes = B * Hq * _causal_pairs(S, window), 2 * B * T * Hkv * D * 2
     else:
         valid = int(kv_len.sum())
         pairs, kv_bytes = Hq * valid, 2 * valid * Hkv * D * 2 + B * 4
@@ -368,13 +437,13 @@ def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape):
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)
 
     def kernel():
-        return flash_attention_cuda(q, k, v, causal=causal, window=0, kv_len=kv_len)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, kv_len=kv_len)
 
     timed = {
         "shape": shape, "max_abs_err": err, "ms": device_ms(kernel),
         "wrapper_ms": wrapper_ms(kernel),
         "plain_ms": device_ms(lambda: flash_attention_plain(
-            q, k, v, causal=causal, window=0, kv_len=kv_len), iters=5 if causal else 20),
+            q, k, v, causal=causal, window=window, kv_len=kv_len), iters=5 if causal else 20),
         "library_ms": device_ms(library), "bound_ms": b_ms, "bound_by": b_by}
     print(f"flash_fwd {path}: {json.dumps(timed)}")
     return timed
@@ -669,16 +738,24 @@ def serve_phase(config="qwen1.5-0.5b"):
 
 
 def flash_bwd_phase(gen):
+    """The backward kernels against the plain version: FLASH_BWD_CASES in f32
+    (the FMA kernels) and bf16 (the tensor-core kernels), the launches by
+    variant checked; then the four BWD_PATHS shapes (bf16, O and lse from
+    the forward kernel), each also held per 64-row tile and timed."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         _delta, flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
     from repro_torch.launch.kernel_times import device_ms, wrapper_ms
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}   # each kernel's own outputs
-    tile_rel = dict(worst)
+    tile_rel = {}
 
-    def check(name, q, k, v, do, causal, window, tol, tiles=False):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def check(name, q, k, v, do, causal, window, tol, tiles=None):
         o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window)
         got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window)
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
@@ -686,56 +763,68 @@ def flash_bwd_phase(gen):
         for part, g, w in zip(("dq", "dk", "dv"), got, want):
             kern = "flash_bwd_dq" if part == "dq" else "flash_bwd_dkv"
             worst[kern] = max(worst[kern], compare(f"{name} {part}", g, w, tol))
-            if tiles:
-                tile_rel[kern] = max(tile_rel[kern], compare_tiles(f"{name} {part}", g, w))
+            if tiles is not None:
+                tiles[kern] = max(tiles.get(kern, 0.0), compare_tiles(f"{name} {part}", g, w))
         return o, lse
 
+    ops.reset_launch_counts()
     for (S, T, Hq, Hkv, D, causal, window) in FLASH_BWD_CASES:
         for dt in (torch.float32, torch.bfloat16):
-            q, do = (torch.randn(2, S, Hq, D, generator=gen, device="cuda").to(dt)
-                     for _ in range(2))
-            k, v = (torch.randn(2, T, Hkv, D, generator=gen, device="cuda").to(dt)
-                    for _ in range(2))
+            q, do = randn(2, S, Hq, D).to(dt), randn(2, S, Hq, D).to(dt)
+            k, v = randn(2, T, Hkv, D).to(dt), randn(2, T, Hkv, D).to(dt)
             check(f"flash bwd {(S, T, Hq, Hkv, D, causal, window)} {dt}",
                   q, k, v, do, causal, window, TOL[str(dt)[6:]])
+    n = len(FLASH_BWD_CASES)
+    want = {name: {"tc": n, "fma": n} for name in worst}
+    if ops.flash_bwd_variant_counts() != want:
+        fail(f"flash bwd variants {ops.flash_bwd_variant_counts()}, expected {want} "
+             f"(the tensor-core kernels for bf16, FMA for f32)")
+    print(f"flash bwd: checked cases by variant {want}")
 
-    # the train phase's microbatch: B=4, S=T=1024, 16 heads of 64, causal, bf16
-    B, S, H, D = 4, 1024, 16, 64
-    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(4))
-    o, lse = check("flash bwd path", q, k, v, do, True, 0, TOL["bfloat16"], tiles=True)
-    delta = _delta(o, do).contiguous()
-    pairs = B * H * S * (S + 1) // 2
-    tensor_b, stat_b = B * S * H * D * 2, B * H * S * 4
-    plain_ms = device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                           causal=True, window=0), iters=5)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    library_ms = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                       retain_graph=True))
-    shape = f"B={B} S=T={S} H={H} D={D} causal bf16"
-    calls = {
-        # (call, bytes: inputs once + outputs once, operations per valid pair)
-        "flash_bwd_dq": (lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True,
-                                                   window=0),
-                         5 * tensor_b + 2 * stat_b, 3 * 2 * D),
-        "flash_bwd_dkv": (lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True,
-                                                     window=0),
-                          6 * tensor_b + 2 * stat_b, 4 * 2 * D),
-    }
-    timed = {}
-    for name, (call, nbytes, per_pair) in calls.items():
-        b_ms, b_by = bound(nbytes, float(per_pair) * pairs, PEAK_BF16_FLOPS)
-        timed[name] = {
-            "shape": shape, "ms": device_ms(call, kernel=f"{name}_kernel"),
-            "max_tile_rel_err": tile_rel[name],
-            "wrapper_ms": wrapper_ms(call), "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "plain_and_library_cover": "dq, dk and dv together"}
-        print(f"{name} path: {json.dumps(timed[name])}")
-    print(f"flash_attention_bwd_cuda (dq + dkv + delta) path: wrapper "
-          f"{wrapper_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do)):.4f} ms")
+    timed = {name: {} for name in worst}
+    for path, (B, S, Hq, Hkv, D, window) in BWD_PATHS.items():
+        q, do = (randn(B, S, Hq, D).to(torch.bfloat16) for _ in range(2))
+        k, v = (randn(B, S, Hkv, D).to(torch.bfloat16) for _ in range(2))
+        tile_rel[path] = {}
+        o, lse = check(f"flash bwd {path}", q, k, v, do, True, window, TOL["bfloat16"],
+                       tiles=tile_rel[path])
+        delta = _delta(o, do).contiguous()
+        pairs = B * Hq * _causal_pairs(S, window)
+        q_b, kv_b, stat_b = B * S * Hq * D * 2, B * S * Hkv * D * 2, B * Hq * S * 4
+        plain_ms = device_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True, window=window), iters=5)
+        # SDPA has no window; gemma3's 1024 at S = 1024 leaves every causal key
+        if window and window < S:
+            fail(f"flash bwd {path}: SDPA takes no window: want one of at least S")
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             **({"enable_gqa": True} if Hq != Hkv else {}))
+        dot = do.transpose(1, 2)
+        library_ms = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                           retain_graph=True))
+        shape = (f"B={B} S=T={S} Hq={Hq} Hkv={Hkv} D={D} causal"
+                 f"{f' window {window}' if window else ''} bf16")
+        calls = {
+            # (call, bytes: inputs once + outputs once, operations per valid pair)
+            "flash_bwd_dq": (lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True,
+                                                       window=window),
+                             3 * q_b + 2 * kv_b + 2 * stat_b, 3 * 2 * D),
+            "flash_bwd_dkv": (lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                         causal=True, window=window),
+                              2 * q_b + 4 * kv_b + 2 * stat_b, 4 * 2 * D),
+        }
+        for name, (call, nbytes, per_pair) in calls.items():
+            b_ms, b_by = bound(nbytes, float(per_pair) * pairs, PEAK_BF16_FLOPS)
+            timed[name][path] = {
+                "shape": shape, "ms": device_ms(call, kernel=f"{name}_tc_kernel"),
+                "max_tile_rel_err": tile_rel[path][name],
+                "wrapper_ms": wrapper_ms(call), "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "plain_and_library_cover": "dq, dk and dv together"}
+            print(f"{name} {path}: {json.dumps(timed[name][path])}")
+        whole_ms = wrapper_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                               window=window))
+        print(f"flash_attention_bwd_cuda (dq + dkv + delta) {path}: wrapper {whole_ms:.4f} ms")
     return worst, timed
 
 
@@ -763,6 +852,7 @@ def train_phase():
         counts.append(ops.launch_counts())
     launches = ops.launch_counts()
     variants = ops.flash_variant_counts()
+    bwd_variants = ops.flash_bwd_variant_counts()
     # ---- end of the main path ----
 
     for name in ("moe_gmm", "ssd_scan"):                 # not on the dense train path
@@ -793,7 +883,13 @@ def train_phase():
     want_variants = {"tc_prefill": launches["flash_fwd"], "split_decode": 0, "fma": 0}
     if variants != want_variants:
         fail(f"train: flash variants {variants}, expected {want_variants}")
+    # and every backward launch on the tensor-core kernels
+    want_bwd = {name: {"tc": launches[name], "fma": 0}
+                for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    if bwd_variants != want_bwd:
+        fail(f"train: flash backward variants {bwd_variants}, expected {want_bwd}")
     launches["flash_fwd_variants"] = variants
+    launches["flash_bwd_variants"] = bwd_variants
     timed_ms = step_ms[1:]                       # after one warm-up step
     mean_ms = sum(timed_ms) / len(timed_ms)
     tokens = shape.global_batch * shape.seq_len
@@ -809,7 +905,8 @@ def train_phase():
 
 def release_memory(next_phase):
     """Give the earlier phases' device memory back before the next model's
-    phase (the MoE model's weights alone take 61.1 GB of the card's 80)."""
+    phase (the MoE model's weights alone take 61.1 GB of the card's 80,
+    gemma3-12b's 25.5 GB)."""
     import gc
     import torch
     gc.collect()
@@ -839,6 +936,8 @@ def main() -> int:
         ssm[config] = serve_phase(config)
     release_memory(MOE_CONFIG)
     moe_launches, moe_prefill, moe_round = serve_phase(MOE_CONFIG)
+    release_memory(GEMMA3_CONFIG)
+    gemma_launches, gemma_prefill, gemma_round = serve_phase(GEMMA3_CONFIG)
 
     def entry(name, source, replaces, err, timed):
         top = timed["prefill"]     # serving's launches below; "launches" is the train path's
@@ -857,14 +956,20 @@ def main() -> int:
                 "launches_per_moe_prefill": moe_prefill[name],
                 "launches_per_moe_decode_round": moe_round[name],
                 "zamba2_prefill": timed["zamba2_prefill"],
-                "zamba2_decode": timed["zamba2_decode"], **ssm_launches(name),
-                **variant_launches(name)}
+                "zamba2_decode": timed["zamba2_decode"],
+                "gemma3_prefill": timed["gemma3_prefill"],
+                "gemma3_decode": timed["gemma3_decode"],
+                "launches_gemma3_serve": gemma_launches[name],
+                "launches_per_gemma3_prefill": gemma_prefill[name],
+                "launches_per_gemma3_decode_round": gemma_round[name],
+                **ssm_launches(name), **variant_launches(name)}
 
     def variant_launches(name):
         """The forward flash kernel's launches by variant on each path."""
         if name != "flash_fwd":
             return {}
         paths = {"train": train_launches, "serve": launches, "moe_serve": moe_launches,
+                 "gemma3_serve": gemma_launches,
                  **{f"{c}_serve": n for c, (n, _, _) in ssm.items()}}
         return {"launches_by_variant": {path: n["flash_fwd_variants"]
                                         for path, n in paths.items()}}
@@ -880,11 +985,14 @@ def main() -> int:
         return out
 
     def bwd_entry(name, line):
+        # top level: the train step's shape; "paths" all four timed shapes
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
                 "replaces": f"src/repro/kernels/flash_attention.py:{line}",
                 "launches": train_launches[name], "max_abs_err": bwd_err[name],
-                **bwd_t[name], "launches_per_train_step": per_step[name]}
+                **bwd_t[name]["train"], "paths": bwd_t[name],
+                "launches_by_variant": train_launches["flash_bwd_variants"][name],
+                "launches_per_train_step": per_step[name]}
 
     kernels = [
         entry("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",

@@ -19,7 +19,9 @@
 //    (4*D per valid pair, 989 TFLOP/s) as by bytes; only tensor cores reach
 //    that. One block per (b*Hq + h, 128-row Q tile), scheduled longest
 //    causal tile first: two consumer warpgroups of 64 rows and one producer
-//    warp (two blocks an SM at D <= 64, one above, by registers). The
+//    warp (two blocks an SM at D <= 64, one above, by registers; at D = 256
+//    a producer warpgroup that hands its registers to the consumers with
+//    setmaxnreg, 240 a consumer thread). The
 //    producer loads Q once and K/V tiles of 64 keys through TMA into a ring
 //    of 3 stages with full/empty mbarriers; TMA zero-fills rows past S and
 //    T. Each consumer warpgroup runs S = Q·Kᵀ as wgmma (m64n64k16, both
@@ -29,11 +31,13 @@
 //    kv_len), rounds P to bf16 in registers and runs O += P·V as wgmma with
 //    A = P from registers and B = V read MN-major from shared memory (the
 //    transposed-B form). Tiles that the masks cover wholly are never
-//    loaded. D = 64 and 128 keep their tiles in the 128-byte swizzle (TMA
-//    boxes of 64 columns); D = 32 and 80 (zamba2), whose 64- and 160-byte
-//    rows the 128-byte swizzle span does not fit, without swizzle, as
-//    8-column groups of one 16-byte-wide TMA box each (hopper.cuh), and
-//    D = 80 as an n80 product.
+//    loaded. D = 64, 128 and 256 keep their tiles in the 128-byte swizzle
+//    (TMA boxes of 64 columns); D = 32, 80 (zamba2) and 96 (phi-3-vision),
+//    whose 64-, 160- and 192-byte rows the 128-byte swizzle span does not
+//    fit, without swizzle, as 8-column groups of one 16-byte-wide TMA box
+//    each (hopper.cuh). P·V is one m64nDk16 product at every D. At D = 256
+//    (gemma3) the ring has two stages (Q 64 KB + 2 x 64 KB), and each
+//    consumer thread holds 128 f32 of O besides S and P.
 // 2. bf16 decode, S <= 4 and (Hq/Hkv)*S <= 32 (`flash_decode_kernel`, entry
 //    repro_flash_decode_bf16). Bound by the bytes of the valid K/V prefix.
 //    Split-KV: one block per (b*Hkv + kv head, chunk of keys, group of up to
@@ -49,11 +53,13 @@
 //    (b, kv head) to finish, found by an atomic counter that it resets,
 //    merges the chunks in the same launch. A chunk at or past kv_len
 //    writes an empty partial (l = 0). The chunk (256 keys) and the number
-//    of splits come from T alone, on the host.
+//    of splits come from T alone, on the host. The V stage is dynamic
+//    shared memory (66 KB at D = 256).
 // 3. f32, any shape (`flash_fwd_kernel`, entry repro_flash_fwd_f32): f32
 //    FMAs from shared memory. One block per (b*Hq + h, tile of BQ query
 //    rows); each row owned by TPR lanes of one warp; BQ = 64 rows x 4 lanes,
-//    or 4 rows x 32 lanes (16 at D = 80) for S <= 4.
+//    or 4 rows x 32 lanes (16 at D = 80) for S <= 4 (209 KB of shared
+//    memory at D = 256).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -236,44 +242,29 @@ namespace tc {
 
 constexpr int BQ = 128;              // query rows a block: two warpgroups of 64
 constexpr int BK = 64;               // keys a K/V tile
-constexpr int kStages = 3;           // K/V ring
 constexpr int kConsumerWarps = 8;
-constexpr int kThreads = 32 * (kConsumerWarps + 1);
 
-// Operand layouts in shared memory. D = 64 and 128 take the 128-byte
-// swizzle: a TMA box of 64 columns (128-byte rows) per 64-column region,
-// which wgmma reads with swizzled descriptors. D = 32 and 80 (whose 64- and
-// 160-byte rows a 128-byte swizzle span does not fit) take no swizzle:
-// 8-column groups, one 16-byte-wide TMA box each (hopper.cuh).
+// Shared memory of one block: Q, then the K/V ring (hopper::Tile<D> gives
+// the operand layout). Three stages of the ring; two at D = 256, where a
+// 128-row Q tile (64 KB) and three 64-key stages (192 KB) would pass the
+// 227 KB a block can have. At D = 256 a consumer thread also holds 128 f32
+// of O besides S and P, more than the 168 registers ptxas gives each of
+// 288 threads (it spilled): there the producer is a whole warpgroup that
+// gives its registers back (setmaxnreg), 24 a thread, and the two consumer
+// warpgroups take 240.
 template <int D>
 struct Smem {
-  static constexpr bool kSwizzle = D % 64 == 0;
-  static constexpr int kBoxCols = kSwizzle ? 64 : 8;
+  static constexpr bool kSwizzle = hopper::Tile<D>::kSwizzle;
+  static constexpr int kBoxCols = hopper::Tile<D>::kBoxCols;
+  static constexpr bool kRealloc = D > 128;
+  static constexpr int kThreads = 32 * kConsumerWarps + (kRealloc ? 128 : 32);
+  static constexpr int kStages = D > 128 ? 2 : 3;
   static constexpr int kQ = BQ * D;     // elements
   static constexpr int kTile = BK * D;
   // + 1 KB to align the operands to the swizzle pattern's 1024 bytes
   static constexpr int kBytes =
       2 * (kQ + 2 * kStages * kTile) + 8 * (2 * kStages + 1) + (kSwizzle ? 1024 : 0);
 };
-
-// descriptor of k-step kk (16 columns) of a K-major operand of `rows` rows
-// at `base` (Q's rows of one warpgroup: base offset by its first row)
-template <int D>
-__device__ __forceinline__ uint64_t desc_k_major(const __nv_bfloat16* base, int rows, int kk) {
-  if constexpr (Smem<D>::kSwizzle)   // region kk/4, 32 bytes a k-step inside its 128-byte rows
-    return hopper::wgmma_desc_sw128(base + (kk / 4) * rows * 64 + (kk % 4) * 16, 16, 1024);
-  else
-    return hopper::wgmma_desc(base + kk * 2 * rows * 8, rows * 16, 128);
-}
-
-// descriptor of k-step kk (16 keys) of V, read MN-major
-template <int D>
-__device__ __forceinline__ uint64_t desc_v(const __nv_bfloat16* base, int kk) {
-  if constexpr (Smem<D>::kSwizzle)   // 64-column regions BK*128 bytes apart, 8 keys 1024
-    return hopper::wgmma_desc_sw128(base + kk * 16 * 64, BK * 128, 1024);
-  else
-    return hopper::wgmma_desc(base + kk * 16 * 8, 128, BK * 16);
-}
 
 struct Params {
   __nv_bfloat16* o;   // (B, S, Hq, D), contiguous
@@ -285,26 +276,17 @@ struct Params {
   int q_pos[3], k_pos[3], v_pos[3];
 };
 
-// one box (8 or 64 columns x rows) at (col, row, head, b)
-__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         const int (&pos)[3], int col, int row, int head,
-                                         int b) {
-  auto at = [&](int dim) { return pos[0] == dim ? row : pos[1] == dim ? head : b; };
-  hopper::tma_load_4d(dst, map, bar, col, at(1), at(2), at(3));
-}
-
 template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(Smem<D>::kThreads, D <= 64 ? 2 : 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap, const Params p) {
   using namespace hopper;
   using L = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw;
-  if constexpr (L::kSwizzle) smem += (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(aligned_smem(smem_raw, L::kSwizzle));
   __nv_bfloat16* ks = qs + L::kQ;
+  constexpr int kStages = L::kStages;
   __nv_bfloat16* vs = ks + kStages * L::kTile;
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * L::kTile);
   uint64_t* empty = full + kStages;
@@ -332,9 +314,10 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   }
   __syncthreads();
 
-  if (warp == kConsumerWarps) {
+  if (warp >= kConsumerWarps) {
     // ---- producer: one thread issues every TMA load ----
-    if (lane == 0) {
+    if constexpr (L::kRealloc) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
       mbar_arrive_expect_tx(qbar, 2 * L::kQ);
       constexpr int W = L::kBoxCols;
 #pragma unroll 1
@@ -359,6 +342,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   }
 
   // ---- consumers: warpgroup wg owns query rows q0 + 64*wg .. + 63 ----
+  if constexpr (L::kRealloc) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int wg = warp / 4;
   const int quad = lane % 4;
   const int wg_row0 = q0 + wg * 64;
@@ -437,20 +421,16 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
 
-    // P in bf16 as the A operand: for keys 16*kk.., the accumulator's
-    // registers 8*kk .. 8*kk + 7 are the A fragment's, in order
+    // P in bf16 as the A operand
     uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+    to_a_frags(pa, s);
 
     // O += P·V, V MN-major: 16 keys a step
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs_tb<D>(o, pa[kk], desc_v<D>(vt, kk));
+      wgmma_rs_tb<D>(o, pa[kk], desc_mn_major<D>(vt, BK, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -480,71 +460,6 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found once through the runtime
-// (the library is not linked against libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map of a bf16 (B, rows, H, D) view with D contiguous: dim 0 is D,
-// dims 1..3 the (rows, head, batch) dims sorted by stride (a dim of extent 1
-// takes the largest), so the strides grow as TMA expects. The box is 8
-// columns x box_rows rows. pos[i] says which dim holds rows, head, batch.
-cudaError_t make_map(CUtensorMap* map, const void* base, int D, const long long (&ext)[3],
-                     const long long (&stride)[3], int box_cols, int box_rows,
-                     int (&pos)[3]) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  long long span = 2LL * D;
-  for (int i = 0; i < 3; ++i)
-    if (ext[i] > 1) span = span > 2 * stride[i] * ext[i] ? span : 2 * stride[i] * ext[i];
-  long long bytes[3];
-  int order[3] = {0, 1, 2};
-  for (int i = 0; i < 3; ++i) bytes[i] = ext[i] > 1 ? 2 * stride[i] : span;
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && bytes[order[j]] < bytes[order[j - 1]]; --j) {
-      const int t = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = t;
-    }
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
-  cuuint64_t strides[3];
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  for (int j = 0; j < 3; ++j) {
-    dims[j + 1] = static_cast<cuuint64_t>(ext[order[j]]);
-    strides[j] = static_cast<cuuint64_t>(bytes[order[j]]);
-    pos[order[j]] = j + 1;
-  }
-  box[pos[0]] = static_cast<cuuint32_t>(box_rows);
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                           : CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 cudaError_t launch(const FlashParams& a, cudaStream_t stream) {
   Params p{static_cast<__nv_bfloat16*>(a.o), a.lse, a.kv_len, a.S, a.T, a.Hq, a.Hkv,
@@ -552,6 +467,7 @@ cudaError_t launch(const FlashParams& a, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   cudaError_t err;
   constexpr int W = Smem<D>::kBoxCols;
+  using hopper::make_map;
   if ((err = make_map(&qm, a.q, D, {a.S, a.Hq, a.B}, {a.q_ss, a.q_sh, a.q_sb}, W, BQ,
                       p.q_pos)) ||
       (err = make_map(&km, a.k, D, {a.T, a.Hkv, a.B}, {a.k_ss, a.k_sh, a.k_sb}, W, BK,
@@ -563,7 +479,7 @@ cudaError_t launch(const FlashParams& a, cudaStream_t stream) {
       flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(a.B * a.Hq, (a.S + BQ - 1) / BQ);
-  flash_fwd_tc_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(qm, km, vm, p);
+  flash_fwd_tc_kernel<D><<<grid, Smem<D>::kThreads, Smem<D>::kBytes, stream>>>(qm, km, vm, p);
   return cudaGetLastError();
 }
 
@@ -628,7 +544,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Params p) 
   constexpr int VS = Smem<D>::VS;
   constexpr int EPT = (RMAX * D / 2 + kThreads - 1) / kThreads;   // merge: pairs a thread
   static_assert(D % 16 == 0, "head dim");
-  __shared__ __align__(16) unsigned char buf[Smem<D>::kBytes];
+  extern __shared__ __align__(16) unsigned char buf[];   // Smem<D>::kBytes
   __shared__ float m_w[kWarps][RB], l_w[kWarps][RB];
   __shared__ float m_row[RMAX], l_row[RMAX];
   __shared__ int last;
@@ -676,9 +592,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Params p) 
   const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
   __nv_bfloat16(*v_s)[VS] = reinterpret_cast<__nv_bfloat16(*)[VS]>(buf) + warp * 32;
-  float o[NT][4];
+  float o[NT][2];   // row g, columns 8n + 2*q4 + {0, 1}
 #pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = 0.f;
   float m_r = kNegInf, l_r = 0.f;   // row g's running max and this lane's share of its sum
 
 #pragma unroll 1
@@ -693,12 +609,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Params p) 
 
     // S = Q·Kᵀ: n-tile i holds keys base + 8i .. + 7; this lane loads key
     // base + 8i + g (row 0 in place of a key past w1: its score is masked)
-    float sc[4][4];
+    float sc[4][2];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int t = base + 8 * i + g;
       const __nv_bfloat16* krow = kg + (t < w1 ? t : 0) * p.k_ss;
-      sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+      sc[i][0] = sc[i][1] = 0.f;
 #pragma unroll
       for (int m = 0; m < KB; ++m) {
         const uint4 w = __ldg(reinterpret_cast<const uint4*>(krow + 32 * m + 8 * q4));
@@ -905,9 +821,13 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Params p) 
 
 template <int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  // dynamic shared memory: the V stage passes 48 KB at D = 256 (66 KB)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
+  if (attr != cudaSuccess) return attr;
   const int R = (p.Hq / p.Hkv) * p.S;
   const dim3 grid(B * p.Hkv, p.splits, (R + RB - 1) / RB);
-  flash_decode_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+  flash_decode_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -936,7 +856,9 @@ extern "C" int repro_flash_fwd_f32(FLASH_ARGS) {
     case 32: return launch_fma_for_rows<32>(p, st);
     case 64: return launch_fma_for_rows<64>(p, st);
     case 80: return launch_fma_for_rows<80>(p, st);
+    case 96: return launch_fma_for_rows<96>(p, st);
     case 128: return launch_fma_for_rows<128>(p, st);
+    case 256: return launch_fma_for_rows<256>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -954,7 +876,9 @@ extern "C" int repro_flash_fwd_bf16(FLASH_ARGS) {
     case 32: return tc::launch<32>(p, st);
     case 64: return tc::launch<64>(p, st);
     case 80: return tc::launch<80>(p, st);
+    case 96: return tc::launch<96>(p, st);
     case 128: return tc::launch<128>(p, st);
+    case 256: return tc::launch<256>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -984,7 +908,9 @@ extern "C" int repro_flash_decode_bf16(FLASH_ARGS, void* part, void* counter, in
     case 32: return dec::launch<32>(p, B, st);
     case 64: return dec::launch<64>(p, B, st);
     case 80: return dec::launch<80>(p, B, st);
+    case 96: return dec::launch<96>(p, B, st);
     case 128: return dec::launch<128>(p, B, st);
+    case 256: return dec::launch<256>(p, B, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -25,6 +25,7 @@
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -133,14 +134,17 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // D (16 x 8, f32) += A (16 x 16, bf16, rows 8..15 zero) * B (16 x 8, bf16):
 // a0, a2 hold A's rows 0..7 (columns 2q, 2q+1 and 8+2q, 9+2q of lane 4g+q's
 // row g), b0, b1 B's column g (rows 2q, 2q+1 and 8+2q, 9+2q); d0, d1 are
-// row g, columns 2q, 2q+1 (d2, d3 the zero rows' results)
-__device__ __forceinline__ void mma_16816_top(float (&d)[4], uint32_t a0, uint32_t a2,
+// row g, columns 2q, 2q+1. The zero rows' results are not kept: they take
+// scratch outputs (added to a zero C) that die at once, so no register
+// holds them across products.
+__device__ __forceinline__ void mma_16816_top(float (&d)[2], uint32_t a0, uint32_t a2,
                                               uint32_t b0, uint32_t b1) {
+  float z0, z1;
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %10, %10};"
+      : "+f"(d[0]), "+f"(d[1]), "=f"(z0), "=f"(z1)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f));
 }
 // four 8x8 b16 matrices from shared memory, transposed: lanes 8i..8i+7 give
 // the row addresses of matrix i, whose fragment lands in r[i]
@@ -242,6 +246,32 @@ __device__ __forceinline__ void wgmma_rs_m64n80_tb(float (&d)[40], const uint32_
       : "memory");
 }
 
+// D (64 x 96, f32) += A (64 x 16, registers) * B (16 x 96, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n96_tb(float (&d)[48], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}"
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
 // D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64], const uint32_t (&a)[4],
                                                   uint64_t desc_b) {
@@ -273,6 +303,56 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64], const uint32
       : "memory");
 }
 
+// D (64 x 256, f32) += A (64 x 16, registers) * B (16 x 256, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n256_tb(float (&d)[128], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
 // O (64 x N) += P (64 x 16, registers) * V (16 x N, MN-major in shared memory)
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
@@ -280,10 +360,137 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
   if constexpr (N == 32) wgmma_rs_m64n32_tb(d, a, desc_b);
   else if constexpr (N == 64) wgmma_rs_m64n64_tb(d, a, desc_b);
   else if constexpr (N == 80) wgmma_rs_m64n80_tb(d, a, desc_b);
+  else if constexpr (N == 96) wgmma_rs_m64n96_tb(d, a, desc_b);
+  else if constexpr (N == 128) wgmma_rs_m64n128_tb(d, a, desc_b);
   else {
-    static_assert(N == 128, "wgmma_rs_tb: N is one of 32, 64, 80, 128");
-    wgmma_rs_m64n128_tb(d, a, desc_b);
+    static_assert(N == 256, "wgmma_rs_tb: N is one of 32, 64, 80, 96, 128, 256");
+    wgmma_rs_m64n256_tb(d, a, desc_b);
   }
+}
+
+// a 64 x 64 f32 accumulator (P or dS) as the bf16 A fragments of four
+// k-steps: for columns 16*kk.., the accumulator's registers 8*kk .. 8*kk + 7
+// are the fragment's, in order
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+// the start of dynamic shared memory, 1024-byte aligned for the 128-byte
+// swizzle pattern where the tiles use it
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw, bool swizzle) {
+  return swizzle ? raw + ((1024 - (smem_u32(raw) & 1023)) & 1023) : raw;
+}
+
+// ---- (rows x D) bf16 tiles written by TMA, read by wgmma ----
+// D a multiple of 64 (64, 128, 256) takes the 128-byte swizzle: one TMA box
+// of 64 columns (128-byte rows) per 64-column region. D = 32, 80 and 96,
+// whose 64-, 160- and 192-byte rows a 128-byte swizzle span does not fit,
+// take no swizzle: 8-column groups, one 16-byte-wide TMA box each.
+template <int D>
+struct Tile {
+  static constexpr bool kSwizzle = D % 64 == 0;
+  static constexpr int kBoxCols = kSwizzle ? 64 : 8;
+};
+
+// descriptor of k-step kk (16 columns) of a K-major operand of `rows` rows
+// at `base` (a warpgroup's 64 rows: base offset by its first row times the
+// box width)
+template <int D>
+__device__ __forceinline__ uint64_t desc_k_major(const __nv_bfloat16* base, int rows, int kk) {
+  if constexpr (Tile<D>::kSwizzle)   // region kk/4, 32 bytes a k-step inside its 128-byte rows
+    return wgmma_desc_sw128(base + (kk / 4) * rows * 64 + (kk % 4) * 16, 16, 1024);
+  else
+    return wgmma_desc(base + kk * 2 * rows * 8, rows * 16, 128);
+}
+
+// descriptor of k-step kk (rows 16*kk ..) of a tile of `rows` rows read
+// MN-major: the reduction runs over its rows (V in P·V, K in dS·K, Q and
+// dO in dSᵀ·Q and Pᵀ·dO), N over its columns
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn_major(const __nv_bfloat16* base, int rows, int kk) {
+  if constexpr (Tile<D>::kSwizzle)   // 64-column regions rows*128 bytes apart, 8 rows 1024
+    return wgmma_desc_sw128(base + kk * 16 * 64, rows * 128, 1024);
+  else
+    return wgmma_desc(base + kk * 16 * 8, 128, rows * 16);
+}
+
+// ---- TMA tensor maps (host) ----
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found once through the runtime
+// (the library is not linked against libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map of a bf16 (B, rows, H, D) view with D contiguous: dim 0 is D,
+// dims 1..3 the (rows, head, batch) dims sorted by stride (a dim of extent 1
+// takes the largest), so the strides grow as TMA expects. The box is
+// box_cols columns x box_rows rows, in the 128-byte swizzle when box_cols
+// is 64. pos[i] says which dim holds rows, head, batch.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int D,
+                            const long long (&ext)[3], const long long (&stride)[3],
+                            int box_cols, int box_rows, int (&pos)[3]) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  long long span = 2LL * D;
+  for (int i = 0; i < 3; ++i)
+    if (ext[i] > 1) span = span > 2 * stride[i] * ext[i] ? span : 2 * stride[i] * ext[i];
+  long long bytes[3];
+  int order[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i) bytes[i] = ext[i] > 1 ? 2 * stride[i] : span;
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && bytes[order[j]] < bytes[order[j - 1]]; --j) {
+      const int t = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  for (int j = 0; j < 3; ++j) {
+    dims[j + 1] = static_cast<cuuint64_t>(ext[order[j]]);
+    strides[j] = static_cast<cuuint64_t>(bytes[order[j]]);
+    pos[order[j]] = j + 1;
+  }
+  box[pos[0]] = static_cast<cuuint32_t>(box_rows);
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// one box (box columns x box rows) at (col, row, head, b) of a map made by
+// make_map, whose pos says which of its dims holds rows, head and batch
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         const int (&pos)[3], int col, int row, int head,
+                                         int b) {
+  auto at = [&](int dim) { return pos[0] == dim ? row : pos[1] == dim ? head : b; };
+  tma_load_4d(dst, map, bar, col, at(1), at(2), at(3));
 }
 
 }  // namespace hopper

@@ -44,7 +44,12 @@ The backward kernels (``csrc/flash_bwd.cu``: ``flash_bwd_dq``,
 forward's O and lse they give dq, dk and dv, dk/dv summed over the GQA
 group. As in JAX's backward there is no ``kv_len``: every key below T is
 valid. Δ = rowsum(dO∘O) is a PyTorch reduction in the wrapper, as JAX
-computes it in XLA outside its kernels.
+computes it in XLA outside its kernels. Each of the two takes one of two
+kernels by dtype, a documented choice like the forward's (``_bwd_variant``):
+``tc`` (bf16: TMA loads and ``wgmma`` tensor cores, P and dS rounded to
+bf16 for the second products) or ``fma`` (f32: f32 FMAs).
+
+Both directions take every head dim in ``HEAD_DIMS``; any other raises.
 """
 from __future__ import annotations
 
@@ -57,12 +62,15 @@ from . import build
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128)            # the backward kernels'
-FWD_HEAD_DIMS = (32, 64, 80, 128)    # the forward kernels' (80: zamba2's shared block)
+# the head dims of the forward and backward kernels: every config's (32 the
+# smoke models', 64, 80 zamba2's shared block, 96 phi-3-vision, 128, 256
+# gemma3-12b)
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 DECODE_MAX_ROWS = 4          # S up to this takes the split-KV decode kernel (bf16)
 DECODE_MAX_GROUP_ROWS = 32   # ... when its block's Hq/Hkv · S query rows fit
 DECODE_CHUNK = 256           # keys a decode block takes (a multiple of 4 warps x 32 keys)
 VARIANTS = ("tc_prefill", "split_decode", "fma")
+BWD_VARIANTS = ("tc", "fma")
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -177,7 +185,7 @@ def _variant(q: torch.Tensor, k: torch.Tensor) -> str:
     return "tc_prefill"
 
 
-def _check_aligned(**tensors: torch.Tensor) -> None:
+def _check_aligned(caller: str, **tensors: torch.Tensor) -> None:
     """TMA and 16-byte cp.async need the base and every stride of a dim
     longer than 1 at a multiple of 16 bytes: raise, never copy quietly."""
     for name, t in tensors.items():
@@ -187,7 +195,7 @@ def _check_aligned(**tensors: torch.Tensor) -> None:
             if shape[i] > 1:
                 bad |= stride[i] * size % 16
         if bad:
-            raise ValueError(f"flash_attention_cuda: {name} (shape {tuple(shape)}, strides "
+            raise ValueError(f"{caller}: {name} (shape {tuple(shape)}, strides "
                              f"{stride}) is not 16-byte aligned: the bf16 kernels need its "
                              f"base pointer and strides at multiples of 16 bytes")
 
@@ -224,8 +232,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention_cuda: shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)} do not match")
-    if D not in FWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in {FWD_HEAD_DIMS}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_cuda: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; want one of {DTYPES} for all")
@@ -242,7 +250,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o, lse
     variant = _variant(q, k)
     if variant != "fma":
-        _check_aligned(q=q, k=k, v=v)
+        _check_aligned("flash_attention_cuda", q=q, k=k, v=v)
     lib = build.library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             kv_len.data_ptr() if kv_len is not None else None, B, S, T, Hq, Hkv, D,
@@ -326,50 +334,64 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.reshape(B, S, Hq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_lib_call(name: str, dtype: torch.dtype):
-    lib = build.library()
-    return getattr(lib, f"repro_flash_bwd_{name}_"
-                        f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+def _bwd_variant(q: torch.Tensor) -> str:
+    """Which backward kernels a (checked) call takes: by dtype. bf16 takes
+    the tensor-core kernels (TMA + ``wgmma``; P and dS rounded to bf16 as
+    the A operand of dq += dS·K, dV += Pᵀ·dO and dK += dSᵀ·Q), f32 the FMA
+    kernels."""
+    return "tc" if q.dtype == torch.bfloat16 else "fma"
+
+
+def _bwd_lib_call(name: str, variant: str):
+    return getattr(build.library(),
+                   f"repro_flash_bwd_{name}_{'bf16' if variant == 'tc' else 'f32'}")
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, window: int
                       ) -> torch.Tensor:
-    """Launch ``flash_bwd_dq_kernel``; inputs as ``flash_attention_bwd_cuda``
-    has checked and laid them out. Counts each launch."""
+    """Launch the dq kernel of ``_bwd_variant``; inputs as
+    ``flash_attention_bwd_cuda`` has checked and laid them out. Counts each
+    launch, and by variant in ``flash_bwd_dq_cuda.variant_launches``."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    variant = _bwd_variant(q)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_lib_call("dq", q.dtype)(
+        err = _bwd_lib_call("dq", variant)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), B, S, T, Hq, Hkv, D, int(causal),
             int(window), 1.0 / math.sqrt(D), stream)
-    build.check(err, "flash_bwd_dq")
+    build.check(err, f"flash_bwd_dq ({variant})")
     flash_bwd_dq_cuda.launches += 1
+    flash_bwd_dq_cuda.variant_launches[variant] += 1
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, window: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``flash_bwd_dkv_kernel``; inputs as ``flash_attention_bwd_cuda``
-    has checked and laid them out. Counts each launch."""
+    """Launch the dk/dv kernel of ``_bwd_variant``; inputs as
+    ``flash_attention_bwd_cuda`` has checked and laid them out. Counts each
+    launch, and by variant in ``flash_bwd_dkv_cuda.variant_launches``."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    variant = _bwd_variant(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_lib_call("dkv", q.dtype)(
+        err = _bwd_lib_call("dkv", variant)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, T, Hq, Hkv, D,
             int(causal), int(window), 1.0 / math.sqrt(D), stream)
-    build.check(err, "flash_bwd_dkv")
+    build.check(err, f"flash_bwd_dkv ({variant})")
     flash_bwd_dkv_cuda.launches += 1
+    flash_bwd_dkv_cuda.variant_launches[variant] += 1
     return dk, dv
 
 
-flash_bwd_dq_cuda.launches = 0
-flash_bwd_dkv_cuda.launches = 0
+for _fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+    _fn.launches = 0
+    _fn.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -377,7 +399,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              *, causal: bool = True, window: int = 0,
                              kv_len: Optional[torch.Tensor] = None,
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_bwd.cu`` (dq, then dk/dv) on the current stream.
+    """Launch ``csrc/flash_bwd.cu`` (dq, then dk/dv) on the current stream:
+    the tensor-core kernels for bf16, the FMA ones for f32 (``_bwd_variant``).
 
     q, k, v, o and dO are made contiguous here (a no-op on the training
     path, where all five already are); Δ is a PyTorch reduction. ``kv_len``
@@ -398,6 +421,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     if B == 0 or S == 0 or T == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if _bwd_variant(q) == "tc":
+        _check_aligned("flash_attention_bwd_cuda", q=q, k=k, v=v, do=do)
     delta = _delta(o, do).contiguous()
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal, window=window)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal, window=window)

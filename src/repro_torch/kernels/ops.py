@@ -4,8 +4,9 @@ A CPU tensor takes the kernel's plain PyTorch version (the tests run there);
 a CUDA tensor launches the hand-written kernel or raises. There is no
 fallback from one to the other and no switch. Each CUDA wrapper counts its
 launches; ``launch_counts`` reads the counts (``flash_variant_counts`` the
-forward flash kernel's by variant) and ``reset_launch_counts`` sets them to
-0, so a run can show that its path went through the kernels.
+forward flash kernel's by variant, ``flash_bwd_variant_counts`` the
+backward's) and ``reset_launch_counts`` sets them to 0, so a run can show
+that its path went through the kernels.
 
 ``flash_attention`` and ``rmsnorm`` are differentiable: where grad is
 enabled and an input requires it, they go through a ``torch.autograd.Function``
@@ -198,8 +199,16 @@ def flash_variant_counts() -> Dict[str, int]:
     return dict(flash_attention_cuda.variant_launches)
 
 
+def flash_bwd_variant_counts() -> Dict[str, Dict[str, int]]:
+    """The backward flash launches by kernel variant (``tc``: bf16 on tensor
+    cores, ``fma``: f32), for ``flash_bwd_dq`` and ``flash_bwd_dkv``; each
+    sums to that kernel's ``launch_counts()`` entry."""
+    return {name: dict(_CUDA_WRAPPERS[name].variant_launches)
+            for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+
+
 def reset_launch_counts() -> None:
     for fn in _CUDA_WRAPPERS.values():
         fn.launches = 0
-    for name in flash_attention_cuda.variant_launches:
-        flash_attention_cuda.variant_launches[name] = 0
+        for name in getattr(fn, "variant_launches", ()):
+            fn.variant_launches[name] = 0

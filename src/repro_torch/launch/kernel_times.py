@@ -1,6 +1,6 @@
-"""Device time of the port's kernels at the serving path's shapes.
+"""Device time of the port's kernels at the serving and training paths' shapes.
 
-    PYTHONPATH=src python -m repro_torch.launch.kernel_times [--repeats 3]
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times [--repeats 3] [--only NAME]
 
 Times each kernel of the serving paths on the card, all bf16. qwen1.5-0.5b:
 flash attention at the prefill shape (B=4, S=T=1024, 16 heads of 64,
@@ -13,7 +13,13 @@ gate/up (2048 -> 768) and down (768 -> 2048). The SSD scan at mamba2-370m's
 prefill step (B=4, S=1024, 32 heads of 64, N=128), at zamba2-2.7b's (80
 heads, N=64) and at one 511-token mamba2-370m admission; flash attention at
 zamba2-2.7b's 32 heads of 80 (prefill and decode shapes as above), RMSNorm
-at its d_inner 5120. A time is the summed
+at its d_inner 5120. gemma3-12b: flash attention at 16 query and 8 KV heads
+of 256 at the prefill shape (window 1024) and the decode shape. The flash
+backward (dq and dk/dv, O and lse from the forward kernel) at the train
+step's shape (B=4, S=T=1024, 16 heads of 64, causal) and with qwen3-moe's
+32 query and 4 KV heads of 128. ``--only`` times the calls whose name
+contains it (``--only flash_bwd`` runs on a checkout whose forward lacks
+D = 256). A time is the summed
 duration of what one call runs on the device, traced by
 ``torch.profiler``; host time between launches does not count. Prints one JSON line with ``--repeats`` readings per kernel and
 shape. To compare two versions of a kernel, run this from both checkouts in
@@ -26,7 +32,8 @@ import json
 
 import torch
 
-from ..kernels.flash_attention import flash_attention_cuda
+from ..kernels.flash_attention import (
+    _delta, flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
 from ..kernels.moe_gmm import moe_gmm_cuda
 from ..kernels.rmsnorm import rmsnorm_cuda
 from ..kernels.ssd_scan import ssd_scan_cuda
@@ -88,7 +95,7 @@ def wrapper_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main(repeats: int = 3) -> dict:
+def main(repeats: int = 3, only: str = "") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
     gen = torch.Generator("cuda").manual_seed(0)
@@ -112,6 +119,17 @@ def main(repeats: int = 3) -> dict:
     qp3, kp3, vp3 = randn(4, 1024, 32, 80), randn(4, 1024, 32, 80), randn(4, 1024, 32, 80)
     qd3, kd3, vd3 = randn(8, 1, 32, 80), randn(8, 2048, 32, 80), randn(8, 2048, 32, 80)
     xp3, scale3 = randn(4096, 5120), randn(5120)
+    # gemma3-12b: 16 query and 8 KV heads of 256
+    qp4, kp4, vp4 = randn(4, 1024, 16, 256), randn(4, 1024, 8, 256), randn(4, 1024, 8, 256)
+    qd4, kd4, vd4 = randn(8, 1, 16, 256), randn(8, 2048, 8, 256), randn(8, 2048, 8, 256)
+    # the flash backward's inputs: (q, k, v, dO, lse, Δ), O and lse from the
+    # forward kernel
+    bwd = {}
+    for path, (Hq, Hkv, Dh) in (("train", (16, 16, 64)), ("GQA 32:4 D=128", (32, 4, 128))):
+        q, k, v, do = randn(4, 1024, Hq, Dh), randn(4, 1024, Hkv, Dh), \
+            randn(4, 1024, Hkv, Dh), randn(4, 1024, Hq, Dh)
+        o, lse = flash_attention_cuda(q, k, v, causal=True, window=0)
+        bwd[path] = (q, k, v, do, lse, _delta(o, do).contiguous())
     ssd = {}
     for path, (B, S, Hs, P, G, N) in SSD_PATHS.items():
         dt = (1e-3 + 0.099 * torch.rand(B, S, Hs, generator=gen, device="cuda")).to(bf16)
@@ -136,7 +154,16 @@ def main(repeats: int = 3) -> dict:
         "flash_fwd decode H=32 D=80": lambda: flash_attention_cuda(
             qd3, kd3, vd3, causal=False, window=0, kv_len=kv_len),
         "rmsnorm 4096x5120": lambda: rmsnorm_cuda(xp3, scale3),
+        "flash_fwd prefill GQA 16:8 D=256 window 1024": lambda: flash_attention_cuda(
+            qp4, kp4, vp4, causal=True, window=1024),
+        "flash_fwd decode GQA 16:8 D=256": lambda: flash_attention_cuda(
+            qd4, kd4, vd4, causal=False, window=0, kv_len=kv_len),
     }
+    for path, ins in bwd.items():
+        calls[f"flash_bwd_dq {path}"] = lambda ins=ins: flash_bwd_dq_cuda(
+            *ins, causal=True, window=0)
+        calls[f"flash_bwd_dkv {path}"] = lambda ins=ins: flash_bwd_dkv_cuda(
+            *ins, causal=True, window=0)
     for path, ins in ssd.items():
         calls[f"ssd_scan {path}"] = lambda ins=ins: ssd_scan_cuda(*ins)
     for path, (x_d, x_f) in bufs.items():
@@ -144,6 +171,7 @@ def main(repeats: int = 3) -> dict:
             lambda x=x_d: moe_gmm_cuda(x, w_up)
         calls[f"moe_gmm {path} down C={MOE_C[path]}"] = \
             lambda x=x_f: moe_gmm_cuda(x, w_down)
+    calls = {name: fn for name, fn in calls.items() if only in name}
     out = {name: [] for name in calls}
     for _ in range(repeats):
         for name, fn in calls.items():
@@ -156,4 +184,6 @@ def main(repeats: int = 3) -> dict:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=3)
-    main(ap.parse_args().repeats)
+    ap.add_argument("--only", default="", help="time only the calls whose name contains this")
+    args = ap.parse_args()
+    main(args.repeats, args.only)

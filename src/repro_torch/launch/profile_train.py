@@ -34,8 +34,8 @@ SHAPE = ShapeConfig("train_1k", 1024, 8, "train")
 TCFG = TrainConfig(remat="block", opt_dtype="bfloat16", microbatch_per_device=4,
                    warmup_steps=2, learning_rate=1e-3)
 FAMILIES = (("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),
-            ("flash bwd dq", ("flash_bwd_dq_kernel",)),
-            ("flash bwd dkv", ("flash_bwd_dkv_kernel",)),
+            ("flash bwd dq", ("flash_bwd_dq",)),
+            ("flash bwd dkv", ("flash_bwd_dkv",)),
             ("rmsnorm", ("rmsnorm_kernel",)),
             ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas", "splitk")),
             ("elementwise", ("elementwise", "vectorized", "reduce", "index", "copy",

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS,
     _variant,
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
@@ -34,13 +35,29 @@ FLASH_CASES = [
     (1, 2048, 16, 16, 64, False, 0),    # decode against a 2048-slot cache
     (200, 200, 4, 4, 80, True, 0),      # zamba2's shared block: D = 80
     (1, 300, 4, 4, 80, False, 0),       # and its decode
+    (150, 150, 4, 4, 96, True, 0),      # phi-3-vision: D = 96
+    (1, 300, 8, 2, 96, False, 0),
+    (300, 300, 4, 2, 256, True, 128),   # gemma3: GQA 2:1, D = 256, a local window
+    (1, 300, 4, 2, 256, False, 0),      # and its decode
 ]
-# the backward cases of tests/test_kernels.py, then a ragged GQA one at D=128
+# the backward cases of tests/test_kernels.py, then every head dim with
+# ragged S, windows and GQA up to 8:1 (gemma3's 2:1 at D = 256 with a window)
 FLASH_BWD_CASES = [
     (128, 128, 4, 2, 32, True, 0),
     (128, 128, 4, 4, 64, True, 48),
     (64, 192, 4, 1, 32, False, 0),
     (100, 100, 8, 2, 128, True, 40),
+    (77, 77, 8, 1, 32, True, 0),
+    (300, 300, 16, 2, 64, True, 0),
+    (200, 200, 4, 4, 80, True, 0),
+    (129, 129, 8, 1, 80, False, 0),
+    (150, 150, 8, 2, 96, True, 50),
+    (70, 190, 4, 4, 96, False, 0),
+    (257, 257, 8, 1, 128, True, 0),
+    (300, 300, 4, 2, 256, True, 128),
+    (65, 130, 8, 1, 256, False, 0),
+    (3, 3, 4, 2, 128, True, 0),
+    (1, 40, 2, 1, 80, False, 0),
 ]
 # (E, C, D, F): the cases of tests/test_kernels.py, ragged C (1, 8 and 40
 # tokens per expert: one slot, a decode round of 8, a 511-token admission
@@ -93,7 +110,8 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
 # kv_len or None). Ragged prefill at S = T in {1, 2, 5, 37, 300, 511};
 # decode at S = 1 with GQA 1:1, 2:1 and 8:1 against T = 300 (no multiple of
 # the 256-key chunk) with kv_len at 1, 63, 64, 65, 255, 256, 257 and T;
-# S = 2..4 causal (admissions); a window in both regimes; every head dim.
+# S = 2..4 causal (admissions); a window in both regimes; every head dim
+# (96 and 256 among them: phi-3-vision's and gemma3's).
 DECODE_LENS = [1, 63, 64, 65, 255, 256, 257, 300]
 FLASH_VARIANT_CASES = [
     (2, 1, 1, 4, 4, 64, True, 0, None),
@@ -112,6 +130,11 @@ FLASH_VARIANT_CASES = [
     (2, 4, 300, 4, 4, 64, True, 2, [300, 150]),
     (2, 300, 300, 4, 2, 80, True, 64, None),
     (2, 200, 256, 4, 4, 32, False, 100, [256, 180]),
+    (2, 37, 37, 4, 2, 96, True, 0, None),
+    (2, 300, 300, 4, 2, 256, True, 128, None),
+    (8, 1, 300, 8, 1, 96, False, 0, DECODE_LENS),
+    (8, 1, 300, 4, 2, 256, False, 0, DECODE_LENS),
+    (2, 4, 300, 4, 2, 256, True, 0, [300, 65]),
 ]
 
 
@@ -250,6 +273,27 @@ def test_cuda_backward_kernels_match_plain_version_on_the_card():
             for g, w in zip(got, want):
                 assert g.dtype == w.dtype and g.shape == w.shape
                 torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+def test_cuda_backward_launches_by_variant():
+    """bf16 takes the tensor-core kernels, f32 the FMA ones, at every head
+    dim; each call launches one dq and one dk/dv kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(6)
+    ops.reset_launch_counts()
+    for dt in (torch.float32, torch.bfloat16):
+        for D in HEAD_DIMS:
+            q, k, v, do = (torch.randn(1, 70, 2, D, generator=gen, device="cuda").to(dt)
+                           for _ in range(4))
+            o, lse = flash_attention_cuda(q, k, v, causal=True, window=0)
+            flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=0)
+    torch.cuda.synchronize()
+    n = len(HEAD_DIMS)
+    assert ops.flash_bwd_variant_counts() == {"flash_bwd_dq": {"tc": n, "fma": n},
+                                              "flash_bwd_dkv": {"tc": n, "fma": n}}
+    counts = ops.launch_counts()
+    assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 2 * n
 
 
 def test_cuda_backward_wrapper_refuses_kv_len():

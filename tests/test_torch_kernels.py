@@ -16,10 +16,12 @@ from repro.kernels.flash_attention import flash_attention_fwd as jax_flash_fwd
 from repro.kernels.moe_gmm import moe_gmm_pallas
 from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro.models.layers import attention as jax_attention
+from repro_torch.configs import ARCHS
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import (
     DECODE_CHUNK,
+    HEAD_DIMS,
     _decode_plan,
     flash_decode_split_plain,
     flash_attention_bwd_cuda,
@@ -41,12 +43,17 @@ FLASH_CASES = [
     (64, 192, 4, 2, 64, False, 0),      # cross-length, bidirectional
     (96, 96, 2, 2, 128, True, 32),      # non-pow2 seq, window
     (96, 96, 4, 4, 80, True, 0),        # zamba2's shared block: D = 80
+    (64, 64, 4, 2, 96, True, 0),        # phi-3-vision: D = 96
+    (128, 128, 4, 2, 256, True, 48),    # gemma3: GQA 2:1, D = 256, a local window
 ]
-# the backward cases of tests/test_kernels.py
+# the backward cases of tests/test_kernels.py, then D = 96 and D = 256
 FLASH_BWD_CASES = [
     (128, 128, 4, 2, 32, True, 0),
     (128, 128, 4, 4, 64, True, 48),
     (64, 192, 4, 1, 32, False, 0),
+    (64, 64, 4, 1, 96, True, 0),
+    (128, 128, 4, 2, 256, True, 48),
+    (32, 64, 2, 2, 256, False, 0),
 ]
 # the grouped-GEMM cases of tests/test_kernels.py, then ragged C: 1, 8 and
 # 40 tokens per expert (one slot, a decode round of 8 slots, a 511-token
@@ -238,6 +245,8 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert ops.launch_counts() == NO_LAUNCHES
     assert ops.flash_variant_counts() == {"tc_prefill": 0, "split_decode": 0, "fma": 0}
+    assert ops.flash_bwd_variant_counts() == {"flash_bwd_dq": {"tc": 0, "fma": 0},
+                                              "flash_bwd_dkv": {"tc": 0, "fma": 0}}
 
 
 def test_ops_reject_devices_without_a_kernel():
@@ -271,6 +280,28 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_cuda(xh, torch.rand(1, 8, 2), -torch.rand(2), bc, bc)
     assert ops.launch_counts() == NO_LAUNCHES
+
+
+ATTENTION_CONFIGS = sorted(name for name, cfg in ARCHS.items() if cfg.n_heads)
+
+
+@pytest.mark.parametrize("arch", ATTENTION_CONFIGS)
+def test_every_config_head_dim_is_taken_by_both_cuda_wrappers(arch):
+    """The forward and backward wrappers take the head dim of every config
+    with attention: on CPU tensors they get past the head-dim check and
+    refuse the device instead (a head dim they do not take raises first)."""
+    D = ARCHS[arch].head_dim_
+    assert D in HEAD_DIMS
+    q = torch.randn(1, 4, 2, D)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention_cuda(q, q, q, causal=True, window=0)
+    o, lse = flash_attention_plain(q, q, q, causal=True, window=0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention_bwd_cuda(q, q, q, o, lse, o, causal=True, window=0)
+    bad = torch.randn(1, 4, 2, 48)
+    o, lse = flash_attention_plain(bad, bad, bad, causal=True, window=0)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention_bwd_cuda(bad, bad, bad, o, lse, o, causal=True, window=0)
 
 
 def test_build_hash_covers_every_source(tmp_path, monkeypatch):

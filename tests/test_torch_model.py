@@ -33,9 +33,10 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import build_model, moe
 
 B = 2
-# gemma3 and mixtral: past their 64-slot windows
+# gemma3 and mixtral: past their 64-slot windows; chatglm3 (half-head RoPE,
+# GQA kv = 2, QKV bias) and qwen2 (rope θ 1e6, QKV bias) at the dense length
 SEQ = {"qwen1.5-0.5b": 24, "gemma3-12b": 80, "mixtral-8x22b": 80,
-       "qwen3-moe-30b-a3b": 24}
+       "qwen3-moe-30b-a3b": 24, "chatglm3-6b": 24, "qwen2-7b": 24}
 ARCHS = sorted(SEQ)
 NOISY = ("ln1", "ln2", "final_norm", "bq", "bk", "bv")
 
@@ -203,7 +204,7 @@ def test_decode_steps_match_jax(arch, dtype):
     """Step by step from an empty cache; gemma3 and mixtral decode 96 tokens
     through their 64-slot local and window ring buffers."""
     T = {"qwen1.5-0.5b": 16, "gemma3-12b": 96, "mixtral-8x22b": 96,
-         "qwen3-moe-30b-a3b": 16}[arch]
+         "qwen3-moe-30b-a3b": 16, "chatglm3-6b": 16, "qwen2-7b": 16}[arch]
     jm, jp, tm, tp = models(arch, dtype)
     tj, tt = tokens(arch, T)
     jstep = jax.jit(jm.decode_step)
