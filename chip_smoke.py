@@ -8,8 +8,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                card's name and power limit; TF32 off for matmul and cuDNN.
   2. build   — compiles the kernels from ``src/repro_torch/kernels/csrc``.
   3. kernels — each kernel against its plain PyTorch version on the card, at
-               the JAX test shapes and at the main paths' shapes (the
-               grouped expert GEMM also at ragged C = 1, 8, 40; the SSD
+               the JAX test shapes and at the main paths' shapes (RMSNorm
+               also at d no multiple of 8 under each row mapping; the
+               grouped expert GEMM also at ragged C = 1, 8, 17, 40, 256,
+               320 and a D/F of no tile's width, its launches by variant
+               checked (bf16 C > 16 all on the tensor-core kernel); the SSD
                scan, y and final state, also at ragged S = 1, 37, 257,
                300; the flash forward's three variants (tensor-core
                prefill, split-KV decode, f32 FMA) at ragged S, decode
@@ -65,7 +68,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
                experts top-8, 30.5 B parameters in bf16 from seed 0): per
                prefill and per decode round flash_fwd 48, rmsnorm 97 and
-               moe_gmm 144 launches, no backward launch; the cross-slot guard.
+               moe_gmm 144 launches, no backward launch; every prefill's
+               moe_gmm launch (C > 16) on the tensor-core variant, every
+               decode round's (C = 8) on the decode one; the cross-slot guard.
   8. serve gemma3 — after the earlier phases' memory is given back, phase 4
                on full-width, full-depth gemma3-12b (48 layers, 5 local
                layers of window 1024 to 1 global, 16 query and 8 KV heads of
@@ -98,8 +103,12 @@ LSE_TOL = 2e-3                                    # f32 statistics either way
 GUARD_TOL = 2e-2                                  # relative to max |logit|
 TILE_REL_TOL = 1e-2                               # backward, per 64-row tile
 
-# the JAX test cases of tests/test_kernels.py (B = 2)
+# the JAX test cases of tests/test_kernels.py (B = 2), then rows of a d
+# that is no multiple of 8 (element loads: the scalar tail) under the row
+# mappings: a warp a row (3 and 4096 rows), 8 warps a row (8 rows: fewer
+# than SMs), and the wide kernel past 2048 vectors of 16 bytes
 RMSNORM_CASES = [(1, 7, 64), (4, 33, 128), (2, 256, 512)]
+RMSNORM_RAGGED = [(3, 100), (4096, 1001), (8, 5003), (5, 20003)]
 FLASH_CASES = [(128, 128, 4, 4, 64, True, 0), (128, 128, 8, 2, 64, True, 0),
                (256, 256, 4, 1, 32, True, 64), (64, 192, 4, 2, 64, False, 0),
                (96, 96, 2, 2, 128, True, 32), (96, 96, 4, 4, 80, True, 0)]
@@ -133,11 +142,19 @@ FLASH_BWD_CASES = [(128, 128, 4, 2, 32, True, 0), (128, 128, 4, 4, 64, True, 48)
                    (65, 130, 8, 1, 256, False, 0), (3, 3, 4, 2, 128, True, 0),
                    (1, 40, 2, 1, 80, False, 0)]
 # the grouped-GEMM cases of tests/test_kernels.py (E, C, D, F) and their
-# (atol, rtol); then tokens per expert of one slot, a decode round of 8 slots
-# and a 511-token admission of qwen3-moe-30b-a3b
+# (atol, rtol); then tokens per expert at qwen3-moe-30b-a3b's widths: one
+# slot, a decode round of 8 slots, the least C of the tensor-core prefill
+# kernel, a 511-token and a 256-token admission, a prefill step; then a D
+# and F that meet the TMA rule (multiples of 8) but no tile's width
 GMM_CASES = [(2, 64, 128, 96), (8, 128, 64, 256), (3, 96, 160, 32)]
 GMM_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (5e-1, 5e-2)}
-GMM_RAGGED_C = (1, 8, 40)
+GMM_RAGGED_C = (1, 8, 17, 40, 256, 320)
+GMM_RAGGED_DF = (8, 100, 200, 72)
+# bf16 (E, C, D, F, buf offset, w offset) where TMA cannot read, so the
+# 64 x 64 wmma tile serves: buf's or w's base 2 bytes (one element) past a
+# 16-byte boundary, at qwen3-moe's widths; D, then F no multiple of 8
+GMM_WMMA_CASES = [(4, 320, 2048, 768, 1, 0), (4, 40, 768, 2048, 0, 1),
+                  (4, 40, 2044, 768, 0, 0), (3, 100, 200, 76, 0, 0)]
 # the SSD cases of tests/test_kernels.py (B, S, H, P, G, N), then ragged S
 SSD_CASES = [(1, 64, 2, 32, 1, 16), (2, 128, 4, 32, 2, 16), (1, 96, 4, 64, 1, 32),
              (2, 256, 8, 64, 2, 64)]
@@ -254,6 +271,13 @@ def rmsnorm_phase(gen):
             s = (1 + 0.1 * torch.randn(shape[-1:], generator=gen, device="cuda")).to(dt)
             worst = max(worst, compare(f"rmsnorm {shape} {dt}", rmsnorm_cuda(x, s),
                                        rmsnorm_plain(x, s), TOL[str(dt)[6:]]))
+    for rows, d in RMSNORM_RAGGED:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+            s = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
+            worst = max(worst, compare(f"rmsnorm ragged ({rows}, {d}) {dt}",
+                                       rmsnorm_cuda(x, s), rmsnorm_plain(x, s),
+                                       TOL[str(dt)[6:]]))
     # (rows, d): qwen1.5-0.5b's prefill step and decode round, then
     # qwen3-moe-30b-a3b's (and mamba2-370m's gated norm), then zamba2-2.7b's
     # gated norm, then gemma3-12b's
@@ -269,12 +293,18 @@ def rmsnorm_phase(gen):
                       rmsnorm_plain(x, s), TOL["bfloat16"])
         worst = max(worst, err)
         b_ms, b_by = bound((2 * rows * d + d) * 2, 4.0 * rows * d, PEAK_F32_FLOPS)
+        # the bound reads x from device memory, but up to 4096 x 5120 x and
+        # its output fit in the 50 MB L2, where back-to-back calls find them:
+        # ms, plain_ms and library_ms are taken with L2 flushed before each
+        # call, the warm times beside them
         timed[path] = {
             "shape": f"x ({rows}, {d}) bf16", "max_abs_err": err,
-            "ms": device_ms(lambda: rmsnorm_cuda(x, s)),
+            "ms": device_ms(lambda: rmsnorm_cuda(x, s), cold=True),
+            "warm_ms": device_ms(lambda: rmsnorm_cuda(x, s)),
             "wrapper_ms": wrapper_ms(lambda: rmsnorm_cuda(x, s)),
-            "plain_ms": device_ms(lambda: rmsnorm_plain(x, s)),
-            "library_ms": device_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
+            "plain_ms": device_ms(lambda: rmsnorm_plain(x, s), cold=True),
+            "library_ms": device_ms(lambda: F.rms_norm(x, (d,), s, 1e-6), cold=True),
+            "library_warm_ms": device_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
             "bound_ms": b_ms, "bound_by": b_by}
         print(f"rmsnorm {path}: {json.dumps(timed[path])}")
     return worst, timed
@@ -452,10 +482,16 @@ def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape, window=0):
 def gmm_phase(gen):
     """The grouped expert GEMM against its plain version: the JAX test cases
     (f32 and bf16, tests/test_kernels.py's tolerances), ragged C at
-    qwen3-moe-30b-a3b's widths (f32 and bf16), and the four main-path shapes
-    of one MoE layer (bf16), which are also timed."""
+    qwen3-moe-30b-a3b's widths and a D/F of no tile's width (f32 and bf16),
+    the bf16 cases that TMA cannot read (GMM_WMMA_CASES: a misaligned base,
+    D or F no multiple of 8), and the main-path shapes of one MoE layer
+    (bf16, gate/up and down at C = 8, 40, 256, 320), which are also timed.
+    Every launch's variant must be the one ``_variant`` names for its shape
+    and bases: each bf16 launch with C > 16 on ``tc_prefill``, but those of
+    GMM_WMMA_CASES, which must all be on ``wmma``."""
     import torch
-    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gmm import _variant, moe_gmm_cuda, moe_gmm_plain
     from repro_torch.launch.kernel_times import (
         MOE_C, MOE_D, MOE_E, MOE_F, device_ms, wrapper_ms)
 
@@ -463,37 +499,66 @@ def gmm_phase(gen):
         buf = torch.randn(E, C, D, generator=gen, device="cuda").to(dt)
         return buf, (w_std * torch.randn(E, D, F, generator=gen, device="cuda")).to(dt)
 
+    want = dict.fromkeys(ops.moe_gmm_variant_counts(), 0)
+
+    def check(name, buf, w, atol, rtol=None, tma=True):
+        E, C, D = buf.shape
+        variant = _variant(buf.dtype, C, D, w.shape[2],
+                           buf.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+        if buf.dtype == torch.bfloat16 and C > 16 and \
+                variant != ("tc_prefill" if tma else "wmma"):
+            fail(f"{name}: bf16 C = {C} would take {variant}")
+        want[variant] += 1
+        return compare(name, moe_gmm_cuda(buf, w), moe_gmm_plain(buf, w), atol, rtol)
+
+    ops.reset_launch_counts()
     worst = 0.0
     for (E, C, D, F) in GMM_CASES:
         for dt in (torch.float32, torch.bfloat16):
             buf, w = inputs(E, C, D, F, dt, 0.5)
             atol, rtol = GMM_TOL[str(dt)[6:]]
-            worst = max(worst, compare(f"moe_gmm {(E, C, D, F)} {dt}", moe_gmm_cuda(buf, w),
-                                       moe_gmm_plain(buf, w), atol, rtol))
-    for C in GMM_RAGGED_C:
+            worst = max(worst, check(f"moe_gmm {(E, C, D, F)} {dt}", buf, w, atol, rtol))
+    ragged = [(MOE_E, C, MOE_D, MOE_F) for C in GMM_RAGGED_C] + [GMM_RAGGED_DF]
+    for (E, C, D, F) in ragged:
         for dt in (torch.float32, torch.bfloat16):
-            buf, w = inputs(MOE_E, C, MOE_D, MOE_F, dt, MOE_D ** -0.5)
-            worst = max(worst, compare(f"moe_gmm ragged C={C} {dt}", moe_gmm_cuda(buf, w),
-                                       moe_gmm_plain(buf, w), TOL[str(dt)[6:]]))
-    timed = {}
+            buf, w = inputs(E, C, D, F, dt, D ** -0.5)
+            worst = max(worst, check(f"moe_gmm ragged {(E, C, D, F)} {dt}", buf, w,
+                                     TOL[str(dt)[6:]]))
+    for (E, C, D, F, b_off, w_off) in GMM_WMMA_CASES:
+        flat_buf = torch.randn(b_off + E * C * D, generator=gen, device="cuda")
+        flat_w = D ** -0.5 * torch.randn(w_off + E * D * F, generator=gen, device="cuda")
+        buf = flat_buf.to(torch.bfloat16)[b_off:].view(E, C, D)
+        w = flat_w.to(torch.bfloat16)[w_off:].view(E, D, F)
+        worst = max(worst, check(f"moe_gmm wmma {(E, C, D, F)} offsets {(b_off, w_off)}",
+                                 buf, w, TOL["bfloat16"], tma=False))
+    paths = {}
     for path, C in MOE_C.items():
         for part, (D, F) in (("gate_up", (MOE_D, MOE_F)), ("down", (MOE_F, MOE_D))):
             buf, w = inputs(MOE_E, C, D, F, torch.bfloat16, D ** -0.5)
-            err = compare(f"moe_gmm {path} {part}", moe_gmm_cuda(buf, w),
-                          moe_gmm_plain(buf, w), TOL["bfloat16"])
+            err = check(f"moe_gmm {path} {part}", buf, w, TOL["bfloat16"])
             worst = max(worst, err)
-            # each of buf, w and out once; 2 operations per multiply-add
-            b_ms, b_by = bound((MOE_E * C * D + MOE_E * D * F + MOE_E * C * F) * 2,
-                               2.0 * MOE_E * C * D * F, PEAK_BF16_FLOPS)
-            name = f"{path}_{part}"
-            timed[name] = {
-                "shape": f"buf ({MOE_E}, {C}, {D}) x w ({MOE_E}, {D}, {F}) bf16",
-                "max_abs_err": err, "ms": device_ms(lambda: moe_gmm_cuda(buf, w)),
-                "wrapper_ms": wrapper_ms(lambda: moe_gmm_cuda(buf, w)),
-                "plain_ms": device_ms(lambda: moe_gmm_plain(buf, w)),
-                "library_ms": device_ms(lambda: torch.bmm(buf, w)),
-                "bound_ms": b_ms, "bound_by": b_by}
-            print(f"moe_gmm {name}: {json.dumps(timed[name])}")
+            paths[f"{path}_{part}"] = (buf, w, err)
+    got = ops.moe_gmm_variant_counts()
+    if got != want or got["wmma"] != len(GMM_WMMA_CASES):
+        fail(f"moe_gmm launches by variant {got}, expected {want} with "
+             f"{len(GMM_WMMA_CASES)} on wmma")
+    print(f"moe_gmm variants: {got}")
+    timed = {}
+    for name, (buf, w, err) in paths.items():
+        E, C, D = buf.shape
+        F = w.shape[2]
+        # each of buf, w and out once; 2 operations per multiply-add
+        b_ms, b_by = bound((E * C * D + E * D * F + E * C * F) * 2, 2.0 * E * C * D * F,
+                           PEAK_BF16_FLOPS)
+        timed[name] = {
+            "shape": f"buf ({E}, {C}, {D}) x w ({E}, {D}, {F}) bf16",
+            "variant": _variant(buf.dtype, C, D, F, True),
+            "max_abs_err": err, "ms": device_ms(lambda: moe_gmm_cuda(buf, w)),
+            "wrapper_ms": wrapper_ms(lambda: moe_gmm_cuda(buf, w)),
+            "plain_ms": device_ms(lambda: moe_gmm_plain(buf, w)),
+            "library_ms": device_ms(lambda: torch.bmm(buf, w)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"moe_gmm {name}: {json.dumps(timed[name])}")
     return worst, timed
 
 
@@ -677,6 +742,7 @@ def serve_phase(config="qwen1.5-0.5b"):
     served = serve_workload.run(model, params, smoke=False, seed=0)
     launches = ops.launch_counts()
     variants = ops.flash_variant_counts()
+    gmm_variants = ops.moe_gmm_variant_counts()
     # ---- end of the main path ----
 
     if nxt.shape != (B,) or not all(bool(torch.isfinite(c).all())
@@ -716,6 +782,14 @@ def serve_phase(config="qwen1.5-0.5b"):
         print(f"flash variants: {variants}")
     elif any(variants.values()):
         fail(f"{cfg.name}: flash variants {variants} launched without attention")
+    # the grouped GEMM: every prefill's launch (C > 16 tokens per expert) on
+    # the tensor-core kernel, every decode round's (C = 8) on the decode one
+    if "moe_gmm" in per_prefill:
+        want_gmm = {"tc_prefill": per_prefill["moe_gmm"] * prefills,
+                    "decode": per_round["moe_gmm"] * rounds, "wmma": 0, "fma": 0}
+        if gmm_variants != want_gmm:
+            fail(f"{cfg.name}: moe_gmm variants {gmm_variants}, expected {want_gmm}")
+        print(f"moe_gmm variants: {gmm_variants}")
     tok_s = served["tokens"] / served["seconds"]
     print(f"prefill step B={B} S={S}: {prefill_ms:.3f} ms")
     print(f"served {served['served']} requests, {served['tokens']} tokens in "
@@ -734,6 +808,7 @@ def serve_phase(config="qwen1.5-0.5b"):
     print(f"launches: main path {launches} over {prefills} prefills and {rounds} "
           f"decode rounds; per prefill {per_prefill}, per decode round {per_round}")
     launches["flash_fwd_variants"] = variants
+    launches["moe_gmm_variants"] = gmm_variants
     return launches, per_prefill, per_round
 
 
@@ -946,6 +1021,7 @@ def main() -> int:
                 "ms": top["ms"], "plain_ms": top["plain_ms"],
                 "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                 "library_ms": top["library_ms"], "wrapper_ms": top["wrapper_ms"],
+                **{k: v for k, v in top.items() if k.endswith("warm_ms")},
                 "shape": top["shape"], "decode": timed["decode"],
                 "launches_per_train_step": per_step[name],
                 "launches_serve": launches[name],
@@ -1007,6 +1083,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:21",
          "launches": moe_launches["moe_gmm"], "max_abs_err": gmm_err, "paths": gmm_t,
+         "launches_by_variant": moe_launches["moe_gmm_variants"],
          "launches_per_prefill": moe_prefill["moe_gmm"],
          "launches_per_decode_round": moe_round["moe_gmm"]},
         # top level: mamba2-370m's prefill step shape; "launches" is the

@@ -5,8 +5,9 @@ a CUDA tensor launches the hand-written kernel or raises. There is no
 fallback from one to the other and no switch. Each CUDA wrapper counts its
 launches; ``launch_counts`` reads the counts (``flash_variant_counts`` the
 forward flash kernel's by variant, ``flash_bwd_variant_counts`` the
-backward's) and ``reset_launch_counts`` sets them to 0, so a run can show
-that its path went through the kernels.
+backward's, ``moe_gmm_variant_counts`` the grouped GEMM's) and
+``reset_launch_counts`` sets them all to 0, so a run can show that its path
+went through the kernels.
 
 ``flash_attention`` and ``rmsnorm`` are differentiable: where grad is
 enabled and an input requires it, they go through a ``torch.autograd.Function``
@@ -197,6 +198,12 @@ def flash_variant_counts() -> Dict[str, int]:
     """The forward flash launches by kernel variant (``tc_prefill``,
     ``split_decode``, ``fma``); they sum to ``launch_counts()["flash_fwd"]``."""
     return dict(flash_attention_cuda.variant_launches)
+
+
+def moe_gmm_variant_counts() -> Dict[str, int]:
+    """The grouped GEMM's launches by kernel variant (``tc_prefill``,
+    ``decode``, ``wmma``, ``fma``); they sum to ``launch_counts()["moe_gmm"]``."""
+    return dict(moe_gmm_cuda.variant_launches)
 
 
 def flash_bwd_variant_counts() -> Dict[str, Dict[str, int]]:

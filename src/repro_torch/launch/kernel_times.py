@@ -8,13 +8,15 @@ causal) and at the decode shape (B=8, S=1, T=2048, kv_len 1..2048), RMSNorm
 at 4096 and at 8 rows of 1024. qwen3-moe-30b-a3b: flash attention at the
 same two shapes with 32 query and 4 KV heads of 128, RMSNorm at d = 2048,
 and the grouped expert GEMM of one MoE layer (128 experts, d 2048, ff 768)
-at a decode round of 8 slots (C = 8) and at the prefill step (C = 320),
-gate/up (2048 -> 768) and down (768 -> 2048). The SSD scan at mamba2-370m's
+at a decode round of 8 slots (C = 8), a 511-token and a 256-token
+admission (C = 40, 256) and the prefill step (C = 320), gate/up
+(2048 -> 768) and down (768 -> 2048). The SSD scan at mamba2-370m's
 prefill step (B=4, S=1024, 32 heads of 64, N=128), at zamba2-2.7b's (80
 heads, N=64) and at one 511-token mamba2-370m admission; flash attention at
 zamba2-2.7b's 32 heads of 80 (prefill and decode shapes as above), RMSNorm
-at its d_inner 5120. gemma3-12b: flash attention at 16 query and 8 KV heads
-of 256 at the prefill shape (window 1024) and the decode shape. The flash
+at 4096 and 8 rows of its d_inner 5120. gemma3-12b: flash attention at 16
+query and 8 KV heads of 256 at the prefill shape (window 1024) and the
+decode shape, RMSNorm at 4096 and 8 rows of d 3840. The flash
 backward (dq and dk/dv, O and lse from the forward kernel) at the train
 step's shape (B=4, S=T=1024, 16 heads of 64, causal) and with qwen3-moe's
 32 query and 4 KV heads of 128. ``--only`` times the calls whose name
@@ -39,9 +41,10 @@ from ..kernels.rmsnorm import rmsnorm_cuda
 from ..kernels.ssd_scan import ssd_scan_cuda
 
 # qwen3-moe-30b-a3b's MoE layer: experts, d_model, d_ff_expert; tokens per
-# expert in a decode round of 8 slots and in a B=4 x S=1024 prefill step
+# expert in a decode round of 8 slots, in a 511-token and a 256-token
+# admission and in a B=4 x S=1024 prefill step
 MOE_E, MOE_D, MOE_F = 128, 2048, 768
-MOE_C = {"decode": 8, "prefill": 320}
+MOE_C = {"decode": 8, "admit511": 40, "admit256": 256, "prefill": 320}
 # the SSD scan's main-path shapes (B, S, H, P, G, N)
 SSD_PATHS = {"mamba2_prefill": (4, 1024, 32, 64, 1, 128),
              "zamba2_prefill": (4, 1024, 80, 64, 1, 64),
@@ -53,15 +56,16 @@ SSD_PATHS = {"mamba2_prefill": (4, 1024, 32, 64, 1, 128),
 PROFILER_SESSIONS = 3
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str = "") -> float:
-    """Mean device time of one call of ``fn`` over ``iters`` calls: the
-    summed durations of the kernels (and device copies) it runs, or of
-    those whose name contains ``kernel``. Traces up to
-    ``PROFILER_SESSIONS`` times and raises if none records a device event."""
+# bytes written between the calls of a cold reading: more than an H100's
+# 50 MB L2, so that a call's inputs come from device memory
+L2_FLUSH_BYTES = 256 << 20
+
+
+def _device_events(fn, iters: int) -> list:
+    """The device events of ``iters`` calls of ``fn``, traced by
+    ``torch.profiler``; traces up to ``PROFILER_SESSIONS`` times and raises
+    if none records a device event."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     for _ in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -70,13 +74,39 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str = "") -> float:
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         if events:
-            us = sum(e.time_range.elapsed_us() for e in events if kernel in e.name)
-            if us <= 0:
-                raise RuntimeError(f"torch.profiler recorded no device time for "
-                                   f"{kernel!r}")
-            return us / iters / 1e3
+            return events
     raise RuntimeError(f"torch.profiler recorded no device event in "
                        f"{PROFILER_SESSIONS} sessions")
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str = "",
+              cold: bool = False) -> float:
+    """Mean device time of one call of ``fn`` over ``iters`` calls: the
+    summed durations of the kernels (and device copies) it runs, or of
+    those whose name contains ``kernel``. With ``cold``, each call follows
+    a write of ``L2_FLUSH_BYTES``, whose own device events are left out:
+    the time of a call whose inputs are not in L2 (back to back, a call
+    whose inputs fit in L2 reads them from there)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    step, flush_names = fn, set()
+    if cold:
+        scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        flush_names = {e.name for e in _device_events(scratch.zero_, 1)}
+        if flush_names & {e.name for e in _device_events(fn, 1)}:
+            raise RuntimeError(f"device_ms: the L2 flush's kernels {flush_names} "
+                               f"are among the timed call's")
+
+        def step():
+            scratch.zero_()
+            fn()
+    events = _device_events(step, iters)
+    us = sum(e.time_range.elapsed_us() for e in events
+             if kernel in e.name and e.name not in flush_names)
+    if us <= 0:
+        raise RuntimeError(f"torch.profiler recorded no device time for {kernel!r}")
+    return us / iters / 1e3
 
 
 def wrapper_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -118,8 +148,9 @@ def main(repeats: int = 3, only: str = "") -> dict:
     # zamba2-2.7b: its shared block's 32 heads of 80, its gated norm
     qp3, kp3, vp3 = randn(4, 1024, 32, 80), randn(4, 1024, 32, 80), randn(4, 1024, 32, 80)
     qd3, kd3, vd3 = randn(8, 1, 32, 80), randn(8, 2048, 32, 80), randn(8, 2048, 32, 80)
-    xp3, scale3 = randn(4096, 5120), randn(5120)
-    # gemma3-12b: 16 query and 8 KV heads of 256
+    xp3, xd3, scale3 = randn(4096, 5120), randn(8, 5120), randn(5120)
+    # gemma3-12b: d_model 3840, 16 query and 8 KV heads of 256
+    xp4, xd4, scale4 = randn(4096, 3840), randn(8, 3840), randn(3840)
     qp4, kp4, vp4 = randn(4, 1024, 16, 256), randn(4, 1024, 8, 256), randn(4, 1024, 8, 256)
     qd4, kd4, vd4 = randn(8, 1, 16, 256), randn(8, 2048, 8, 256), randn(8, 2048, 8, 256)
     # the flash backward's inputs: (q, k, v, dO, lse, Δ), O and lse from the
@@ -154,6 +185,9 @@ def main(repeats: int = 3, only: str = "") -> dict:
         "flash_fwd decode H=32 D=80": lambda: flash_attention_cuda(
             qd3, kd3, vd3, causal=False, window=0, kv_len=kv_len),
         "rmsnorm 4096x5120": lambda: rmsnorm_cuda(xp3, scale3),
+        "rmsnorm 8x5120": lambda: rmsnorm_cuda(xd3, scale3),
+        "rmsnorm 4096x3840": lambda: rmsnorm_cuda(xp4, scale4),
+        "rmsnorm 8x3840": lambda: rmsnorm_cuda(xd4, scale4),
         "flash_fwd prefill GQA 16:8 D=256 window 1024": lambda: flash_attention_cuda(
             qp4, kp4, vp4, causal=True, window=1024),
         "flash_fwd decode GQA 16:8 D=256": lambda: flash_attention_cuda(

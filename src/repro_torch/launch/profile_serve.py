@@ -32,7 +32,7 @@ from ..runtime.serve import make_prefill_step
 from . import serve_workload
 
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),
-            ("rmsnorm", ("rmsnorm_kernel",)),
+            ("rmsnorm", ("rmsnorm_",)),
             ("moe_gmm", ("moe_gmm",)),
             ("ssd_scan", ("ssd_scan_kernel",)),      # before "scan", which it contains
             ("scan", ("scan",)),

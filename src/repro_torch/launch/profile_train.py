@@ -36,7 +36,7 @@ TCFG = TrainConfig(remat="block", opt_dtype="bfloat16", microbatch_per_device=4,
 FAMILIES = (("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),
             ("flash bwd dq", ("flash_bwd_dq",)),
             ("flash bwd dkv", ("flash_bwd_dkv",)),
-            ("rmsnorm", ("rmsnorm_kernel",)),
+            ("rmsnorm", ("rmsnorm_",)),
             ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas", "splitk")),
             ("elementwise", ("elementwise", "vectorized", "reduce", "index", "copy",
                              "scatter", "gather", "cat", "softmax")))

@@ -3,7 +3,8 @@ capacity-bounded dispatch.
 
 Dispatch is gather/scatter based, as in ``repro``: each (token, choice)
 gets its position within its expert from an exclusive cumsum of one-hots
-in (t, k) order, and the only products are the three expert GEMMs. Those go
+in (t, k) order (``route``), its row of the experts' buffer by assignment
+(``dispatch``), and the only products are the three expert GEMMs. Those go
 through ``kernels.ops.moe_gmm``, the grouped GEMM that ``repro``'s Pallas
 kernel ``_gmm_kernel`` computes (``ecd,edf->ecf``): the hand-written kernel
 on the card, its plain version on the CPU.
@@ -67,6 +68,27 @@ def route(xt: torch.Tensor, router: torch.Tensor, moe: MoEConfig):
     return probs, gate, expert_idx, pos, pos < cap, cap
 
 
+def dispatch(xt: torch.Tensor, flat_e: torch.Tensor, pos: torch.Tensor,
+             keep: torch.Tensor, E: int, cap: int) -> torch.Tensor:
+    """The experts' input buffer (E, cap, d): token t's copy for choice k at
+    (flat_e[t·K + k], pos[t·K + k]) where kept, zero in every empty slot.
+
+    ``repro`` scatters with ``.at[].add``: a dropped (t, k) goes to (e, 0)
+    with a zero contribution. Here the rows are assigned instead, into a
+    flat (E·cap + 1, d) buffer whose last row takes every dropped (t, k)
+    and is thrown away: the kept slots are unique (an exclusive cumsum), so
+    no sum is needed, and on the card the assignment needs no sort (an
+    accumulating ``index_put_`` sorts its indices). Each token's row is
+    read through a broadcast view, never copied K times. The result equals
+    ``repro``'s (0 + x = x)."""
+    T, d = xt.shape
+    K = flat_e.shape[0] // T
+    row = torch.where(keep, flat_e * cap + pos, torch.full_like(pos, E * cap))
+    flat = torch.zeros((E * cap + 1, d), dtype=xt.dtype, device=xt.device)
+    flat[row.view(T, K)] = xt[:, None].expand(T, K, d)
+    return flat[:E * cap].view(E, cap, d)
+
+
 def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], moe: MoEConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) → (y, aux_loss f32). Tokens past an expert's capacity
@@ -81,15 +103,9 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], moe: MoEConfig,
     assign1 = F.one_hot(expert_idx[:, 0], E).float()
     aux = E * (assign1.mean(0) * probs.mean(0)).sum()
 
-    # dispatch: a dropped (t, k) maps to (e, 0) with a zero contribution, so
-    # the scatter accumulates (as ``.at[].add``) rather than assigns, which
-    # would overwrite the token kept at slot 0
     flat_e = expert_idx.reshape(T * K)
+    buf = dispatch(xt, flat_e, pos, keep, E, cap)
     pos_c = torch.where(keep, pos, torch.zeros_like(pos))
-    contrib = torch.where(keep[:, None], xt.repeat_interleave(K, dim=0),
-                          torch.zeros((), dtype=x.dtype, device=x.device))
-    buf = torch.zeros((E, cap, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((flat_e, pos_c), contrib, accumulate=True)
 
     g = ops.moe_gmm(buf, p["w_gate"])
     u = ops.moe_gmm(buf, p["w_up"])

@@ -69,6 +69,26 @@ GMM_CASES = [
     (3, 17, 100, 36), (2, 70, 33, 129),
     (16, 8, 2048, 768),
 ]
+# (E, C, D, F) of the tensor-core prefill kernel (bf16, C > 16, D and F
+# multiples of 8; 128 x 256 output tiles, 64-deep K steps): C below one
+# 128-row tile (17, 40, 100), at it (128), one row past it (129), at
+# qwen3-moe's 256 and 320 (gate/up and down widths; 320 leaves the last
+# tile's second warpgroup without rows), and several tiles with a partial
+# last one (500, 600, 700); F of one and two 256-column tiles, one tile
+# and 8 columns (264), below one 64-column TMA box (40) and no multiple of
+# it (72); D no multiple of the 64-deep step (136, 200)
+GMM_TC_CASES = [
+    (4, 17, 256, 256), (4, 40, 256, 512), (3, 100, 200, 72), (2, 128, 64, 256),
+    (2, 129, 128, 264), (8, 256, 512, 256), (4, 320, 2048, 768), (4, 320, 768, 2048),
+    (2, 64, 136, 40), (2, 500, 64, 256), (2, 600, 64, 256), (2, 700, 128, 264),
+]
+# (rows, d) of RMSNorm: each row mapping (a warp a row up to d = 2048 in
+# bf16, 2 and 4 warps a row above, 8 for fewer rows than SMs, the wide
+# kernel past 2048 vectors of 16 bytes), 4096 rows and 8, d no multiple of
+# 8 (the scalar tail)
+RMSNORM_ROWS = [(4096, 1024), (8, 1024), (4096, 2048), (8, 3840), (4096, 3840),
+                (4096, 5120), (8, 5120), (3, 100), (4096, 1001), (8, 1001), (200, 5003),
+                (5, 20003), (1, 8), (1000, 1)]
 # (B, S, H, P, G, N): the SSD cases of tests/test_kernels.py, ragged S, and
 # strided inputs at mamba2-370m's widths
 SSD_CASES = [
@@ -319,6 +339,64 @@ def test_cuda_moe_gmm_matches_plain_version_on_the_card():
             torch.cuda.synchronize()
             assert got.dtype == dt and got.shape == (E, C, F)
             torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[dt])
+
+
+def test_cuda_moe_gmm_tc_prefill_matches_plain_version_at_ragged_c():
+    """The TMA + wgmma kernel at ragged C, D and F; every launch counted on
+    its variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(3)
+    ops.reset_launch_counts()
+    for E, C, D, F in GMM_TC_CASES:
+        buf = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (D ** -0.5 * torch.randn(E, D, F, generator=gen, device="cuda")).to(torch.bfloat16)
+        got = moe_gmm_cuda(buf, w)
+        want = moe_gmm_plain(buf, w)
+        torch.cuda.synchronize()
+        assert got.shape == (E, C, F)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert ops.moe_gmm_variant_counts() == {"tc_prefill": len(GMM_TC_CASES), "decode": 0,
+                                            "wmma": 0, "fma": 0}
+
+
+def test_cuda_moe_gmm_takes_the_wmma_tile_where_tma_cannot_read():
+    """A base 2 bytes past a 16-byte boundary, or a D no multiple of 8: the
+    64 x 64 wmma tile, by the picker's rule; the decode tile up to C = 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    flat = randn(1 + 2 * 40 * 64)
+    cases = [(flat[1:].view(2, 40, 64), randn(2, 64, 32)),
+             (randn(2, 40, 60), randn(2, 60, 32)), (randn(2, 16, 64), randn(2, 64, 32))]
+    ops.reset_launch_counts()
+    for buf, w in cases:
+        assert buf.is_contiguous()
+        torch.testing.assert_close(moe_gmm_cuda(buf, w).float(),
+                                   moe_gmm_plain(buf, w).float(), rtol=2e-2, atol=2e-2)
+    assert ops.moe_gmm_variant_counts() == {"tc_prefill": 0, "decode": 1, "wmma": 2,
+                                            "fma": 0}
+
+
+def test_cuda_rmsnorm_row_mappings_match_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(5)
+    for dt, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
+        for rows, d in RMSNORM_ROWS:
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+            s = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
+            torch.testing.assert_close(rmsnorm_cuda(x, s).float(),
+                                       rmsnorm_plain(x, s).float(), rtol=tol, atol=tol)
+        # a base 4 (f32) or 2 (bf16) bytes past a 16-byte boundary: element loads
+        flat = torch.randn(1 + 33 * 1024, generator=gen, device="cuda").to(dt)
+        x, s = flat[1:].view(33, 1024), flat[1:1025]
+        torch.testing.assert_close(rmsnorm_cuda(x, s).float(), rmsnorm_plain(x, s).float(),
+                                   rtol=tol, atol=tol)
 
 
 def test_cuda_moe_gmm_wrapper_refuses_bad_inputs_and_counts_launches():

@@ -18,7 +18,7 @@ from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro.models.layers import attention as jax_attention
 from repro_torch.configs import ARCHS
 from repro_torch.convert import tensor_from_numpy
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, moe_gmm, ops
 from repro_torch.kernels.flash_attention import (
     DECODE_CHUNK,
     HEAD_DIMS,
@@ -57,9 +57,12 @@ FLASH_BWD_CASES = [
 ]
 # the grouped-GEMM cases of tests/test_kernels.py, then ragged C: 1, 8 and
 # 40 tokens per expert (one slot, a decode round of 8 slots, a 511-token
-# admission of qwen3-moe-30b-a3b)
+# admission of qwen3-moe-30b-a3b); then the qwen3-moe smoke layer's widths
+# (8 experts, d 128, ff 64), gate/up and down, at C = 40, 82 (264 tokens)
+# and 100: no multiple of the 64-row tile
 GMM_CASES = [(2, 64, 128, 96), (8, 128, 64, 256), (3, 96, 160, 32),
-             (4, 1, 128, 64), (4, 8, 128, 64), (4, 40, 128, 64)]
+             (4, 1, 128, 64), (4, 8, 128, 64), (4, 40, 128, 64),
+             (8, 40, 128, 64), (8, 40, 64, 128), (8, 82, 128, 64), (8, 100, 64, 128)]
 NO_LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                "moe_gmm": 0, "ssd_scan": 0}
 
@@ -79,7 +82,8 @@ def _np(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("shape", [(1, 7, 64), (4, 33, 128), (2, 256, 512)])
+@pytest.mark.parametrize("shape", [(1, 7, 64), (4, 33, 128), (2, 256, 512),
+                                   (3, 5, 100), (2, 4, 1001)])
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 def test_rmsnorm_plain_matches_pallas(shape, name):
     xj, xt = _pair(RNG.normal(0, 1, shape), name)
@@ -247,6 +251,8 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
     assert ops.flash_variant_counts() == {"tc_prefill": 0, "split_decode": 0, "fma": 0}
     assert ops.flash_bwd_variant_counts() == {"flash_bwd_dq": {"tc": 0, "fma": 0},
                                               "flash_bwd_dkv": {"tc": 0, "fma": 0}}
+    assert ops.moe_gmm_variant_counts() == {"tc_prefill": 0, "decode": 0, "wmma": 0,
+                                            "fma": 0}
 
 
 def test_ops_reject_devices_without_a_kernel():
@@ -312,7 +318,8 @@ def test_build_hash_covers_every_source(tmp_path, monkeypatch):
     assert set(build.SIGNATURES) == {
         f"repro_{k}_{t}" for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                                    "moe_gmm", "ssd_scan")
-        for t in ("f32", "bf16")} | {"repro_flash_decode_bf16"}
+        for t in ("f32", "bf16")} | {
+            "repro_flash_decode_bf16", "repro_moe_gmm_bf16_tc", "repro_moe_gmm_bf16_decode"}
     # a change to any source, the shared header included, changes the hash
     for src in build.sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
@@ -441,6 +448,29 @@ def test_moe_gmm_plain_matches_pallas(E, C, D, F, name):
     tol = dict(rtol=5e-2, atol=5e-1) if name == "bfloat16" else dict(rtol=1e-3, atol=1e-3)
     for want in (moe_gmm_pallas(bj, wj, interpret=True), ref.moe_gmm_ref(bj, wj)):
         np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("dtype,C,D,F,aligned,want", [
+    (torch.float32, 320, 2048, 768, True, "fma"),
+    (torch.float32, 8, 2048, 768, True, "fma"),
+    (torch.bfloat16, 1, 2048, 768, True, "decode"),
+    (torch.bfloat16, 16, 2048, 768, True, "decode"),
+    (torch.bfloat16, 16, 100, 36, False, "decode"),
+    (torch.bfloat16, 17, 2048, 768, True, "tc_prefill"),
+    (torch.bfloat16, 40, 2048, 768, True, "tc_prefill"),
+    (torch.bfloat16, 320, 768, 2048, True, "tc_prefill"),
+    (torch.bfloat16, 100, 200, 72, True, "tc_prefill"),
+    (torch.bfloat16, 40, 100, 64, True, "wmma"),
+    (torch.bfloat16, 40, 128, 36, True, "wmma"),
+    (torch.bfloat16, 320, 2048, 768, False, "wmma"),
+])
+def test_moe_gmm_variant_picker(dtype, C, D, F, aligned, want):
+    """bf16 takes the TMA + wgmma kernel for C > 16 tokens per expert where
+    D and F are multiples of 8 and the bases 16-byte aligned (TMA's rule),
+    the 16-row decode tile up to C = 16 whatever the widths, and the 64 x 64
+    wmma tile where the TMA rule fails; f32 its FMA kernel."""
+    assert moe_gmm._variant(dtype, C, D, F, aligned) == want
+    assert want in moe_gmm.VARIANTS
 
 
 def test_moe_gmm_on_cpu_is_differentiable():

@@ -119,3 +119,48 @@ def test_full_qwen3_moe_capacities_of_the_serving_path():
     m = get_config("qwen3-moe-30b-a3b").moe
     assert vars(m) == vars(JAX_ARCHS["qwen3-moe-30b-a3b"].moe)
     assert [moe.capacity(T, m) for T in (1, 8, 511, 4096)] == [1, 8, 40, 320]
+
+
+def _moe_ffn_by_accumulating_scatter(x, p, m):
+    """``moe.moe_ffn`` as it was with ``repro``'s scatter: each dropped
+    (t, k) adds a zero row at (e, 0) (``index_put_(accumulate=True)``, as
+    ``.at[].add``). → (buf, y, aux)."""
+    B, S, d = x.shape
+    E, K = m.n_experts, m.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    probs, gate, expert_idx, pos, keep, cap = moe.route(xt, p["router"], m)
+    aux = E * (torch.nn.functional.one_hot(expert_idx[:, 0], E).float().mean(0)
+               * probs.mean(0)).sum()
+    flat_e = expert_idx.reshape(T * K)
+    pos_c = torch.where(keep, pos, torch.zeros_like(pos))
+    contrib = torch.where(keep[:, None], xt.repeat_interleave(K, dim=0),
+                          torch.zeros((), dtype=x.dtype))
+    buf = torch.zeros((E, cap, d), dtype=x.dtype)
+    buf.index_put_((flat_e, pos_c), contrib, accumulate=True)
+    g = ops.moe_gmm(buf, p["w_gate"])
+    u = ops.moe_gmm(buf, p["w_up"])
+    out = ops.moe_gmm(torch.nn.functional.silu(g) * u, p["w_down"])
+    w = (gate.reshape(T * K) * keep).to(x.dtype)
+    y = (out[flat_e, pos_c] * w[:, None]).reshape(T, K, d).sum(dim=1)
+    return buf, y.reshape(B, S, d), aux
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dispatch_by_assignment_equals_the_accumulating_scatter(arch, case, name):
+    """The buffer filled by assignment (dropped rows into a discarded last
+    row) equals the accumulating scatter's, and so do y and aux: kept slots
+    are unique and 0 + x = x, drops included."""
+    m, _, (xt, pt) = _inputs(arch, case, name)
+    want_buf, want_y, want_aux = _moe_ffn_by_accumulating_scatter(xt, pt, m)
+    T = xt.shape[0] * xt.shape[1]
+    _, _, idx, pos, keep, cap = moe.route(xt.reshape(T, -1), pt["router"], m)
+    buf = moe.dispatch(xt.reshape(T, -1), idx.reshape(-1), pos, keep, m.n_experts, cap)
+    assert buf.shape == (m.n_experts, cap, xt.shape[-1]) and buf.is_contiguous()
+    assert torch.equal(buf, want_buf)
+    assert (case == "drops") == bool((~keep).any())
+    y, aux = moe.moe_ffn(xt, pt, m)
+    assert torch.equal(y, want_y)
+    assert torch.equal(aux, want_aux)
