@@ -14,9 +14,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                320 and a D/F of no tile's width, its launches by variant
                checked (bf16 C > 16 all on the tensor-core kernel); the SSD
                scan, y and final state, also at ragged S = 1, 37, 257,
-               300; the flash forward's three variants (tensor-core
-               prefill, split-KV decode, f32 FMA) at ragged S, decode
-               kv_len at chunk edges, GQA 1:1 to 8:1, windows, every D
+               300, at the bf16 kernel's chunk edges (S = 1, 127, 128, 129,
+               257), G = 2 and 4 with several heads a group, every state
+               dim, P = 32, 64, 128, strided xBC views and strong decay,
+               its launches by variant checked (bf16 all on the
+               tensor-core kernel, f32 on FMA); the flash forward's three
+               variants (tensor-core prefill, split-KV decode, f32 FMA)
+               at ragged S, decode kv_len at chunk edges, GQA 1:1 to 8:1,
+               windows, every D
                (32, 64, 80, 96, 128, 256), strided q/k/v and cache views,
                in f32 and bf16, with the launches by variant checked and a
                misaligned view refused; the backward's two variants
@@ -56,7 +61,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                shared attention block applied 9 times, 2.42 B parameters),
                bf16 from seed 0. Per prefill and per decode round:
                mamba2 ssd_scan 48 / 0 and rmsnorm 97 / 97, no attention;
-               zamba2 ssd_scan 54 / 0, rmsnorm 127 / 127, flash_fwd 9 / 9.
+               zamba2 ssd_scan 54 / 0, rmsnorm 127 / 127, flash_fwd 9 / 9;
+               every SSD launch on the tensor-core kernel.
                A kernel that runs only in prefills passes the split check,
                one that never runs fails it. The cross-slot guard, and a
                state guard: a 300-token prompt admitted by one prefill (the
@@ -159,6 +165,14 @@ GMM_WMMA_CASES = [(4, 320, 2048, 768, 1, 0), (4, 40, 768, 2048, 0, 1),
 SSD_CASES = [(1, 64, 2, 32, 1, 16), (2, 128, 4, 32, 2, 16), (1, 96, 4, 64, 1, 32),
              (2, 256, 8, 64, 2, 64)]
 SSD_RAGGED = [(2, S, 4, 64, 1, 128) for S in (1, 37, 257, 300)]
+# the bf16 kernel's shapes (B, S, H, P, G, N): S at the edges of its 128-row
+# chunk (1, Q - 1, Q, Q + 1, 2Q + 1), G = 2 and 4 with several heads a
+# group (C·Bᵀ shared), every state dim, P = 32, 64, 128; each with the JAX
+# tests' a range and with strong decay (a down to -16)
+SSD_TC_CASES = [(2, 1, 4, 64, 1, 128), (1, 127, 8, 32, 2, 16), (1, 128, 8, 64, 2, 32),
+                (2, 129, 16, 128, 4, 64), (1, 257, 8, 64, 4, 128), (2, 257, 16, 32, 4, 32),
+                (1, 300, 8, 128, 2, 16), (2, 200, 8, 64, 2, 64)]
+SSD_A_RANGES = ((0.5, 2.0), (1.0, 16.0))
 # the config chunk the SSD's operation count is reckoned at, whatever the
 # kernel's own tile
 SSD_CHUNK = 256
@@ -240,8 +254,11 @@ def build_phase():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             kernel = _kernel_label(entry.group(1))
-        elif "registers" in line or "spill" in line:
+        elif "Used" in line and "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}: {line.replace('ptxas info    :', '').strip()}")
+        elif "warpgroup.arrive is injected" in line:   # names its function itself
+            print(f"  ptxas {_kernel_label(line.split()[-1].strip(chr(39)))}: "
+                  f"{line.split(' by compiler')[0].split(') ')[-1]} by the compiler")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -579,9 +596,12 @@ def _ssd_inputs(gen, B, S, H, P, G, N, dt, a_range=(0.5, 2.0)):
 
 def ssd_phase(gen):
     """The SSD scan against its plain version, y and the final state: the
-    JAX test cases and ragged S (f32 and bf16), then the three main-path
-    shapes (bf16, the model's a range), which are also timed."""
+    JAX test cases and ragged S (f32 and bf16), the bf16 kernel's chunk
+    edges, groups and widths (SSD_TC_CASES, both a ranges, f32 and bf16),
+    the launches by variant checked; then the three main-path shapes (bf16,
+    the model's a range), which are also timed."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
     from repro_torch.launch.kernel_times import SSD_PATHS, device_ms, wrapper_ms
 
@@ -594,10 +614,19 @@ def ssd_phase(gen):
                    compare(f"{name} h_final", h, ph, TOL["float32"]))
 
     worst = 0.0
-    for case in SSD_CASES + SSD_RAGGED:
+    ops.reset_launch_counts()
+    checks = [(case, (0.5, 2.0)) for case in SSD_CASES + SSD_RAGGED] + \
+        [(case, a_range) for case in SSD_TC_CASES for a_range in SSD_A_RANGES]
+    for case, a_range in checks:
         for dt in (torch.float32, torch.bfloat16):
-            worst = max(worst, check(f"ssd_scan {case} {dt}", _ssd_inputs(gen, *case, dt),
+            ins = _ssd_inputs(gen, *case, dt, a_range=a_range)
+            worst = max(worst, check(f"ssd_scan {case} a {a_range} {dt}", ins,
                                      TOL[str(dt)[6:]]))
+    want = {"tc": len(checks), "fma": len(checks)}
+    if ops.ssd_scan_variant_counts() != want:
+        fail(f"ssd_scan variants {ops.ssd_scan_variant_counts()}, expected {want} "
+             f"(the tensor-core kernel for bf16, FMA for f32)")
+    print(f"ssd_scan: checked cases by variant {want}")
     timed = {}
     for path, (B, S, H, P, G, N) in SSD_PATHS.items():
         ins = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16, a_range=(1.0, 16.0))
@@ -743,6 +772,7 @@ def serve_phase(config="qwen1.5-0.5b"):
     launches = ops.launch_counts()
     variants = ops.flash_variant_counts()
     gmm_variants = ops.moe_gmm_variant_counts()
+    ssd_variants = ops.ssd_scan_variant_counts()
     # ---- end of the main path ----
 
     if nxt.shape != (B,) or not all(bool(torch.isfinite(c).all())
@@ -790,6 +820,14 @@ def serve_phase(config="qwen1.5-0.5b"):
         if gmm_variants != want_gmm:
             fail(f"{cfg.name}: moe_gmm variants {gmm_variants}, expected {want_gmm}")
         print(f"moe_gmm variants: {gmm_variants}")
+    # the SSD scan: every launch (prefills only) on the tensor-core kernel
+    if "ssd_scan" in per_prefill:
+        want_ssd = {"tc": per_prefill["ssd_scan"] * prefills, "fma": 0}
+        if ssd_variants != want_ssd:
+            fail(f"{cfg.name}: ssd_scan variants {ssd_variants}, expected {want_ssd}")
+        print(f"ssd_scan variants: {ssd_variants}")
+    elif any(ssd_variants.values()):
+        fail(f"{cfg.name}: ssd_scan variants {ssd_variants} launched without an SSM")
     tok_s = served["tokens"] / served["seconds"]
     print(f"prefill step B={B} S={S}: {prefill_ms:.3f} ms")
     print(f"served {served['served']} requests, {served['tokens']} tokens in "
@@ -809,6 +847,7 @@ def serve_phase(config="qwen1.5-0.5b"):
           f"decode rounds; per prefill {per_prefill}, per decode round {per_round}")
     launches["flash_fwd_variants"] = variants
     launches["moe_gmm_variants"] = gmm_variants
+    launches["ssd_scan_variants"] = ssd_variants
     return launches, per_prefill, per_round
 
 
@@ -1093,7 +1132,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssd_scan.py:26",
          "launches": ssm["mamba2-370m"][0]["ssd_scan"], "max_abs_err": ssd_err,
          "library_ms": None, "library": "none: no single PyTorch call computes an SSD scan",
-         "paths": ssd_t, **ssm_launches("ssd_scan")},
+         "paths": ssd_t, **ssm_launches("ssd_scan"),
+         "launches_by_variant": {f"{c}_serve": n["ssd_scan_variants"]
+                                 for c, (n, _, _) in ssm.items()}},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

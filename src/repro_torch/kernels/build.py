@@ -45,7 +45,7 @@ SIGNATURES = {
     "repro_moe_gmm_bf16_tc": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_moe_gmm_bf16_decode": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_P],
-    "repro_ssd_scan_bf16": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_P],
+    "repro_ssd_scan_bf16": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_P] + [_P, _I],
 }
 
 _lock = threading.Lock()

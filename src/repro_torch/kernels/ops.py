@@ -5,7 +5,8 @@ a CUDA tensor launches the hand-written kernel or raises. There is no
 fallback from one to the other and no switch. Each CUDA wrapper counts its
 launches; ``launch_counts`` reads the counts (``flash_variant_counts`` the
 forward flash kernel's by variant, ``flash_bwd_variant_counts`` the
-backward's, ``moe_gmm_variant_counts`` the grouped GEMM's) and
+backward's, ``moe_gmm_variant_counts`` the grouped GEMM's,
+``ssd_scan_variant_counts`` the SSD scan's) and
 ``reset_launch_counts`` sets them all to 0, so a run can show that its path
 went through the kernels.
 
@@ -178,7 +179,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B_: torch.Tens
              C_: torch.Tensor, *, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (y (B, S, H, P) in xh's dtype, final state (B, H, P, N) f32); see
     ``kernels.ssd_scan``. ``chunk`` is the plain version's chunk length (the
-    kernel tiles by 64 rows; the result is the same up to rounding).
+    kernels keep their own: 128-row chunks in bf16, 64-row tiles in f32;
+    the result is the same up to rounding).
     Differentiable on the CPU only (plain PyTorch); on the card a call that
     would need a gradient is refused."""
     if _on_cuda(xh, "ssd_scan"):
@@ -212,6 +214,12 @@ def flash_bwd_variant_counts() -> Dict[str, Dict[str, int]]:
     sums to that kernel's ``launch_counts()`` entry."""
     return {name: dict(_CUDA_WRAPPERS[name].variant_launches)
             for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def ssd_scan_variant_counts() -> Dict[str, int]:
+    """The SSD scan's launches by kernel variant (``tc``: bf16, ``fma``:
+    f32); they sum to ``launch_counts()["ssd_scan"]``."""
+    return dict(ssd_scan_cuda.variant_launches)
 
 
 def reset_launch_counts() -> None:

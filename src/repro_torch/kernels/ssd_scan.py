@@ -1,9 +1,9 @@
-"""Mamba2 SSD chunked scan: the plain PyTorch version and the CUDA kernel's
+"""Mamba2 SSD chunked scan: the plain PyTorch versions and the CUDA kernels'
 wrapper.
 
-The kernel (``csrc/ssd_scan.cu``) replaces the Pallas TPU kernel
+The kernels (``csrc/ssd_scan.cu``) replace the Pallas TPU kernel
 ``_ssd_kernel`` of ``src/repro/kernels/ssd_scan.py`` (wrapper
-``ssd_scan_pallas``). Both versions here compute that kernel's function
+``ssd_scan_pallas``). Every version here computes that kernel's function
 (= ``repro.kernels.ref.ssd_scan_ref``, the sequential recurrence
 ``h_t = h_{t-1}·exp(dt_t·a) + dt_t·x_t⊗B_t``, ``y_t = C_t·h_t``) for
 xh (B, S, H, P), dt (B, S, H), a (H,), B_/C_ (B, S, G, N), head h reading
@@ -13,14 +13,30 @@ a request's prefill leaves in its serving slot.
 
 Any S is taken. The plain version pads the sequence to whole chunks with
 dt = 0 (a padded row has dA = 0 and dt·x = 0: it neither decays nor feeds the
-state), so y and the final state are exact; the kernel masks its own ragged
-tile the same way. ``chunk`` is the plain version's chunk length; the kernel
-tiles by 64 rows whatever it is (the SSD is exact under any chunking).
+state), so y and the final state are exact; the kernels mask their own
+ragged chunk the same way. ``chunk`` is the plain version's chunk length;
+the SSD is exact under any chunking, so the kernels keep their own.
+
+``ssd_scan_cuda`` takes one of two kernels by dtype (``_variant``), a
+documented choice and never a fallback from a kernel that failed:
+
+- ``tc`` (bf16, every N in ``STATE_DIMS`` and P a multiple of 32): chunks of
+  ``TC_CHUNK`` rows in parallel across the card, the state passed from
+  chunk to chunk inside the launch; C·Bᵀ once per block for the
+  ``_heads_per_block`` heads of one group it takes, M·x and C·h_in on
+  ``wgmma``, the chunk state on ``mma.sync`` with w∘x split into bf16
+  hi + lo. M and h_in (for y) are rounded to bf16; the carried state is
+  f32. ``ssd_scan_tc_plain`` is its arithmetic in PyTorch, for the tests.
+  It reads xh, B_ and C_ through TMA: each base pointer and each stride of
+  a dim longer than 1 must be a multiple of 16 bytes, or the wrapper
+  raises.
+- ``fma`` (f32): one block per (batch, head, P tile) walking the sequence
+  in tiles of 64 rows, f32 FMAs.
 
 On the card the prefill is bound by bytes at mamba2-370m's shape
-(B 4, S 1024, H 32, P 64, N 128: 12.0 µs of bytes, 10.9 µs of operations at
-the config's chunk 256, counting only the causal half of the chunk's
-products). The kernel's design notes are in its source.
+(B 4, S 1024, H 32, P 64, N 128: 12.0 µs of bytes, ~5.5 µs of operations
+with C·Bᵀ shared by the group). The kernels' design notes are in their
+source.
 """
 from __future__ import annotations
 
@@ -30,9 +46,18 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .flash_attention import _check_aligned
 
 DTYPES = (torch.float32, torch.bfloat16)
 STATE_DIMS = (16, 32, 64, 128)
+VARIANTS = ("tc", "fma")
+TC_CHUNK = 128        # rows of a chunk of the tc kernel: two warpgroups of 64
+TC_MAX_HEADS = 8      # heads a tc block takes at most (one warp scans each)
+# a tc block takes as many heads of its group as keeps at least this many
+# blocks per SM in the launch: more heads share C·Bᵀ and overlap one head's
+# x load with another's work, fewer blocks leave SMs waiting on a block's
+# loads (``kernel_times --ssd-heads`` times the choices)
+TC_MIN_BLOCKS_PER_SM = 3
 
 
 def _shapes(xh, dt, a, B_, C_) -> Tuple[int, int, int, int, int, int]:
@@ -97,12 +122,115 @@ def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.reshape(Bb, nc * Q, H, P)[:, :S].to(xh.dtype), h
 
 
+def ssd_scan_tc_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      B_: torch.Tensor, C_: torch.Tensor, chunk: int = TC_CHUNK,
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``tc`` kernel's arithmetic in PyTorch, for the tests (nothing on
+    the card's path calls it): chunks of ``chunk`` rows; C·Bᵀ once per
+    (batch, group, chunk) in f32; M = (C·Bᵀ)∘exp(cum_i − cum_j)·dt_j for
+    j <= i, rounded to bf16 for bf16 inputs; y = M·x in f32; the chunk state
+    (w∘x)ᵀ·B, w_j = exp(cum_last − cum_j)·dt_j, from w∘x split into bf16 hi
+    + lo for bf16 inputs; h carried in f32, and rounded to bf16 for y's
+    exp(cum_i)·C_i·h_in term. f32 inputs round nothing (f64 compute in
+    f64). → (y in xh's dtype, h_final (B, H, P, N) f32; f64 for f64)."""
+    Bb, S, H, P, G, N = _shapes(xh, dt, a, B_, C_)
+    acc = torch.promote_types(xh.dtype, torch.float32)
+    low = xh.dtype == torch.bfloat16
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.bfloat16).to(acc) if low else t
+
+    Q = max(1, chunk)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    x, dtf, b, c = (t.to(acc) for t in (xh, dt, B_, C_))
+    if pad:             # dt = 0 rows: no decay, no input
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, 0, 0, pad))
+    R = H // G
+    x = x.reshape(Bb, nc, Q, H, P)
+    b = b.reshape(Bb, nc, Q, G, N)
+    c = c.reshape(Bb, nc, Q, G, N)
+    cb = torch.einsum("bclgn,bcsgn->bgcls", c, b).repeat_interleave(R, dim=1)
+    dth = dtf.reshape(Bb, nc, Q, H).permute(0, 3, 1, 2)             # (B,H,c,Q)
+    cum = (dth * a.to(acc)[None, :, None, None]).cumsum(-1)
+    tril = torch.ones(Q, Q, dtype=torch.bool, device=xh.device).tril()
+    decay = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(~tril, float("-inf")))
+    m = rnd(cb * decay * dth[..., None, :])                          # (B,H,c,l,s)
+    y = torch.einsum("bhcls,bcshp->bclhp", m, x)
+
+    w = torch.exp(cum[..., -1:] - cum) * dth                         # (B,H,c,Q)
+    wx = x.permute(0, 3, 1, 2, 4) * w[..., None]                     # (B,H,c,Q,P)
+    bh = b.repeat_interleave(R, dim=3)                               # (B,c,Q,H,N)
+    if low:
+        hi = rnd(wx)
+        parts = (hi, rnd(wx - hi))
+    else:
+        parts = (wx,)
+    states = sum(torch.einsum("bhcsp,bcshn->bhcpn", part, bh) for part in parts)
+    chunk_decay = torch.exp(cum[..., -1])                            # (B,H,c)
+    h = torch.zeros(Bb, H, P, N, dtype=acc, device=xh.device)
+    h_in = []
+    for ci in range(nc):
+        h_in.append(rnd(h))
+        h = h * chunk_decay[:, :, ci, None, None] + states[:, :, ci]
+    ch = c.repeat_interleave(R, dim=3)                               # (B,c,Q,H,N)
+    y_off = torch.einsum("bclhn,bhcpn->bclhp", ch, torch.stack(h_in, 2))
+    y = y + y_off * torch.exp(cum).permute(0, 2, 3, 1)[..., None]
+    return y.reshape(Bb, nc * Q, H, P)[:, :S].to(xh.dtype), h
+
+
+def _variant(dtype: torch.dtype, N: int, P: int) -> str:
+    """Which kernel a call takes: ``tc`` for bf16, ``fma`` for f32, at every
+    state dim in ``STATE_DIMS`` and head dim that is a multiple of 32;
+    another shape raises."""
+    if N not in STATE_DIMS or P % 32:
+        raise ValueError(f"ssd_scan_cuda: state dim {N} not in {STATE_DIMS} or head dim "
+                         f"{P} no multiple of 32")
+    return "tc" if dtype == torch.bfloat16 else "fma"
+
+
+def _p_tile(P: int) -> int:
+    """Columns of P a tc block takes."""
+    return 64 if P % 64 == 0 else 32
+
+
+def _heads_per_block(B: int, S: int, H: int, G: int, P: int, sms: int) -> int:
+    """The heads a tc block takes: the most (a divisor of H/G, at most
+    ``TC_MAX_HEADS``) that leave the launch ``TC_MIN_BLOCKS_PER_SM`` blocks
+    an SM, else 1. Each block computes its chunk's C·Bᵀ once for them."""
+    units = B * -(-S // TC_CHUNK) * (P // _p_tile(P))
+    best = 1
+    for d in range(2, TC_MAX_HEADS + 1):
+        if (H // G) % d == 0 and units * (H // d) >= TC_MIN_BLOCKS_PER_SM * sms:
+            best = d
+    return best
+
+
+_sync_buffers: dict = {}
+
+
+def _sync_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """The tc kernel's ticket, finish count and per-(b, h, P tile) chunk
+    flags on ``device``: zeroed once, and left at 0 by every launch, so
+    launches on one stream reuse them."""
+    buf = _sync_buffers.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _sync_buffers[device] = buf
+    return buf
+
+
 def ssd_scan_cuda(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   B_: torch.Tensor, C_: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/ssd_scan.cu`` on the current stream; counts each launch
-    in ``ssd_scan_cuda.launches``. xh, dt, B_ and C_ may be strided views
-    (the splits of the model's xBC) as long as their last dim is contiguous.
-    The kernel tiles by 64 rows, so it takes no chunk length."""
+    """Launch one kernel of ``csrc/ssd_scan.cu`` on the current stream
+    (``_variant``); counts each launch in ``ssd_scan_cuda.launches`` and by
+    variant in ``ssd_scan_cuda.variant_launches``. xh, dt, B_ and C_ may be
+    strided views (the splits of the model's xBC) as long as their last dim
+    is contiguous; in bf16 xh, B_ and C_ must be 16-byte aligned. The
+    kernels keep their own chunking, so this takes no chunk length."""
     Bb, S, H, P, G, N = _shapes(xh, dt, a, B_, C_)
     ts = (xh, dt, a, B_, C_)
     if xh.dtype not in DTYPES or any(t.dtype != xh.dtype for t in ts):
@@ -110,9 +238,7 @@ def ssd_scan_cuda(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"of {DTYPES} for all")
     if not (xh.is_cuda and all(t.device == xh.device for t in ts)):
         raise ValueError("ssd_scan_cuda: all inputs must be on one CUDA device")
-    if N not in STATE_DIMS or P % 32:
-        raise ValueError(f"ssd_scan_cuda: state dim {N} not in {STATE_DIMS} or head dim "
-                         f"{P} no multiple of 32")
+    variant = _variant(xh.dtype, N, P)
     if xh.stride(-1) != 1 or B_.stride(-1) != 1 or C_.stride(-1) != 1:
         raise ValueError("ssd_scan_cuda: the last dim of xh, B_ and C_ must be contiguous")
     a = a.contiguous()
@@ -120,17 +246,26 @@ def ssd_scan_cuda(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     h_final = torch.empty((Bb, H, P, N), dtype=torch.float32, device=xh.device)
     if Bb == 0 or S == 0 or H == 0:
         return y, h_final.zero_()
+    if variant == "tc":
+        _check_aligned("ssd_scan_cuda", xh=xh, B_=B_, C_=C_)
     lib = build.library()
-    fn = lib.repro_ssd_scan_bf16 if xh.dtype == torch.bfloat16 else lib.repro_ssd_scan_f32
+    args = (xh.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+            y.data_ptr(), h_final.data_ptr(), Bb, S, H, P, G, N,
+            *xh.stride()[:3], *dt.stride(), *B_.stride()[:3], *C_.stride()[:3])
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xh.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-                 y.data_ptr(), h_final.data_ptr(), Bb, S, H, P, G, N,
-                 *xh.stride()[:3], *dt.stride(), *B_.stride()[:3], *C_.stride()[:3],
-                 stream)
-    build.check(err, "ssd_scan")
+        if variant == "tc":
+            sync = _sync_buffer(xh.device, 2 + Bb * H * (P // _p_tile(P)))
+            sms = torch.cuda.get_device_properties(xh.device).multi_processor_count
+            heads = _heads_per_block(Bb, S, H, G, P, sms)
+            err = lib.repro_ssd_scan_bf16(*args, stream, sync.data_ptr(), heads)
+        else:
+            err = lib.repro_ssd_scan_f32(*args, stream)
+    build.check(err, f"ssd_scan ({variant})")
     ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.variant_launches[variant] += 1
     return y, h_final
 
 
 ssd_scan_cuda.launches = 0
+ssd_scan_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)

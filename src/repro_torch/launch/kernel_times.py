@@ -1,6 +1,7 @@
 """Device time of the port's kernels at the serving and training paths' shapes.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_times [--repeats 3] [--only NAME]
+        [--ssd-heads]
 
 Times each kernel of the serving paths on the card, all bf16. qwen1.5-0.5b:
 flash attention at the prefill shape (B=4, S=T=1024, 16 heads of 64,
@@ -21,7 +22,10 @@ backward (dq and dk/dv, O and lse from the forward kernel) at the train
 step's shape (B=4, S=T=1024, 16 heads of 64, causal) and with qwen3-moe's
 32 query and 4 KV heads of 128. ``--only`` times the calls whose name
 contains it (``--only flash_bwd`` runs on a checkout whose forward lacks
-D = 256). A time is the summed
+D = 256). ``--ssd-heads`` also times the bf16 SSD kernel at each number of
+heads a block can take at its shapes (a divisor of H/G up to
+``ssd_scan.TC_MAX_HEADS``; ``ssd_scan._heads_per_block`` picks one). A
+time is the summed
 duration of what one call runs on the device, traced by
 ``torch.profiler``; host time between launches does not count. Prints one JSON line with ``--repeats`` readings per kernel and
 shape. To compare two versions of a kernel, run this from both checkouts in
@@ -37,6 +41,7 @@ import torch
 from ..kernels.flash_attention import (
     _delta, flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
 from ..kernels.moe_gmm import moe_gmm_cuda
+from ..kernels import ssd_scan
 from ..kernels.rmsnorm import rmsnorm_cuda
 from ..kernels.ssd_scan import ssd_scan_cuda
 
@@ -125,7 +130,19 @@ def wrapper_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main(repeats: int = 3, only: str = "") -> dict:
+def _with_heads(fn, heads: int):
+    """``fn`` with the bf16 SSD kernel's blocks taking ``heads`` heads."""
+    def call():
+        saved = ssd_scan._heads_per_block
+        ssd_scan._heads_per_block = lambda *args: heads
+        try:
+            return fn()
+        finally:
+            ssd_scan._heads_per_block = saved
+    return call
+
+
+def main(repeats: int = 3, only: str = "", ssd_heads: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
     gen = torch.Generator("cuda").manual_seed(0)
@@ -200,6 +217,11 @@ def main(repeats: int = 3, only: str = "") -> dict:
             *ins, causal=True, window=0)
     for path, ins in ssd.items():
         calls[f"ssd_scan {path}"] = lambda ins=ins: ssd_scan_cuda(*ins)
+        _, _, Hs, _, G, _ = SSD_PATHS[path]
+        for heads in range(1, ssd_scan.TC_MAX_HEADS + 1) if ssd_heads else ():
+            if (Hs // G) % heads == 0:
+                calls[f"ssd_scan {path} heads={heads}"] = _with_heads(
+                    lambda ins=ins: ssd_scan_cuda(*ins), heads)
     for path, (x_d, x_f) in bufs.items():
         calls[f"moe_gmm {path} gate/up C={MOE_C[path]}"] = \
             lambda x=x_d: moe_gmm_cuda(x, w_up)
@@ -219,5 +241,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--only", default="", help="time only the calls whose name contains this")
+    ap.add_argument("--ssd-heads", action="store_true",
+                    help="also time the bf16 SSD kernel at each heads-per-block choice")
     args = ap.parse_args()
-    main(args.repeats, args.only)
+    main(args.repeats, args.only, args.ssd_heads)

@@ -14,11 +14,17 @@ the idle share of the unprofiled run (its wall time against the profiled
 run's busy time: the profiler slows the host, not the kernels); the
 kernels launched by one decode round; and one ``make_prefill_step`` call
 at B=4, S=1024 (``chip_smoke.py``'s): its host time unprofiled, then its
-device time by kernel family and its top kernels. Needs a CUDA card.
+device time by kernel family and its top kernels, and, traced with Python
+stacks and input shapes, by the model function, op and shapes that
+launched each kernel; for the SSM
+and hybrid configs also the device time inside ``record_function`` ranges
+around each Mamba block and the stages it calls by name (causal conv, dt
+and a, the SSD scan). Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from collections import defaultdict
@@ -27,14 +33,15 @@ import torch
 
 from ..configs import get_config
 from ..configs.base import ShapeConfig
-from ..models import build_model
+from ..kernels import ops
+from ..models import build_model, hybrid, mamba2
 from ..runtime.serve import make_prefill_step
 from . import serve_workload
 
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),
             ("rmsnorm", ("rmsnorm_",)),
             ("moe_gmm", ("moe_gmm",)),
-            ("ssd_scan", ("ssd_scan_kernel",)),      # before "scan", which it contains
+            ("ssd_scan", ("ssd_scan",)),      # both SSD kernels; before "scan", which it contains
             ("scan", ("scan",)),
             ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas", "splitk")),
             ("index/copy", ("index", "copy", "scatter", "gather", "cat")),
@@ -49,17 +56,91 @@ def family(kernel_name: str) -> str:
     return "other"
 
 
+def _kernels(prof):
+    """The device events (kernels, copies) of a trace: not the device-side
+    spans of ``record_function`` ranges."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+
+
 def _split(prof):
     """→ (device busy µs, µs by family, µs by kernel name, kernel count)."""
     busy_us, by_family, by_kernel, n = 0.0, defaultdict(float), defaultdict(float), 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            busy_us += us
-            n += 1
-            by_family[family(e.name)] += us
-            by_kernel[e.name[:90]] += us
+    for e in _kernels(prof):
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        n += 1
+        by_family[family(e.name)] += us
+        by_kernel[e.name[:90]] += us
     return busy_us, by_family, by_kernel, n
+
+
+# the ranges put around a Mamba block's stages: (module, attribute, range)
+MAMBA_RANGES = ((mamba2, "mamba_block", "mamba_block"), (hybrid, "mamba_block", "mamba_block"),
+                (mamba2, "_causal_conv", "mamba_block.causal_conv"),
+                (mamba2, "_dt_and_a", "mamba_block.dt_and_a"),
+                (ops, "ssd_scan", "mamba_block.ssd_scan"))
+
+
+@contextlib.contextmanager
+def _mamba_ranges():
+    """Wrap the functions a Mamba block calls by module-level name in
+    ``record_function`` ranges for as long as the context lasts. The block's
+    inline arithmetic (in_proj, the SiLUs, the skip, the gate, out_proj) and
+    its gated norm are in ``mamba_block`` and in no stage range."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in MAMBA_RANGES]
+
+    def ranged(fn, name):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    for (mod, attr, fn), (_, _, name) in zip(saved, MAMBA_RANGES):
+        setattr(mod, attr, ranged(fn, name))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _ranges_ms(prof) -> dict:
+    """Kernel ms inside each range of MAMBA_RANGES: the kernels that run
+    within the range's span on the device (so the ctypes-launched ones too);
+    a stage's time is also in "mamba_block"'s."""
+    names = {name for _, _, name in MAMBA_RANGES}
+    spans = [(e.name, e.time_range) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.name in names]
+    kernels = [(k.time_range.start, k.time_range.end) for k in _kernels(prof)]
+    out = defaultdict(float)
+    for name, span in spans:
+        out[name] += sum(end - start for start, end in kernels
+                         if start >= span.start and end <= span.end) / 1e3
+    return dict(out)
+
+
+def _by_source(prof, n: int = 12) -> dict:
+    """Device ms of the kernels PyTorch's own ops launched, by where they
+    ran (the innermost model function, ``models/<file>(<def line>):
+    <function>``, from the trace's Python events, else the innermost range
+    of MAMBA_RANGES), the op and its input shapes; largest first."""
+    ranges = {name for _, _, name in MAMBA_RANGES}
+    out = defaultdict(float)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        frame, q = "?", e.cpu_parent
+        while q is not None:
+            if "repro_torch/models/" in q.name:
+                frame = q.name.split("repro_torch/")[-1]
+                break
+            if frame == "?" and q.name in ranges:
+                frame = q.name
+            q = q.cpu_parent
+        for k in e.kernels:
+            out[f"{frame} {e.name} {e.input_shapes} -> {k.name[:60]}"] += k.duration / 1e3
+    return _top(out, 1, n)
 
 
 def _top(d, scale, n=None):
@@ -110,10 +191,12 @@ def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG) -> dict:
     step(batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    with torch.profiler.profile(activities=acts) as prof:
+    with _mamba_ranges(), torch.profiler.profile(activities=acts, record_shapes=True,
+                                                  with_stack=True) as prof:
         step(batch)
         torch.cuda.synchronize()
     step_us, step_family, step_kernel, step_n = _split(prof)
+    step_ranges, step_source = _ranges_ms(prof), _by_source(prof)
 
     prefill, decode = _Timed(model.prefill_into), _Timed(model.decode_step)
     model.prefill_into, model.decode_step = prefill, decode
@@ -142,6 +225,8 @@ def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG) -> dict:
         "prefill_step_kernels": step_n,
         "prefill_step_device_ms_by_family": _top(step_family, 1e3),
         "prefill_step_top_kernels_ms": _top(step_kernel, 1e3, 8),
+        "prefill_step_ranges_ms": step_ranges,
+        "prefill_step_by_source_ms": step_source,
     }
     print(json.dumps(report, indent=1))
     if busy_us == 0:

@@ -24,7 +24,7 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain, ssd_scan_tc_plain
 
 FLASH_CASES = [
     (128, 128, 4, 4, 64, True, 0),
@@ -95,6 +95,14 @@ SSD_CASES = [
     (1, 64, 2, 32, 1, 16), (2, 128, 4, 32, 2, 16), (1, 96, 4, 64, 1, 32),
     (2, 256, 8, 64, 2, 64), (2, 1, 4, 64, 1, 128), (1, 37, 4, 64, 2, 64),
     (2, 300, 4, 32, 1, 16), (1, 257, 32, 64, 1, 128),
+]
+# (B, S, H, P, G, N) of the bf16 SSD kernel: S at the edges of its 128-row
+# chunk (1, 127, 128, 129, 257), G = 2 and 4 with several heads a group,
+# every state dim, P = 32, 64, 128 (and 96: three 32-column tiles)
+SSD_TC_CASES = [
+    (2, 1, 4, 64, 1, 128), (1, 127, 8, 32, 2, 16), (1, 128, 8, 64, 2, 32),
+    (2, 129, 16, 128, 4, 64), (1, 257, 8, 64, 4, 128), (2, 257, 16, 32, 4, 32),
+    (1, 300, 8, 128, 2, 16), (2, 200, 8, 96, 2, 64),
 ]
 # tests/test_kernels.py's tolerances for the grouped GEMM
 GMM_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
@@ -437,10 +445,10 @@ def test_cuda_moe_gmm_refuses_a_call_that_needs_a_gradient():
     assert ops.launch_counts()["moe_gmm"] == 1
 
 
-def _ssd_inputs(B, S, H, P, G, N, dt, gen, strided=False):
-    """tests/test_kernels.py's distributions in dtype ``dt``; ``strided``:
-    xh, B_ and C_ as views into one (B, S, H·P + 2·G·N) tensor, as the model
-    passes them."""
+def _ssd_inputs(B, S, H, P, G, N, dt, gen, strided=False, a_range=(0.5, 2.0)):
+    """tests/test_kernels.py's distributions in dtype ``dt`` (a ~ -U[a_range]);
+    ``strided``: xh, B_ and C_ as views into one (B, S, H·P + 2·G·N) tensor,
+    as the model passes them."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     if strided:
@@ -452,7 +460,8 @@ def _ssd_inputs(B, S, H, P, G, N, dt, gen, strided=False):
         xh, b, c = (t.to(dt) for t in (randn(B, S, H, P), 0.5 * randn(B, S, G, N),
                                        0.5 * randn(B, S, G, N)))
     d = 1e-3 + 0.099 * torch.rand(B, S, H, generator=gen, device="cuda")
-    a = -(0.5 + 1.5 * torch.rand(H, generator=gen, device="cuda"))
+    lo, hi = a_range
+    a = -(lo + (hi - lo) * torch.rand(H, generator=gen, device="cuda"))
     return [xh, d.to(dt), a.to(dt), b, c]
 
 
@@ -505,3 +514,70 @@ def test_cuda_ssd_scan_refuses_bad_inputs_and_a_call_that_needs_a_gradient():
     torch.testing.assert_close(y, py, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(h, ph, rtol=2e-3, atol=2e-3)
     assert ops.launch_counts()["ssd_scan"] == 1
+
+
+def test_cuda_ssd_scan_tc_matches_plain_versions_on_the_card():
+    """The bf16 kernel at its chunk's edges, with groups of several heads,
+    every state dim and P = 32 .. 128, strided model views and strong decay
+    (a down to -16): y within 2e-2 and the final state within 2e-3 (abs and
+    rel) of ``ssd_scan_plain`` and of ``ssd_scan_tc_plain`` (its own
+    arithmetic); every launch on ``tc``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(5)
+    ops.reset_launch_counts()
+    n = 0
+    for case in SSD_TC_CASES:
+        for a_range in ((0.5, 2.0), (1.0, 16.0)):
+            ins = _ssd_inputs(*case, torch.bfloat16, gen, strided=True, a_range=a_range)
+            y, h = ssd_scan_cuda(*ins)
+            n += 1
+            for py, ph in (ssd_scan_plain(*ins), ssd_scan_tc_plain(*ins)):
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y.float(), py.float(), rtol=2e-2, atol=2e-2)
+                torch.testing.assert_close(h, ph, rtol=2e-3, atol=2e-3)
+    assert ops.ssd_scan_variant_counts() == {"tc": n, "fma": 0}
+    # f32 takes the FMA kernel
+    ins = _ssd_inputs(*SSD_TC_CASES[1], torch.float32, gen, strided=True)
+    y, h = ssd_scan_cuda(*ins)
+    py, ph = ssd_scan_plain(*ins)
+    torch.testing.assert_close(y, py, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(h, ph, rtol=2e-3, atol=2e-3)
+    assert ops.ssd_scan_variant_counts() == {"tc": n, "fma": 1}
+    # launch after launch on one stream: the kernel leaves its flags at 0
+    ins = _ssd_inputs(2, 300, 8, 64, 1, 128, torch.bfloat16, gen, strided=True)
+    first = ssd_scan_cuda(*ins)
+    for _ in range(5):
+        again = ssd_scan_cuda(*ins)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def test_cuda_ssd_scan_refuses_misaligned_bf16_views():
+    """The bf16 kernel reads xh, B_ and C_ through TMA: a base or a stride
+    that is not a multiple of 16 bytes raises, naming the tensor, and
+    launches nothing; f32 takes the FMA kernel, which has no such need."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(6)
+    xh, dt, a, b, c = _ssd_inputs(2, 64, 4, 64, 1, 64, torch.bfloat16, gen, strided=True)
+
+    def shifted(t):
+        return torch.randn(t.numel() + 1, device="cuda").to(t.dtype)[1:].view(t.shape)
+
+    odd = torch.randn(2, 64, 4 * 64 + 2 * 64 + 1, device="cuda").bfloat16()
+    xo, bo, co = torch.split(odd[..., :-1], [256, 64, 64], dim=-1)   # row stride 385
+    ops.reset_launch_counts()
+    for args, name in (((shifted(xh), dt, a, b, c), "xh"),
+                       ((xh, dt, a, shifted(b), c), "B_"),
+                       ((xh, dt, a, b, shifted(c)), "C_"),
+                       ((xo.reshape(2, 64, 4, 64), dt, a, bo.reshape(2, 64, 1, 64),
+                         co.reshape(2, 64, 1, 64)), "xh")):
+        with pytest.raises(ValueError, match=f"{name} .*16-byte aligned"):
+            ssd_scan_cuda(*args)
+    assert ops.launch_counts()["ssd_scan"] == 0
+    y, h = ssd_scan_cuda(*(t.float() for t in (xo.reshape(2, 64, 4, 64), dt, a,
+                                               bo.reshape(2, 64, 1, 64),
+                                               co.reshape(2, 64, 1, 64))))
+    torch.cuda.synchronize()
+    assert ops.ssd_scan_variant_counts() == {"tc": 0, "fma": 1}

@@ -1,7 +1,9 @@
 """The port's SSD scan and Mamba2 block against the JAX package's.
 
 ``ssd_scan_plain`` (what the CPU runs, and what ``chip_smoke.py`` holds the
-CUDA kernel to on the card) against the Pallas kernel ``ssd_scan_pallas`` in
+CUDA kernels to on the card) and ``ssd_scan_tc_plain`` (the bf16 kernel's
+arithmetic: its chunking, M and h_in rounded to bf16, the state from a
+bf16 hi + lo split) against the Pallas kernel ``ssd_scan_pallas`` in
 interpret mode and the sequential oracle ``ref.ssd_scan_ref``, final state
 included; ``mamba_block`` against JAX's with ``use_pallas=True`` and
 ``mamba_decode_step`` against JAX's, on the same numpy-seeded inputs.
@@ -24,7 +26,8 @@ from repro.models import build_model as jax_build_model
 from repro.models import mamba2 as jm2
 from repro_torch.configs import SMOKE_ARCHS
 from repro_torch.convert import params_from_numpy, tensor_from_numpy
-from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.kernels import ssd_scan as port_ssd
+from repro_torch.kernels.ssd_scan import ssd_scan_plain, ssd_scan_tc_plain
 from repro_torch.models import mamba2 as tm2
 
 RNG = np.random.default_rng(11)
@@ -100,8 +103,9 @@ def test_ssd_scan_plain_takes_ragged_lengths(S):
 
 
 def test_ssd_scan_plain_is_the_same_under_any_chunk():
-    """The SSD is exact under any chunking (the CUDA kernel tiles by 64 rows
-    whatever the config's chunk): chunks of 1, 7, 64 and 256 agree in f64."""
+    """The SSD is exact under any chunking (the CUDA kernels keep their own,
+    128-row chunks in bf16 and 64-row tiles in f32, whatever the config's
+    chunk): chunks of 1, 7, 64 and 256 agree in f64."""
     pairs = _ssd_inputs(2, 150, 4, 32, 1, 16, "float32")
     ts = [t.double() for _, t in pairs]
     y0, h0 = ssd_scan_plain(*ts, chunk=256)
@@ -109,6 +113,68 @@ def test_ssd_scan_plain_is_the_same_under_any_chunk():
         y, h = ssd_scan_plain(*ts, chunk=chunk)
         torch.testing.assert_close(y, y0, rtol=1e-10, atol=1e-10)
         torch.testing.assert_close(h, h0, rtol=1e-10, atol=1e-10)
+
+
+# the tc kernel's chunk edges: S in {1, Q - 1, Q, Q + 1, 2Q + 1}
+TC_LENGTHS = [1, port_ssd.TC_CHUNK - 1, port_ssd.TC_CHUNK, port_ssd.TC_CHUNK + 1,
+              2 * port_ssd.TC_CHUNK + 1]
+
+
+@pytest.mark.parametrize("S", TC_LENGTHS)
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_ssd_scan_tc_plain_matches_plain_pallas_and_reference(S, G, name):
+    """The tc kernel's decomposition (C·Bᵀ once per group, 4 heads so that
+    R = 4 or 2 share it) at the chunk's edges: y against ``ssd_scan_plain``,
+    the Pallas kernel (interpret mode) and the oracle, the final state
+    against ``ssd_scan_plain``'s and the oracle's."""
+    pairs = _ssd_inputs(2, S, 4, 32, G, 16, name)
+    js, ts = [j for j, _ in pairs], [t for _, t in pairs]
+    y, h = ssd_scan_tc_plain(*ts)
+    assert y.shape == (2, S, 4, 32) and y.dtype == ts[0].dtype
+    assert h.shape == (2, 4, 32, 16) and h.dtype == torch.float32
+    py, ph = ssd_scan_plain(*ts)
+    np.testing.assert_allclose(_np(y), _np(py), **_tol(name))
+    np.testing.assert_allclose(_np(h), _np(ph), **_tol(name))
+    want_pallas, _ = ssd_scan_pallas(*js, chunk=port_ssd.TC_CHUNK, interpret=True)
+    want_y, want_h = ref.ssd_scan_ref(*js)
+    np.testing.assert_allclose(_np(y), _np(want_pallas), **_tol(name))
+    np.testing.assert_allclose(_np(y), _np(want_y), **_tol(name))
+    np.testing.assert_allclose(_np(h), _np(want_h), **_tol(name))
+
+
+@pytest.mark.parametrize("N", port_ssd.STATE_DIMS)
+def test_ssd_scan_variant_picker(N):
+    """bf16 takes the tensor-core kernel at every shape the wrapper takes
+    (every state dim, any head dim that is a multiple of 32), f32 the FMA
+    kernel; no bf16 call is routed to ``fma``. Another shape raises."""
+    for P in (32, 64, 96, 128, 160):
+        assert port_ssd._variant(torch.bfloat16, N, P) == "tc"
+        assert port_ssd._variant(torch.float32, N, P) == "fma"
+    for P in (16, 48, 80):
+        with pytest.raises(ValueError, match="head dim"):
+            port_ssd._variant(torch.bfloat16, N, P)
+    with pytest.raises(ValueError, match="state dim"):
+        port_ssd._variant(torch.bfloat16, N + 8, 64)
+    assert set(port_ssd.VARIANTS) == {"tc", "fma"}
+
+
+# (B, S, H, G, P, want): the main paths' shapes at an H100's 132 SMs, then
+# G > 1 and one past the tc kernel's largest block of heads
+HEADS_CASES = [(4, 1024, 32, 1, 64, 2), (4, 1024, 80, 1, 64, 5), (1, 511, 32, 1, 64, 1),
+               (2, 300, 16, 4, 64, 1), (8, 4096, 64, 2, 64, 8), (4, 1024, 36, 1, 64, 2)]
+
+
+@pytest.mark.parametrize("B,S,H,G,P,want", HEADS_CASES)
+def test_ssd_tc_heads_per_block(B, S, H, G, P, want):
+    """A tc block takes heads of one group only (a divisor of H/G), at most
+    TC_MAX_HEADS, and no more than keeps the launch at
+    TC_MIN_BLOCKS_PER_SM blocks an SM."""
+    got = port_ssd._heads_per_block(B, S, H, G, P, 132)
+    assert got == want
+    assert (H // G) % got == 0 and 1 <= got <= port_ssd.TC_MAX_HEADS
+    chunks = -(-S // port_ssd.TC_CHUNK)
+    assert got == 1 or B * chunks * (H // got) >= port_ssd.TC_MIN_BLOCKS_PER_SM * 132
 
 
 def _layer(name, seed=0):
