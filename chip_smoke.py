@@ -34,7 +34,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                function where there is one (a yardstick only: the port never
                calls it; no PyTorch call computes an SSD scan), and
                the kernel's call time through its wrapper. The backward
-               kernels take O and lse from the forward kernel.
+               kernels take O and lse from the forward kernel. The
+               grouped GEMM's backward (dX = dy·wᵀ, dW = bufᵀ·dy) in f32
+               and bf16 at C = 1, 8, 17, 40, 320, with D or F no multiple
+               of 8 and a misaligned base (the wmma tile), its launches by
+               variant checked, timed at the MoE train microbatch (gate/up
+               and down, C = 320) beside ``torch.bmm``; the SSD backward
+               (dxh, ddt, da, dB, dC) in f32 and bf16 at ragged S (1 to
+               300, the 64-row tile's edges), G = 1, 2, 4, every state
+               dim, P = 32, 64, 128, strided views, strong decay, dh_final
+               zero and not, each output within TOL relative and of its
+               largest value and per 64-row tile, timed at mamba2-370m's
+               and zamba2-2.7b's train microbatch.
   4. serve   — full-width qwen1.5-0.5b (bf16, random weights from seed 0):
                ``make_prefill_step`` at B=4, S=1024, then 16 requests through
                ``ContinuousBatcher(batch_slots=8, max_len=2048)`` in
@@ -54,7 +65,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                counts remat over 24 layers and 2 microbatches gives
                (flash_fwd 96, flash_bwd_dq 48, flash_bwd_dkv 48, rmsnorm 194),
                every forward and backward attention launch on the
-               tensor-core variants.
+               tensor-core variants, and no MoE or SSM kernel (forward or
+               backward) launched.
   6. serve SSM — after the earlier phases' memory is given back, phase 4 on
                full-width, full-depth mamba2-370m (48 layers, 419.8 M
                parameters), then on zamba2-2.7b (54 Mamba layers and one
@@ -83,7 +95,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                256, 12.77 B parameters in bf16 from seed 0): per prefill and
                per decode round flash_fwd 48 and rmsnorm 97 launches; the
                cross-slot guard.
-  9. report  — the card's nvidia-smi line, one JSON line with every kernel's
+  9. train MoE, SSM, hybrid — after the earlier phases' memory is given
+               back, phase 5 on qwen3-moe-30b-a3b (full width, 4 of 48
+               layers: 3.11 B parameters, ~50 GB of train state at 16
+               bytes a parameter; the peak must stay within 72 GB), then
+               full-width, full-depth mamba2-370m and zamba2-2.7b (the
+               peak within 75 GB), each through
+               ``profile_train.setup(config=...)``. Per step, from remat
+               over L layers and 2 microbatches: MoE moe_gmm 12·L,
+               moe_gmm_dx 6·L, moe_gmm_dw 6·L and the flash kernels as the
+               dense step; mamba2 ssd_scan 4·48, ssd_scan_bwd 2·48, no
+               attention; zamba2 as mamba2 over its 54 Mamba layers plus
+               the shared block's 9 flash launches each way. Every bf16
+               forward gmm launch on ``tc_prefill``, every SSD forward on
+               ``tc``, every backward on its bf16 kernel; step time and
+               peak memory printed. Before each, a gradient guard: one
+               microbatch's loss gradients through the kernels against the
+               same through the plain versions of the grouped GEMM and the
+               SSD scan on the card, within GRAD_F32_TOL of their norm in
+               f32 and, in bf16, no farther from the f32 result than the
+               plain versions' plus GUARD_TOL.
+ 10. report  — the card's nvidia-smi line, one JSON line with every kernel's
                launches, error, times and bound, then
                ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -107,6 +139,7 @@ PEAK_F32_FLOPS = 67e12
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}        # tests/test_kernels.py's
 LSE_TOL = 2e-3                                    # f32 statistics either way
 GUARD_TOL = 2e-2                                  # relative to max |logit|
+GRAD_F32_TOL = 1e-3                               # f32 gradients, kernels vs plain
 TILE_REL_TOL = 1e-2                               # backward, per 64-row tile
 
 # the JAX test cases of tests/test_kernels.py (B = 2), then rows of a d
@@ -176,9 +209,27 @@ SSD_A_RANGES = ((0.5, 2.0), (1.0, 16.0))
 # the config chunk the SSD's operation count is reckoned at, whatever the
 # kernel's own tile
 SSD_CHUNK = 256
+# the grouped GEMM's backward (dX, dW): tokens per expert at qwen3-moe's
+# widths (one slot, a decode round of 8, past the 16-row tile, a 511-token
+# admission, a train microbatch), then (E, C, D, F, buf/dy offset, w
+# offset) in bf16 where TMA cannot read, so the wmma tile serves: D, then F
+# no multiple of 8, a base one element past a 16-byte boundary
+GMM_BWD_C = (1, 8, 17, 40, 320)
+GMM_BWD_WMMA_CASES = [(3, 100, 200, 76, 0, 0), (4, 40, 2044, 768, 0, 0),
+                      (4, 17, 768, 2048, 1, 0), (4, 40, 2048, 768, 0, 1)]
+# the SSD backward's (B, S, H, P, G, N): S ragged and at its 64-row tile's
+# edges (1, 37, 127, 128, 129, 257, 300), G = 1, 2, 4 with several heads a
+# group, every state dim, P = 32, 64, 128; each in f32 and bf16, strided
+# xBC views, the JAX tests' a range and strong decay in turn, dh_final
+# zero (None) and not in turn
+SSD_BWD_CASES = [(2, 1, 4, 64, 1, 128), (1, 37, 8, 32, 2, 16), (2, 127, 4, 64, 1, 32),
+                 (1, 128, 8, 128, 4, 64), (2, 129, 8, 32, 2, 128), (1, 257, 16, 64, 4, 16),
+                 (1, 300, 8, 128, 2, 32), (2, 300, 4, 64, 1, 64)]
 GUARD_PROMPT = 300                                # > one SSD chunk
 TRAIN_STEPS = 4
 SSM_CONFIGS = ("mamba2-370m", "zamba2-2.7b")
+# trained after the serving phases, each at its profile_train.train_depth
+TRAIN_CONFIGS = ("qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-2.7b")
 MOE_CONFIG = "qwen3-moe-30b-a3b"
 GEMMA3_CONFIG = "gemma3-12b"
 # the backward's timed shapes (B, S = T, Hq, Hkv, D, window), all causal:
@@ -212,9 +263,12 @@ def compare_tiles(name, got, want, tile=64) -> float:
     ||got - want|| <= TILE_REL_TOL * ||want||; → the worst ratio. Scale-aware
     where the elementwise floor of ``compare`` is not: causal gradients shrink
     along the sequence, so a late tile gone wrong stands out here."""
+    import torch.nn.functional as F
     B, S, H, D = want.shape
-    g, w = (t.float().reshape(B, S // tile, tile, H, D) for t in (got, want))
-    ratio = float(((g - w).norm(dim=(2, 4)) / w.norm(dim=(2, 4))).max())
+    pad = -S % tile        # zero rows add nothing to either norm
+    g, w = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(B, -1, tile, H, D)
+            for t in (got, want))
+    ratio = float(((g - w).norm(dim=(2, 4)) / w.norm(dim=(2, 4)).clamp(min=1e-30)).max())
     if not ratio <= TILE_REL_TOL:
         fail(f"{name}: kernel disagrees with its plain version in a {tile}-row "
              f"tile (relative error {ratio:.3g}, tol {TILE_REL_TOL})")
@@ -270,7 +324,8 @@ def _kernel_label(mangled: str) -> str:
             name = mangled[run.end():run.end() + n]
             if len(name) == n and name.endswith("_kernel") and re.fullmatch(r"[a-z0-9_]+", name):
                 head = mangled[run.end() + n:].split("EE")[0]
-                args = re.findall(r"Li(\d+)", head)
+                args = [v if t == "i" else ("false", "true")[int(v)]
+                        for t, v in re.findall(r"L([ib])(\d+)", head)]
                 args += ["bf16"] if "bfloat16" in head else ["f32"] if head.startswith("If") else []
                 return f"{name}<{', '.join(args)}>" if args else name
     return mangled
@@ -649,6 +704,171 @@ def ssd_phase(gen):
     return worst, timed
 
 
+def gmm_bwd_phase(gen):
+    """The grouped GEMM's dX and dW kernels against ``moe_gmm_bwd_plain``,
+    f32 and bf16: GMM_BWD_C at qwen3-moe's widths (gate/up), D/F of no
+    tile's width and a misaligned base (GMM_BWD_WMMA_CASES, bf16), then the
+    train microbatch's gate/up and down at C = 320, also held per 64-row
+    tile and timed (beside ``torch.bmm`` of the same product). Tolerance:
+    TOL relative and TOL of the largest |value| (the products sum F or C
+    terms in another order). Every launch on the variant ``_bwd_variant``
+    names: bf16 on ``tc`` but GMM_BWD_WMMA_CASES, on ``wmma``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gmm import (
+        _bwd_variant, moe_gmm_bwd_plain, moe_gmm_dw_cuda, moe_gmm_dx_cuda)
+    from repro_torch.launch.kernel_times import (
+        MOE_D, MOE_E, MOE_F, MOE_TRAIN_C, device_ms, wrapper_ms)
+    worst = {"moe_gmm_dx": 0.0, "moe_gmm_dw": 0.0}
+    want = {name: {"tc": 0, "wmma": 0, "fma": 0} for name in worst}
+
+    def check(name, buf, w, dy, tma=True, tiles=None):
+        """dX reads dy and w, dW buf and dy: each product's variant goes by
+        its own operands' bases (a misaligned w leaves dW on ``tc``)."""
+        dt = str(buf.dtype)[6:]
+        for kern, operands in (("moe_gmm_dx", (dy, w)), ("moe_gmm_dw", (buf, dy))):
+            variant = _bwd_variant(buf.dtype, buf.shape[2], w.shape[2],
+                                   all(t.data_ptr() % 16 == 0 for t in operands))
+            if buf.dtype == torch.bfloat16 and tma and variant != "tc":
+                fail(f"{name}: bf16 {kern} would take {variant}")
+            want[kern][variant] += 1
+        got = (moe_gmm_dx_cuda(dy, w), moe_gmm_dw_cuda(buf, dy))
+        for kern, g, p in zip(worst, got, moe_gmm_bwd_plain(buf, w, dy)):
+            tol = TOL[dt] * float(p.float().abs().max())
+            worst[kern] = max(worst[kern], compare(f"{name} {kern}", g, p, tol, TOL[dt]))
+            if tiles is not None:
+                tiles[kern] = compare_tiles(f"{name} {kern}", g[None], p[None])
+
+    def randn(*shape, std=1.0):
+        return std * torch.randn(shape, generator=gen, device="cuda")
+
+    ops.reset_launch_counts()
+    for C in GMM_BWD_C:
+        for dt in (torch.float32, torch.bfloat16):
+            check(f"moe_gmm bwd C={C} {dt}", randn(MOE_E, C, MOE_D).to(dt),
+                  randn(MOE_E, MOE_D, MOE_F, std=MOE_D ** -0.5).to(dt),
+                  randn(MOE_E, C, MOE_F).to(dt))
+    for (E, C, D, F, x_off, w_off) in GMM_BWD_WMMA_CASES:
+        buf = randn(x_off + E * C * D).bfloat16()[x_off:].view(E, C, D)
+        dy = randn(x_off + E * C * F).bfloat16()[x_off:].view(E, C, F)
+        w = randn(w_off + E * D * F, std=D ** -0.5).bfloat16()[w_off:].view(E, D, F)
+        check(f"moe_gmm bwd wmma {(E, C, D, F)} offsets {(x_off, w_off)}", buf, w, dy,
+              tma=False)
+    inputs, tile_rel = {}, {}
+    for part, (D, F) in (("train_gate_up", (MOE_D, MOE_F)), ("train_down", (MOE_F, MOE_D))):
+        E, C = MOE_E, MOE_TRAIN_C
+        inputs[part] = (randn(E, C, D).bfloat16(), randn(E, D, F, std=D ** -0.5).bfloat16(),
+                        randn(E, C, F).bfloat16())
+        tile_rel[part] = {}
+        check(f"moe_gmm bwd {part}", *inputs[part], tiles=tile_rel[part])
+    got = ops.moe_gmm_bwd_variant_counts()
+    # every GMM_BWD_WMMA_CASES case puts dX on wmma; dW all but the one
+    # whose only misaligned operand is w
+    if got != want or (want["moe_gmm_dx"]["wmma"], want["moe_gmm_dw"]["wmma"]) != \
+            (len(GMM_BWD_WMMA_CASES), len(GMM_BWD_WMMA_CASES) - 1):
+        fail(f"moe_gmm backward launches by variant {got}, expected {want}")
+    print(f"moe_gmm backward: checked cases by variant {want}")
+    timed = {"moe_gmm_dx": {}, "moe_gmm_dw": {}}
+    for part, (buf, w, dy) in inputs.items():
+        E, C, D = buf.shape
+        F = w.shape[2]
+        plain_ms = device_ms(lambda: moe_gmm_bwd_plain(buf, w, dy))
+        calls = {  # (call, torch.bmm of the same product, output shape)
+            "moe_gmm_dx": (lambda: moe_gmm_dx_cuda(dy, w),
+                           lambda: torch.bmm(dy, w.transpose(1, 2)), f"dy ({E}, {C}, {F}) · "
+                           f"w ({E}, {D}, {F})ᵀ -> ({E}, {C}, {D}) bf16"),
+            "moe_gmm_dw": (lambda: moe_gmm_dw_cuda(buf, dy),
+                           lambda: torch.bmm(buf.transpose(1, 2), dy), f"buf ({E}, {C}, "
+                           f"{D})ᵀ · dy ({E}, {C}, {F}) -> ({E}, {D}, {F}) bf16")}
+        for name, (call, library, shape) in calls.items():
+            # each of the two inputs and the output once; 2 operations per
+            # multiply-add of the E·C·D·F product
+            b_ms, b_by = bound((E * C * D + E * D * F + E * C * F) * 2, 2.0 * E * C * D * F,
+                               PEAK_BF16_FLOPS)
+            timed[name][part] = {
+                "shape": shape, "variant": "tc", "max_abs_err": worst[name],
+                "max_tile_rel_err": tile_rel[part][name], "ms": device_ms(call),
+                "wrapper_ms": wrapper_ms(call), "plain_ms": plain_ms,
+                "plain_covers": "dX and dW together", "library_ms": device_ms(library),
+                "library": "torch.bmm", "bound_ms": b_ms, "bound_by": b_by}
+            print(f"{name} {part}: {json.dumps(timed[name][part])}")
+    return worst, timed
+
+
+def ssd_bwd_phase(gen):
+    """The SSD backward kernel against ``ssd_scan_bwd_plain``: SSD_BWD_CASES
+    in f32 and bf16 (strided views, both a ranges, dh_final zero and not),
+    every output held to TOL relative and TOL of its largest |value| (dB,
+    dC, ddt and da are f32 atomic sums over a group's heads, the P tiles,
+    batch and sequence: in no fixed order) and dxh, dB, dC per 64-row tile
+    of each (batch, head or group) within TILE_REL_TOL; launches by dtype
+    checked. Then the train microbatches of mamba2-370m and zamba2-2.7b
+    (bf16, strong decay, dh_final None as in training), also timed."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_bwd_plain
+    from repro_torch.launch.kernel_times import SSD_TRAIN_PATHS, device_ms, wrapper_ms
+    names = ("dxh", "ddt", "da", "dB", "dC")
+
+    def check(name, ins, dy, dh, tol):
+        got = ssd_scan_bwd_cuda(*ins, dy, dh)
+        want = ssd_scan_bwd_plain(*ins, dy, dh)
+        err, tile = 0.0, 0.0
+        for part, g, w in zip(names, got, want):
+            # at least 1e-3: at S = 1 da is exactly 0 and the kernel's
+            # cancelling f32 sums leave ~1e-9
+            scale = max(float(w.float().abs().max()), 1e-3)
+            err = max(err, compare(f"{name} {part}", g, w, tol * scale, tol) / scale)
+            if part in ("dxh", "dB", "dC"):
+                tile = max(tile, compare_tiles(f"{name} {part}", g, w))
+        return err, tile
+
+    worst, worst_tile = 0.0, 0.0
+    ops.reset_launch_counts()
+    for i, case in enumerate(SSD_BWD_CASES):
+        B, S, H, P, G, N = case
+        for dt in (torch.float32, torch.bfloat16):
+            ins = _ssd_inputs(gen, *case, dt, a_range=SSD_A_RANGES[i % 2])
+            dy = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dt)
+            dh = None if i % 3 == 0 else torch.randn(B, H, P, N, generator=gen, device="cuda")
+            err, tile = check(f"ssd_scan_bwd {case} {dt} dh_final "
+                              f"{'zero' if dh is None else 'random'}", ins, dy, dh,
+                              TOL[str(dt)[6:]])
+            worst, worst_tile = max(worst, err), max(worst_tile, tile)
+    n = len(SSD_BWD_CASES)
+    if ops.ssd_scan_bwd_variant_counts() != {"bf16": n, "f32": n}:
+        fail(f"ssd_scan_bwd launches by dtype {ops.ssd_scan_bwd_variant_counts()}, "
+             f"expected {n} each")
+    print(f"ssd_scan_bwd: {2 * n} cases within tolerance; worst error {worst:.3g} of the "
+          f"largest value, worst 64-row tile {worst_tile:.3g} relative")
+    timed = {}
+    for path, (B, S, H, P, G, N) in SSD_TRAIN_PATHS.items():
+        ins = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16, a_range=(1.0, 16.0))
+        dy = torch.randn(B, S, H, P, generator=gen, device="cuda").bfloat16()
+        err, tile = check(f"ssd_scan_bwd {path}", ins, dy, None, TOL["bfloat16"])
+        worst, worst_tile = max(worst, err), max(worst_tile, tile)
+        # bytes: x, dy, dt, B, C read once; dx, ddt, dB, dC, da written once
+        # (bf16); operations of the chunked backward at the bf16 forward's
+        # chunk Q = 128, the Q x Q products counted over their causal half:
+        # C·Bᵀ, dy·xᵀ, Mᵀ·dy, W·B, Wᵀ·C ((Q+1)·(3N+2P) a row), and five
+        # (Q x P)·(P x N)-sized products a row (B·gᵀ, dy·h_in, x·g, the g
+        # update, the recomputed state: 10·P·N)
+        rows = B * S * H
+        nbytes = (2 * (2 * rows * P + B * S * H + 2 * B * S * G * N) + H) * 2
+        flops = float(rows) * ((128 + 1) * (3 * N + 2 * P) + 10 * P * N)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        call = lambda ins=ins, dy=dy: ssd_scan_bwd_cuda(*ins, dy)   # noqa: E731
+        timed[path] = {
+            "shape": f"B={B} S={S} H={H} P={P} G={G} N={N} bf16, strided xh/B/C, "
+                     f"dh_final none", "max_rel_err": err, "max_tile_rel_err": tile,
+            "ms": device_ms(call, kernel="ssd_scan_bwd_kernel"),
+            "ms_with_casts_and_zeroing": device_ms(call), "wrapper_ms": wrapper_ms(call),
+            "plain_ms": device_ms(lambda: ssd_scan_bwd_plain(*ins, dy), iters=3),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"ssd_scan_bwd {path}: {json.dumps(timed[path])}")
+    return worst, timed
+
+
 def expected_launches(cfg):
     """Launches per prefill and per decode round of the serving path: → two
     dicts over the kernels on the path."""
@@ -942,16 +1162,124 @@ def flash_bwd_phase(gen):
     return worst, timed
 
 
-def train_phase():
+def expected_train_launches(cfg, n_micro):
+    """Launches per train step under remat "block": per microbatch every
+    layer's forward kernels run twice (once recomputed) and its backward
+    kernels once; the final norm once (RMSNorm's backward is plain)."""
+    L = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):   # per Mamba layer: the SSD, 2 norms
+        g = L // cfg.hybrid.attn_every if cfg.family == "hybrid" else 0
+        each = {"ssd_scan": 2 * L, "ssd_scan_bwd": L, "rmsnorm": 2 * (2 * L + 2 * g) + 1}
+        if g:                             # the shared block: 1 attention, 2 norms
+            each.update(flash_fwd=2 * g, flash_bwd_dq=g, flash_bwd_dkv=g)
+    else:                                 # attention and 2 norms a layer
+        each = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "rmsnorm": 4 * L + 1}
+        if cfg.family == "moe":           # and three expert GEMMs
+            each.update(moe_gmm=6 * L, moe_gmm_dx=3 * L, moe_gmm_dw=3 * L)
+    return {name: n_micro * n for name, n in each.items()}
+
+
+def grad_guard(config):
+    """One microbatch's loss gradients, every leaf, at ``config``'s train
+    width and depth: through the kernels against the same with the grouped
+    GEMM and the SSD scan (forward and backward) on their plain versions on
+    the card, measured as the norm of the difference over the norm of the
+    plain f32 gradients. In f32 (the same weights cast up) the two differ
+    only by the kernels' summation order: within GRAD_F32_TOL. In bf16 both
+    sit some 10 % from the f32 result after 48 Mamba layers (rounding
+    through the layers, as the state guard's bf16 logits): the kernels'
+    must be no farther from it than the plain versions' plus GUARD_TOL."""
+    import gc
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import profile_train
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg, _ = profile_train.train_depth(config)
+    shape, tcfg = profile_train.SHAPE, profile_train.train_config(config)
+    m16 = build_model(cfg, "cuda")
+    p16 = m16.init(torch.Generator("cuda").manual_seed(0))
+    m32 = build_model(cfg.scaled(param_dtype="float32"), "cuda")
+    p32 = tree_map(lambda t: t.float(), p16)
+    n_micro = shape.global_batch // tcfg.microbatch_per_device
+    batch = TokenPipeline(DataConfig(cfg.vocab, shape.seq_len, shape.global_batch,
+                                     seed=0)).batch(0)
+    mb = {k: torch.from_numpy(v).to("cuda")[0::n_micro] for k, v in batch.items()}
+    on_cuda = ops._on_cuda
+    # the kernels the path swaps: the grouped GEMM's or the SSD scan's, both ways
+    swapped = ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw") if cfg.family == "moe" else \
+        ("ssd_scan", "ssd_scan_bwd")
+
+    def plain_on_card(t, name):
+        return name not in ("moe_gmm", "moe_gmm_bwd", "ssd_scan", "ssd_scan_bwd") and \
+            on_cuda(t, name)
+
+    def grads(model, params, plain):
+        """The gradients, having checked that the kernel path launched each
+        swapped kernel and the plain path none."""
+        ops._on_cuda = plain_on_card if plain else on_cuda
+        ops.reset_launch_counts()
+        try:
+            leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+            loss, _ = model.loss(leaves, mb, tcfg.remat)
+            out = torch.autograd.grad(loss, tree_leaves(leaves))
+        finally:
+            ops._on_cuda = on_cuda
+        launched = {name: ops.launch_counts()[name] for name in swapped}
+        if any(bool(n) == plain for n in launched.values()):
+            fail(f"grad guard {config}: the {'plain' if plain else 'kernel'} path "
+                 f"launched {launched}")
+        return out
+
+    ref = [g.float() for g in grads(m32, p32, True)]
+    ref_sq = sum(float(g.square().sum()) for g in ref)
+
+    def rel(gs):
+        return (sum(float((g.float() - r).square().sum()) for g, r in zip(gs, ref))
+                / ref_sq) ** 0.5
+
+    out = {"f32_kernels": rel(grads(m32, p32, False))}
+    out["bf16_plain"] = rel(grads(m16, p16, True))
+    out["bf16_kernels"] = rel(grads(m16, p16, False))
+    del ref, m16, p16, m32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"grad guard {config} (one microbatch, {cfg.n_layers} layers; gradients' "
+          f"distance from the f32 plain versions', relative): {json.dumps(out)}")
+    if not out["f32_kernels"] <= GRAD_F32_TOL:
+        fail(f"grad guard {config}: f32 gradients through the kernels are "
+             f"{out['f32_kernels']:.3g} from the plain versions' (tol {GRAD_F32_TOL})")
+    if not out["bf16_kernels"] <= out["bf16_plain"] + GUARD_TOL:
+        fail(f"grad guard {config}: bf16 gradients through the kernels are "
+             f"{out['bf16_kernels']:.3g} from the f32 result, the plain versions' "
+             f"{out['bf16_plain']:.3g}")
+    return out
+
+
+def train_phase(config="qwen1.5-0.5b"):
+    """``config`` trained TRAIN_STEPS steps on one batch through
+    ``profile_train.setup`` at the depth ``train_depth`` reckons: finite
+    losses and grad norms, the last loss below the first, every kernel's
+    launches split into equal steps of the counts remat gives, the rest
+    launching nothing, and every bf16 launch on the tensor-core variants."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import profile_train
 
-    model, step, state, batch = profile_train.setup(seed=0)
-    cfg, shape = model.cfg, profile_train.SHAPE
-    print(f"train: {cfg.name} full width, {model.n_params() / 1e6:.1f}M params, "
-          f"B={shape.global_batch} S={shape.seq_len}, {profile_train.TCFG}")
+    cfg, reckoning = profile_train.train_depth(config)
+    guard_rel = grad_guard(config) if cfg.family != "dense" else None
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, step, state, batch = profile_train.setup(seed=0, config=config)
+    torch.cuda.synchronize()
+    shape, tcfg = profile_train.SHAPE, profile_train.train_config(config)
+    print(f"train: {cfg.name} full width, {reckoning['layers']} layers, "
+          f"{model.n_params() / 1e6:.1f}M params, B={shape.global_batch} "
+          f"S={shape.seq_len}, {tcfg}; set-up "
+          f"{time.perf_counter() - t0:.1f} s; depth reckoning {json.dumps(reckoning)}")
 
     # ---- the main path: counts from 0, read right after ----
     ops.reset_launch_counts()
@@ -965,18 +1293,26 @@ def train_phase():
         gnorms.append(float(metrics["grad_norm"]))
         counts.append(ops.launch_counts())
     launches = ops.launch_counts()
-    variants = ops.flash_variant_counts()
-    bwd_variants = ops.flash_bwd_variant_counts()
+    variants = {"flash_fwd": ops.flash_variant_counts(), **ops.flash_bwd_variant_counts(),
+                "moe_gmm": ops.moe_gmm_variant_counts(), **ops.moe_gmm_bwd_variant_counts(),
+                "ssd_scan": ops.ssd_scan_variant_counts(),
+                "ssd_scan_bwd": ops.ssd_scan_bwd_variant_counts()}
     # ---- end of the main path ----
 
-    for name in ("moe_gmm", "ssd_scan"):                 # not on the dense train path
+    n_micro = shape.global_batch // tcfg.microbatch_per_device
+    expected = expected_train_launches(cfg, n_micro)
+    for name in [k for k in launches if k not in expected]:   # not on this path
         if launches.pop(name) + sum(c.pop(name) for c in counts):
-            fail(f"train: {name} launched while training the dense {cfg.name}")
+            fail(f"train: {name} launched while training {cfg.name}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in losses + gnorms):
-        fail(f"train: non-finite loss or grad norm: {losses} {gnorms}")
+        fail(f"train {cfg.name}: non-finite loss or grad norm: {losses} {gnorms}")
     if not losses[-1] < losses[0]:
-        fail(f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        fail(f"train {cfg.name}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    limit = reckoning["peak_limit_gb"]
+    if limit is not None and peak_gb > limit:
+        fail(f"train {cfg.name}: peak memory {peak_gb:.3f} GB over the {limit} GB its "
+             f"depth was reckoned for")
     per_step = {}
     for name, n in launches.items():
         steps = [counts[0][name]] + [counts[i][name] - counts[i - 1][name]
@@ -985,36 +1321,31 @@ def train_phase():
             fail(f"kernel {name}: train launches {steps} do not split into "
                  f"{TRAIN_STEPS} equal steps")
         per_step[name] = steps[0]
-    # remat over every layer: per microbatch each layer's attention runs
-    # forward twice (once recomputed) and backward once; rmsnorm runs on the
-    # 2 norms of each layer twice, plus the final norm once
-    L, n_micro = cfg.n_layers, shape.global_batch // profile_train.TCFG.microbatch_per_device
-    expected = {"flash_fwd": n_micro * 2 * L, "flash_bwd_dq": n_micro * L,
-                "flash_bwd_dkv": n_micro * L, "rmsnorm": n_micro * (2 * L + 1 + 2 * L)}
     if per_step != expected:
-        fail(f"train launches per step {per_step}, expected {expected}")
-    # bf16 at S = 1024: every forward on the tensor-core kernel
-    want_variants = {"tc_prefill": launches["flash_fwd"], "split_decode": 0, "fma": 0}
-    if variants != want_variants:
-        fail(f"train: flash variants {variants}, expected {want_variants}")
-    # and every backward launch on the tensor-core kernels
-    want_bwd = {name: {"tc": launches[name], "fma": 0}
-                for name in ("flash_bwd_dq", "flash_bwd_dkv")}
-    if bwd_variants != want_bwd:
-        fail(f"train: flash backward variants {bwd_variants}, expected {want_bwd}")
-    launches["flash_fwd_variants"] = variants
-    launches["flash_bwd_variants"] = bwd_variants
+        fail(f"train {cfg.name}: launches per step {per_step}, expected {expected}")
+    # bf16 at S = 1024 (C = 320 tokens an expert): every forward on the
+    # tensor-core prefill variants, every backward on its tensor-core (or,
+    # for the SSD, bf16) kernel; the others' variants launch nothing
+    on = {"flash_fwd": "tc_prefill", "flash_bwd_dq": "tc", "flash_bwd_dkv": "tc",
+          "moe_gmm": "tc_prefill", "moe_gmm_dx": "tc", "moe_gmm_dw": "tc",
+          "ssd_scan": "tc", "ssd_scan_bwd": "bf16"}
+    for name, by_variant in variants.items():
+        want = {v: (launches.get(name, 0) if v == on[name] else 0) for v in by_variant}
+        if by_variant != want:
+            fail(f"train {cfg.name}: {name} launches by variant {by_variant}, expected {want}")
+    launches["by_variant"] = {name: v for name, v in variants.items() if name in expected}
     timed_ms = step_ms[1:]                       # after one warm-up step
     mean_ms = sum(timed_ms) / len(timed_ms)
     tokens = shape.global_batch * shape.seq_len
-    print(f"train losses {losses}, grad norms {gnorms}")
-    print(f"train step ms (host clock, synchronised; first is warm-up) {step_ms}: "
-          f"mean {mean_ms:.3f} ms after warm-up, {tokens / mean_ms * 1e3:.1f} trained "
-          f"tokens/s; peak memory {peak_gb:.3f} GB")
+    print(f"train {cfg.name} losses {losses}, grad norms {gnorms}")
+    print(f"train {cfg.name} step ms (host clock, synchronised; first is warm-up) "
+          f"{step_ms}: mean {mean_ms:.3f} ms after warm-up, {tokens / mean_ms * 1e3:.1f} "
+          f"trained tokens/s; peak memory {peak_gb:.3f} GB")
     print(f"launches: train path {launches} over {TRAIN_STEPS} steps; per step "
-          f"{per_step} (expected from remat over {L} layers x {n_micro} microbatches: "
-          f"{expected})")
-    return launches, per_step
+          f"{per_step} (expected from remat over {cfg.n_layers} layers x {n_micro} "
+          f"microbatches: {expected})")
+    return launches, per_step, {"step_ms": step_ms, "peak_gb": peak_gb, "losses": losses,
+                                "reckoning": reckoning, "grad_guard": guard_rel}
 
 
 def release_memory(next_phase):
@@ -1042,8 +1373,10 @@ def main() -> int:
     bwd_err, bwd_t = flash_bwd_phase(gen)
     gmm_err, gmm_t = gmm_phase(gen)
     ssd_err, ssd_t = ssd_phase(gen)
+    gmm_bwd_err, gmm_bwd_t = gmm_bwd_phase(gen)
+    ssd_bwd_err, ssd_bwd_t = ssd_bwd_phase(gen)
     launches, per_prefill, per_round = serve_phase()
-    train_launches, per_step = train_phase()
+    train_launches, per_step, _ = train_phase()
     ssm = {}
     for config in SSM_CONFIGS:
         release_memory(config)
@@ -1052,6 +1385,10 @@ def main() -> int:
     moe_launches, moe_prefill, moe_round = serve_phase(MOE_CONFIG)
     release_memory(GEMMA3_CONFIG)
     gemma_launches, gemma_prefill, gemma_round = serve_phase(GEMMA3_CONFIG)
+    trained = {}
+    for config in TRAIN_CONFIGS:
+        release_memory(f"training {config}")
+        trained[config] = train_phase(config)
 
     def entry(name, source, replaces, err, timed):
         top = timed["prefill"]     # serving's launches below; "launches" is the train path's
@@ -1077,17 +1414,19 @@ def main() -> int:
                 "launches_gemma3_serve": gemma_launches[name],
                 "launches_per_gemma3_prefill": gemma_prefill[name],
                 "launches_per_gemma3_decode_round": gemma_round[name],
-                **ssm_launches(name), **variant_launches(name)}
+                **ssm_launches(name), **variant_launches(name),
+                **train_launch_fields(name)}
 
     def variant_launches(name):
         """The forward flash kernel's launches by variant on each path."""
         if name != "flash_fwd":
             return {}
-        paths = {"train": train_launches, "serve": launches, "moe_serve": moe_launches,
+        paths = {"serve": launches, "moe_serve": moe_launches,
                  "gemma3_serve": gemma_launches,
                  **{f"{c}_serve": n for c, (n, _, _) in ssm.items()}}
-        return {"launches_by_variant": {path: n["flash_fwd_variants"]
-                                        for path, n in paths.items()}}
+        return {"launches_by_variant": {
+            "train": train_launches["by_variant"]["flash_fwd"],
+            **{path: n["flash_fwd_variants"] for path, n in paths.items()}}}
 
     def ssm_launches(name):
         """The kernel's launches on each SSM serving path it runs in."""
@@ -1099,6 +1438,23 @@ def main() -> int:
                             f"launches_per_{config}_decode_round": rnd[name]})
         return out
 
+    def train_launch_fields(name):
+        """The kernel's launches on each config's train path it runs in."""
+        return {f"launches_{c}_train": {"total": n[name], "per_step": per[name],
+                                        "by_variant": n["by_variant"].get(name)}
+                for c, (n, per, _) in trained.items() if name in n}
+
+    def gmm_bwd_entry(name, err, timed):
+        # top level: the MoE train microbatch's gate/up; "launches" is the
+        # qwen3-moe-30b-a3b train path's
+        return {**timed["train_gate_up"], "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+                "replaces": "src/repro/kernels/moe_gmm.py:21",
+                "replaces_note": "the backward of the TPU kernel, which has none: JAX "
+                                 "differentiates the expert einsum with XLA",
+                "launches": trained[MOE_CONFIG][0][name], "max_abs_err": err,
+                "paths": timed, **train_launch_fields(name)}
+
     def bwd_entry(name, line):
         # top level: the train step's shape; "paths" all four timed shapes
         return {"name": name, "route": "cuda",
@@ -1106,8 +1462,8 @@ def main() -> int:
                 "replaces": f"src/repro/kernels/flash_attention.py:{line}",
                 "launches": train_launches[name], "max_abs_err": bwd_err[name],
                 **bwd_t[name]["train"], "paths": bwd_t[name],
-                "launches_by_variant": train_launches["flash_bwd_variants"][name],
-                "launches_per_train_step": per_step[name]}
+                "launches_by_variant": train_launches["by_variant"][name],
+                "launches_per_train_step": per_step[name], **train_launch_fields(name)}
 
     kernels = [
         entry("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -1124,7 +1480,7 @@ def main() -> int:
          "launches": moe_launches["moe_gmm"], "max_abs_err": gmm_err, "paths": gmm_t,
          "launches_by_variant": moe_launches["moe_gmm_variants"],
          "launches_per_prefill": moe_prefill["moe_gmm"],
-         "launches_per_decode_round": moe_round["moe_gmm"]},
+         "launches_per_decode_round": moe_round["moe_gmm"], **train_launch_fields("moe_gmm")},
         # top level: mamba2-370m's prefill step shape; "launches" is the
         # mamba2-370m serving path's
         {**ssd_t["mamba2_prefill"], "name": "ssd_scan", "route": "cuda",
@@ -1132,9 +1488,21 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssd_scan.py:26",
          "launches": ssm["mamba2-370m"][0]["ssd_scan"], "max_abs_err": ssd_err,
          "library_ms": None, "library": "none: no single PyTorch call computes an SSD scan",
-         "paths": ssd_t, **ssm_launches("ssd_scan"),
+         "paths": ssd_t, **ssm_launches("ssd_scan"), **train_launch_fields("ssd_scan"),
          "launches_by_variant": {f"{c}_serve": n["ssd_scan_variants"]
                                  for c, (n, _, _) in ssm.items()}},
+        *(gmm_bwd_entry(name, gmm_bwd_err[name], gmm_bwd_t[name])
+          for name in ("moe_gmm_dx", "moe_gmm_dw")),
+        # top level: mamba2-370m's train microbatch; "launches" is its train path's
+        {**ssd_bwd_t["mamba2_train"], "name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:26",
+         "replaces_note": "the backward of the TPU kernel, which has none: JAX "
+                          "differentiates ssd_chunked with XLA",
+         "launches": trained["mamba2-370m"][0]["ssd_scan_bwd"], "max_abs_err": ssd_bwd_err,
+         "max_abs_err_is": "relative to each output's largest value",
+         "library_ms": None, "library": "none: no single PyTorch call computes an SSD scan",
+         "paths": ssd_bwd_t, **train_launch_fields("ssd_scan_bwd")},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -44,8 +44,13 @@ SIGNATURES = {
     "repro_moe_gmm_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_moe_gmm_bf16_tc": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_moe_gmm_bf16_decode": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_moe_gmm_bwd_bf16_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_moe_gmm_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_moe_gmm_bwd_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_P],
     "repro_ssd_scan_bf16": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_P] + [_P, _I],
+    "repro_ssd_scan_bwd_f32": [_P] * 13 + [_I] * 6 + [_LL] * 15 + [_P],
+    "repro_ssd_scan_bwd_bf16": [_P] * 13 + [_I] * 6 + [_LL] * 15 + [_P],
 }
 
 _lock = threading.Lock()

@@ -476,11 +476,14 @@ __device__ __forceinline__ void wgmma_rs_m64n256_tb(float (&d)[128], const uint3
       : "memory");
 }
 
-// D (64 x 256, f32) += A (64 x 16, smem, K-major) * B (16 x 256, smem, MN-major):
-// both operands from shared memory, B transposed (the grouped GEMM's w,
-// whose F columns are contiguous)
-__device__ __forceinline__ void wgmma_ss_m64n256_tb(float (&d)[128], uint64_t desc_a,
-                                                   uint64_t desc_b) {
+// D (64 x 256, f32) += A (64 x 16, smem) * B (16 x 256, smem), both operands
+// from shared memory; TA = 1 reads A MN-major (transposed: its M values
+// contiguous), TB = 1 reads B MN-major (its N values contiguous). The
+// grouped GEMM's forward takes <0, 1> (w's F columns are contiguous), its
+// dX <0, 0> (w read as stored is K-major), its dW <1, 1> (bufᵀ and dy)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n256(float (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -500,7 +503,7 @@ __device__ __forceinline__ void wgmma_ss_m64n256_tb(float (&d)[128], uint64_t de
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}"
-      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      ", %128, %129, p, 1, 1, %131, %132;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -524,7 +527,7 @@ __device__ __forceinline__ void wgmma_ss_m64n256_tb(float (&d)[128], uint64_t de
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1)
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB)
       : "memory");
 }
 

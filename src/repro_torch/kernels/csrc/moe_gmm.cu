@@ -56,10 +56,33 @@
 //    and masked on store, so any shape runs.
 // 4. f32 (tests only; entry repro_moe_gmm_f32): one output per thread from
 //    16 x 16 tiles by FMAs.
+//
+// The backward (entry repro_moe_gmm_bwd_*, `dw` = 0 for dX, 1 for dW). The
+// TPU kernel has none (JAX differentiates the expert einsum with XLA); the
+// port's training runs both products through the same three kernels,
+// templated on the operands' layouts (kAT: A stored K x M, MN-major; kBT:
+// B stored K x N, MN-major), so that no operand is copied transposed:
+//  - dX: dbuf[e] (C x D) = dy[e] (C x F) . w[e]^T, contracting over F. dy
+//    is the K-major A operand, as buf is in the forward; w, read as stored
+//    (D rows of F), the K-major B operand, the layout of K in flash's
+//    Q.K^T (TMA: one box of 64 F columns x 256 D rows a stage). <0, 0>.
+//  - dW: dw[e] (D x F) = buf[e]^T (D x C) . dy[e] (C x F), contracting over
+//    the tokens C. buf^T is an MN-major A operand (wgmma reads bf16 A
+//    transposed from shared memory: two boxes of 64 D columns x 64 C rows),
+//    dy an MN-major B operand as w is in the forward. C is ragged (1, 17,
+//    40, 320): TMA zero-fills the contraction's tail past C. <1, 1>.
+// Each moves ~633 MB at qwen3-moe's train shape (E 128, C 320, D/F
+// 2048/768): 0.189 ms at 3.35 TB/s against 0.130 ms for its 128.8 GFLOP at
+// 989 TFLOP/s, bound by bytes as the forward. Variants by dtype and
+// shape (kernels/moe_gmm.py `_bwd_variant`): bf16 with D and F multiples of
+// 8 and 16-byte-aligned bases on the persistent TMA + wgmma kernel (1.),
+// other bf16 on the wmma tile (3.), f32 on FMAs (4.).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -83,27 +106,33 @@ __device__ __forceinline__ uint4 load8(const unsigned short* __restrict__ base, 
                     h[6] | (h[7] << 16));
 }
 
-template <int BM, int BN, int BK, int WM, int WN>
+// A (M x K) and B (K x N) of expert e as stored: A row-major (M, K), or
+// (K, M) when kAT; B row-major (K, N), or (N, K) when kBT is false. Each
+// tile goes to shared memory as stored (16-byte loads along the contiguous
+// dim) and wmma reads a stored-transposed tile as col_major.
+template <int BM, int BN, int BK, int WM, int WN, bool kAT, bool kBT>
 __global__ void __launch_bounds__(kThreads)
-    moe_gmm_bf16_kernel(const unsigned short* __restrict__ buf,
-                        const unsigned short* __restrict__ w, __nv_bfloat16* __restrict__ out,
-                        int C, int D, int F, int vec_a, int vec_b) {
+    moe_gmm_bf16_kernel(const unsigned short* __restrict__ a,
+                        const unsigned short* __restrict__ b, __nv_bfloat16* __restrict__ out,
+                        int M, int K, int N, int vec_a, int vec_b) {
   static_assert((BM / WM) * (BN / WN) == kWarps, "one warp tile per warp");
   constexpr int FM = WM / 16, FN = WN / 16;
   // rows padded by 8 values (16 bytes): wmma wants a multiple of 8 and
   // 32-byte aligned fragment starts, which these strides keep
-  constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
+  constexpr int LDA = kAT ? BM + 8 : BK + 8, LDB = kBT ? BN + 8 : BK + 8, LDC = BN + 4;
+  constexpr int A_ROWS = kAT ? BK : BM, A_COLS = kAT ? BM : BK;   // as stored
+  constexpr int B_ROWS = kBT ? BK : BN, B_COLS = kBT ? BN : BK;
   constexpr int A_PER = BM * BK / 8 / kThreads, B_PER = BK * BN / 8 / kThreads;
   static_assert(A_PER * 8 * kThreads == BM * BK && B_PER * 8 * kThreads == BK * BN,
                 "tiles split into 16-byte loads evenly");
 
-  __shared__ __align__(128) unsigned short as[BM * LDA];
-  __shared__ __align__(128) unsigned short bs[BK * LDB];
+  __shared__ __align__(128) unsigned short as[A_ROWS * LDA];
+  __shared__ __align__(128) unsigned short bs[B_ROWS * LDB];
   __shared__ __align__(128) float cs[BM * LDC];
 
   const int e = blockIdx.z, c0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const unsigned short* a_e = buf + static_cast<long long>(e) * C * D;
-  const unsigned short* b_e = w + static_cast<long long>(e) * D * F;
+  const unsigned short* a_e = a + static_cast<long long>(e) * M * K;
+  const unsigned short* b_e = b + static_cast<long long>(e) * K * N;
   const int warp = threadIdx.x / 32;
   const int wm = warp / (BN / WN), wn = warp % (BN / WN);
 
@@ -118,45 +147,53 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) {
       const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / (BK / 8), cc = idx % (BK / 8) * 8;
-      ra[i] = load8(a_e, c0 + r, c0 + r < C, k0 + cc, D, vec_a);
+      const int r = idx / (A_COLS / 8), cc = idx % (A_COLS / 8) * 8;
+      ra[i] = kAT ? load8(a_e, k0 + r, k0 + r < K, c0 + cc, M, vec_a)
+                  : load8(a_e, c0 + r, c0 + r < M, k0 + cc, K, vec_a);
     }
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / (BN / 8), cc = idx % (BN / 8) * 8;
-      rb[i] = load8(b_e, k0 + r, k0 + r < D, n0 + cc, F, vec_b);
+      const int r = idx / (B_COLS / 8), cc = idx % (B_COLS / 8) * 8;
+      rb[i] = kBT ? load8(b_e, k0 + r, k0 + r < K, n0 + cc, N, vec_b)
+                  : load8(b_e, n0 + r, n0 + r < N, k0 + cc, K, vec_b);
     }
   };
+  using LayA = typename std::conditional<kAT, wmma::col_major, wmma::row_major>::type;
+  using LayB = typename std::conditional<kBT, wmma::row_major, wmma::col_major>::type;
 
   fetch(0);
-  for (int k0 = 0; k0 < D; k0 += BK) {
+  for (int k0 = 0; k0 < K; k0 += BK) {
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) {
       const int idx = threadIdx.x + i * kThreads;
-      *reinterpret_cast<uint4*>(as + idx / (BK / 8) * LDA + idx % (BK / 8) * 8) = ra[i];
+      *reinterpret_cast<uint4*>(as + idx / (A_COLS / 8) * LDA + idx % (A_COLS / 8) * 8) = ra[i];
     }
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int idx = threadIdx.x + i * kThreads;
-      *reinterpret_cast<uint4*>(bs + idx / (BN / 8) * LDB + idx % (BN / 8) * 8) = rb[i];
+      *reinterpret_cast<uint4*>(bs + idx / (B_COLS / 8) * LDB + idx % (B_COLS / 8) * 8) = rb[i];
     }
     __syncthreads();
-    if (k0 + BK < D) fetch(k0 + BK);
+    if (k0 + BK < K) fetch(k0 + BK);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayA> fa[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayB> fb[FN];
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
+      for (int i = 0; i < FM; ++i) {
+        const int m = wm * WM + i * 16;
         wmma::load_matrix_sync(
-            fa[i], reinterpret_cast<const __nv_bfloat16*>(as + (wm * WM + i * 16) * LDA + kk),
+            fa[i], reinterpret_cast<const __nv_bfloat16*>(as + (kAT ? kk * LDA + m : m * LDA + kk)),
             LDA);
+      }
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
+      for (int j = 0; j < FN; ++j) {
+        const int n = wn * WN + j * 16;
         wmma::load_matrix_sync(
-            fb[j], reinterpret_cast<const __nv_bfloat16*>(bs + kk * LDB + wn * WN + j * 16),
+            fb[j], reinterpret_cast<const __nv_bfloat16*>(bs + (kBT ? kk * LDB + n : n * LDB + kk)),
             LDB);
+      }
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -172,35 +209,44 @@ __global__ void __launch_bounds__(kThreads)
       wmma::store_matrix_sync(cs + (wm * WM + i * 16) * LDC + wn * WN + j * 16, acc[i][j],
                               LDC, wmma::mem_row_major);
   __syncthreads();
-  __nv_bfloat16* o_e = out + static_cast<long long>(e) * C * F;
+  __nv_bfloat16* o_e = out + static_cast<long long>(e) * M * N;
   for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
     const int r = idx / BN, c = idx % BN;
-    if (c0 + r < C && n0 + c < F)
-      o_e[static_cast<long long>(c0 + r) * F + n0 + c] = __float2bfloat16(cs[r * LDC + c]);
+    if (c0 + r < M && n0 + c < N)
+      o_e[static_cast<long long>(c0 + r) * N + n0 + c] = __float2bfloat16(cs[r * LDC + c]);
   }
 }
 
 constexpr int kT = 16;
 
+// the layouts as in moe_gmm_bf16_kernel
+template <bool kAT, bool kBT>
 __global__ void __launch_bounds__(kT * kT)
-    moe_gmm_f32_kernel(const float* __restrict__ buf, const float* __restrict__ w,
-                       float* __restrict__ out, int C, int D, int F) {
+    moe_gmm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       float* __restrict__ out, int M, int K, int N) {
   __shared__ float as[kT][kT + 1];
   __shared__ float bs[kT][kT + 1];
   const int e = blockIdx.z, tx = threadIdx.x, ty = threadIdx.y;
   const int row = blockIdx.y * kT + ty, col = blockIdx.x * kT + tx;
-  const float* a_e = buf + static_cast<long long>(e) * C * D;
-  const float* b_e = w + static_cast<long long>(e) * D * F;
+  const float* a_e = a + static_cast<long long>(e) * M * K;
+  const float* b_e = b + static_cast<long long>(e) * K * N;
   float acc = 0.f;
-  for (int k0 = 0; k0 < D; k0 += kT) {
-    as[ty][tx] = (row < C && k0 + tx < D) ? a_e[static_cast<long long>(row) * D + k0 + tx] : 0.f;
-    bs[ty][tx] = (k0 + ty < D && col < F) ? b_e[static_cast<long long>(k0 + ty) * F + col] : 0.f;
+  for (int k0 = 0; k0 < K; k0 += kT) {
+    const int ka = k0 + tx, kb = k0 + ty;
+    as[ty][tx] = (row < M && ka < K)
+                     ? a_e[kAT ? static_cast<long long>(ka) * M + row
+                               : static_cast<long long>(row) * K + ka]
+                     : 0.f;
+    bs[ty][tx] = (kb < K && col < N)
+                     ? b_e[kBT ? static_cast<long long>(kb) * N + col
+                               : static_cast<long long>(col) * K + kb]
+                     : 0.f;
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kT; ++k) acc = fmaf(as[ty][k], bs[k][tx], acc);
     __syncthreads();
   }
-  if (row < C && col < F) out[(static_cast<long long>(e) * C + row) * F + col] = acc;
+  if (row < M && col < N) out[(static_cast<long long>(e) * M + row) * N + col] = acc;
 }
 
 // ===========================================================================
@@ -209,26 +255,26 @@ __global__ void __launch_bounds__(kT * kT)
 // ===========================================================================
 namespace tc {
 
-constexpr int BM = 128;              // C rows a tile: two consumer warpgroups of 64
-constexpr int BN = 256;              // F columns a tile: one m64n256k16 a warpgroup
-constexpr int BK = 64;               // D a stage: one 128-byte swizzled buf row
+constexpr int BM = 128;              // M rows a tile: two consumer warpgroups of 64
+constexpr int BN = 256;              // N columns a tile: one m64n256k16 a warpgroup
+constexpr int BK = 64;               // K a stage: one 128-byte swizzled row
 constexpr int kStages = 4;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * kConsumerWarps + 128;   // + the producer warpgroup
-constexpr int kA = BM * BK;          // elements of a stage's buf tile (16 KB)
-constexpr int kB = BK * BN;          // of its w tile: BN / 64 regions of BK x 64 (32 KB)
+constexpr int kA = BM * BK;          // elements of a stage's A tile (16 KB)
+constexpr int kB = BK * BN;          // of its B tile (32 KB)
 constexpr int kOut = 64 * BN / 2;    // half a warpgroup's output tile (16 KB)
 // + 1 KB to align the operands to the swizzle pattern's 1024 bytes
 constexpr int kBytes =
     2 * (kStages * (kA + kB) + 2 * kOut) + 8 * 2 * kStages + 1024;
 
 struct Params {
-  int C, m_tiles, n_tiles, k_steps, tiles;
+  int M, m_tiles, n_tiles, k_steps, tiles;
   // which tensor-map dim (1..3) holds the rows, the expert and the unit dim
   int a_pos[3], b_pos[3], o_pos[3];
 };
 
-// output tile t: C tile fastest, then F tile, then expert
+// output tile t: M tile fastest, then N tile, then expert
 struct TileIdx {
   int m0, n0, e;
   __device__ TileIdx(const Params& p, int t)
@@ -237,6 +283,18 @@ struct TileIdx {
         e(t / (p.m_tiles * p.n_tiles)) {}
 };
 
+// out[e] (M x N) = A[e] (M x K) . B[e] (K x N). The forward (<0, 1>): A =
+// buf, B = w. dX (<0, 0>): A = dy, B = w^T (w read as stored, K-major).
+// dW (<1, 1>): A = buf^T (buf read as stored, MN-major), B = dy.
+//  - A K-major (kAT = 0): one box of 64 K columns (a 128-byte swizzled row)
+//    x 128 M rows of a (K, M, E) map; warpgroup wg's rows start 64 rows in.
+//  - A MN-major (kAT = 1): two boxes of 64 M columns x 64 K rows of an
+//    (M, K, E) map; warpgroup wg's 64 M columns are box wg.
+//  - B MN-major (kBT = 1): four boxes of 64 N columns x 64 K rows of an
+//    (N, K, E) map, as V in flash's P.V.
+//  - B K-major (kBT = 0): one box of 64 K columns x 256 N rows of a
+//    (K, N, E) map, as K in flash's Q.K^T.
+template <bool kAT, bool kBT>
 __global__ void __launch_bounds__(kThreads, 1)
     moe_gmm_tc_kernel(const __grid_constant__ CUtensorMap amap,
                       const __grid_constant__ CUtensorMap bmap,
@@ -272,12 +330,24 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int stage = it % kStages;
           mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
           mbar_arrive_expect_tx(&full[stage], 2 * (kA + kB));
-          load_box(as + stage * kA, &amap, &full[stage], p.a_pos, k * BK, ti.m0, ti.e, 0);
-          __nv_bfloat16* bt = bs + stage * kB;
+          __nv_bfloat16* at = as + stage * kA;
+          if constexpr (kAT) {
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c)
-            load_box(bt + c * BK * 64, &bmap, &full[stage], p.b_pos, ti.n0 + 64 * c, k * BK,
-                     ti.e, 0);
+            for (int c = 0; c < BM / 64; ++c)
+              load_box(at + c * BK * 64, &amap, &full[stage], p.a_pos, ti.m0 + 64 * c, k * BK,
+                       ti.e, 0);
+          } else {
+            load_box(at, &amap, &full[stage], p.a_pos, k * BK, ti.m0, ti.e, 0);
+          }
+          __nv_bfloat16* bt = bs + stage * kB;
+          if constexpr (kBT) {
+#pragma unroll
+            for (int c = 0; c < BN / 64; ++c)
+              load_box(bt + c * BK * 64, &bmap, &full[stage], p.b_pos, ti.n0 + 64 * c, k * BK,
+                       ti.e, 0);
+          } else {
+            load_box(bt, &bmap, &full[stage], p.b_pos, k * BK, ti.n0, ti.e, 0);
+          }
         }
       }
     }
@@ -299,7 +369,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
     const TileIdx ti(p, t);
     const int row0 = ti.m0 + wg * 64;
-    const bool active = row0 < p.C;   // uniform over the warpgroup
+    const bool active = row0 < p.M;   // uniform over the warpgroup
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 #pragma unroll 1
@@ -307,14 +377,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int stage = it % kStages;
       mbar_wait(&full[stage], (it / kStages) & 1);
       if (active) {
-        // this warpgroup's 64 rows: 64 rows on in the buf tile's one region
+        // this warpgroup's 64 rows: 64 rows on in A's K-major tile, or the
+        // second of its MN-major boxes (both 64 x 64 elements on)
         const __nv_bfloat16* at = as + stage * kA + wg * 64 * 64;
         const __nv_bfloat16* bt = bs + stage * kB;
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_ss_m64n256_tb(acc, desc_k_major<64>(at, BM, kk), desc_mn_major<BN>(bt, BK, kk));
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t da = kAT ? desc_mn_major<64>(at, BK, kk) : desc_k_major<64>(at, BM, kk);
+          const uint64_t db = kBT ? desc_mn_major<BN>(bt, BK, kk) : desc_k_major<64>(bt, BN, kk);
+          wgmma_ss_m64n256<kAT, kBT>(acc, da, db);
+        }
         wgmma_commit();
         // done with the stage: free it at once, so that 3 stages' loads can
         // be in flight (the other warpgroup's products fill this wait)
@@ -332,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // TMA's 128-byte swizzle lays out a box of 64 columns (16-byte chunk c
     // of row r at chunk c ^ (r % 8): no bank conflicts), then out by TMA
     // stores that run on while the next half, and the next tile's
-    // products, start; rows past C and columns past F are not written.
+    // products, start; rows past M and columns past N are not written.
     const int r = (warp % 4) * 16 + lane / 4;
 #pragma unroll
     for (int part = 0; part < 2; ++part) {
@@ -364,27 +438,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (leader) bulk_wait();
 }
 
-int launch(const void* buf, const void* w, void* out, int E, int C, int D, int F,
+// A stored (E, M, K), or (E, K, M) when kAT; B stored (E, K, N) when kBT,
+// else (E, N, K); out (E, M, N); all contiguous. TMA reads rows at 16-byte
+// strides from 16-byte-aligned bases: M (when kAT), K and N multiples of 8.
+template <bool kAT, bool kBT>
+int launch(const void* a, const void* b, void* out, int E, int M, int N, int K,
            cudaStream_t stream) {
-  const long long m = (C + BM - 1) / BM, n = (F + BN - 1) / BN;
-  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8 ||
-      reinterpret_cast<uintptr_t>(buf) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
-      reinterpret_cast<uintptr_t>(out) % 16 || E * m * n > 0x7fffffffLL)
+  const long long m = (M + BM - 1) / BM, n = (N + BN - 1) / BN;
+  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || N % 8 || (kAT ? M % 8 : K % 8) ||
+      (!kBT && K % 8) || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
+      E * m * n > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  Params p{C, static_cast<int>(m), static_cast<int>(n), (D + BK - 1) / BK,
+  Params p{M, static_cast<int>(m), static_cast<int>(n), (K + BK - 1) / BK,
            static_cast<int>(E * m * n), {}, {}, {}};
   CUtensorMap am, bm, om;
   cudaError_t err;
-  const long long cd = static_cast<long long>(C) * D, df = static_cast<long long>(D) * F,
-                  cf = static_cast<long long>(C) * F;
-  // buf: (D, C, E) with D contiguous; w: (F, D, E) and out: (F, C, E) with
-  // F contiguous
-  if ((err = hopper::make_map(&am, buf, D, {C, E, 1}, {D, cd, cd * E}, 64, BM, p.a_pos)) ||
-      (err = hopper::make_map(&bm, w, F, {D, E, 1}, {F, df, df * E}, 64, BK, p.b_pos)) ||
-      (err = hopper::make_map(&om, out, F, {C, E, 1}, {F, cf, cf * E}, 64, 64, p.o_pos)))
+  const long long mk = static_cast<long long>(M) * K, kn = static_cast<long long>(K) * N,
+                  mn = static_cast<long long>(M) * N;
+  if (kAT) err = hopper::make_map(&am, a, M, {K, E, 1}, {M, mk, mk * E}, 64, BK, p.a_pos);
+  else err = hopper::make_map(&am, a, K, {M, E, 1}, {K, mk, mk * E}, 64, BM, p.a_pos);
+  if (err) return err;
+  if (kBT) err = hopper::make_map(&bm, b, N, {K, E, 1}, {N, kn, kn * E}, 64, BK, p.b_pos);
+  else err = hopper::make_map(&bm, b, K, {N, E, 1}, {K, kn, kn * E}, 64, BN, p.b_pos);
+  if (err) return err;
+  if ((err = hopper::make_map(&om, out, N, {M, E, 1}, {N, mn, mn * E}, 64, 64, p.o_pos)))
     return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      moe_gmm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      moe_gmm_tc_kernel<kAT, kBT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (attr != cudaSuccess) return attr;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) ||
@@ -392,7 +473,7 @@ int launch(const void* buf, const void* w, void* out, int E, int C, int D, int F
     return err;
   // persistent: one block an SM (its shared memory allows no second)
   const int grid = p.tiles < sms ? p.tiles : sms;
-  moe_gmm_tc_kernel<<<grid, kThreads, kBytes, stream>>>(am, bm, om, p);
+  moe_gmm_tc_kernel<kAT, kBT><<<grid, kThreads, kBytes, stream>>>(am, bm, om, p);
   return cudaGetLastError();
 }
 
@@ -400,21 +481,35 @@ int launch(const void* buf, const void* w, void* out, int E, int C, int D, int F
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-int check_dims(int E, int C, int D, int F, int rows_per_block) {
-  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 ||
-      (C + rows_per_block - 1) / rows_per_block > 65535)
+int check_dims(int E, int M, int N, int K, int rows_per_block) {
+  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || E > 65535 ||
+      (M + rows_per_block - 1) / rows_per_block > 65535)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
-template <int BM, int BN, int BK, int WM, int WN>
-int launch_bf16(const void* buf, const void* w, void* out, int E, int C, int D, int F,
+// layouts as in moe_gmm_tc_kernel: A (E, M, K) or (E, K, M) when kAT, B
+// (E, K, N) when kBT, else (E, N, K)
+template <int BM, int BN, int BK, int WM, int WN, bool kAT, bool kBT>
+int launch_bf16(const void* a, const void* b, void* out, int E, int M, int N, int K,
                 cudaStream_t stream) {
-  const dim3 grid((F + BN - 1) / BN, (C + BM - 1) / BM, E);
-  moe_gmm_bf16_kernel<BM, BN, BK, WM, WN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const unsigned short*>(buf), static_cast<const unsigned short*>(w),
-      static_cast<__nv_bfloat16*>(out), C, D, F, int(D % 8 == 0 && aligned16(buf)),
-      int(F % 8 == 0 && aligned16(w)));
+  if (int err = check_dims(E, M, N, K, BM)) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+  moe_gmm_bf16_kernel<BM, BN, BK, WM, WN, kAT, kBT><<<grid, kThreads, 0, stream>>>(
+      static_cast<const unsigned short*>(a), static_cast<const unsigned short*>(b),
+      static_cast<__nv_bfloat16*>(out), M, K, N,
+      int((kAT ? M : K) % 8 == 0 && aligned16(a)), int((kBT ? N : K) % 8 == 0 && aligned16(b)));
+  return cudaGetLastError();
+}
+
+template <bool kAT, bool kBT>
+int launch_f32(const void* a, const void* b, void* out, int E, int M, int N, int K,
+               cudaStream_t stream) {
+  if (int err = check_dims(E, M, N, K, kT)) return err;
+  const dim3 grid((N + kT - 1) / kT, (M + kT - 1) / kT, E);
+  moe_gmm_f32_kernel<kAT, kBT><<<grid, dim3(kT, kT), 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out),
+      M, K, N);
   return cudaGetLastError();
 }
 
@@ -423,29 +518,46 @@ int launch_bf16(const void* buf, const void* w, void* out, int E, int C, int D, 
 // the tile is the caller's choice (`_variant`): any C runs on either
 extern "C" int repro_moe_gmm_bf16(const void* buf, const void* w, void* out, int E, int C,
                                   int D, int F, void* stream) {
-  if (int err = check_dims(E, C, D, F, 64)) return err;
-  return launch_bf16<64, 64, 32, 32, 32>(buf, w, out, E, C, D, F,
-                                         static_cast<cudaStream_t>(stream));
+  return launch_bf16<64, 64, 32, 32, 32, false, true>(buf, w, out, E, C, F, D,
+                                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_moe_gmm_bf16_decode(const void* buf, const void* w, void* out, int E,
                                          int C, int D, int F, void* stream) {
-  if (int err = check_dims(E, C, D, F, 16)) return err;
-  return launch_bf16<16, 64, 64, 16, 16>(buf, w, out, E, C, D, F,
-                                         static_cast<cudaStream_t>(stream));
+  return launch_bf16<16, 64, 64, 16, 16, false, true>(buf, w, out, E, C, F, D,
+                                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_moe_gmm_f32(const void* buf, const void* w, void* out, int E, int C,
                                  int D, int F, void* stream) {
-  if (int err = check_dims(E, C, D, F, kT)) return err;
-  const dim3 grid((F + kT - 1) / kT, (C + kT - 1) / kT, E);
-  moe_gmm_f32_kernel<<<grid, dim3(kT, kT), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(buf), static_cast<const float*>(w), static_cast<float*>(out),
-      C, D, F);
-  return cudaGetLastError();
+  return launch_f32<false, true>(buf, w, out, E, C, F, D, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_moe_gmm_bf16_tc(const void* buf, const void* w, void* out, int E, int C,
                                      int D, int F, void* stream) {
-  return tc::launch(buf, w, out, E, C, D, F, static_cast<cudaStream_t>(stream));
+  return tc::launch<false, true>(buf, w, out, E, C, F, D, static_cast<cudaStream_t>(stream));
+}
+
+// the backward: dw = 0 computes dbuf (E, C, D) = dy . w^T from (x, y) =
+// (dy, w): M = C, N = D, K = F, both K-major; dw = 1 computes dw (E, D, F)
+// = buf^T . dy from (x, y) = (buf, dy): M = D, N = F, K = C, both MN-major
+extern "C" int repro_moe_gmm_bwd_bf16_tc(const void* x, const void* y, void* out, int E, int C,
+                                         int D, int F, int dw, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dw ? tc::launch<true, true>(x, y, out, E, D, F, C, s)
+            : tc::launch<false, false>(x, y, out, E, C, D, F, s);
+}
+
+extern "C" int repro_moe_gmm_bwd_bf16(const void* x, const void* y, void* out, int E, int C,
+                                      int D, int F, int dw, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dw ? launch_bf16<64, 64, 32, 32, 32, true, true>(x, y, out, E, D, F, C, s)
+            : launch_bf16<64, 64, 32, 32, 32, false, false>(x, y, out, E, C, D, F, s);
+}
+
+extern "C" int repro_moe_gmm_bwd_f32(const void* x, const void* y, void* out, int E, int C,
+                                     int D, int F, int dw, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dw ? launch_f32<true, true>(x, y, out, E, D, F, C, s)
+            : launch_f32<false, false>(x, y, out, E, C, D, F, s);
 }

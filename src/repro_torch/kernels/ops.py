@@ -6,20 +6,21 @@ fallback from one to the other and no switch. Each CUDA wrapper counts its
 launches; ``launch_counts`` reads the counts (``flash_variant_counts`` the
 forward flash kernel's by variant, ``flash_bwd_variant_counts`` the
 backward's, ``moe_gmm_variant_counts`` the grouped GEMM's,
-``ssd_scan_variant_counts`` the SSD scan's) and
+``moe_gmm_bwd_variant_counts`` its backward's, ``ssd_scan_variant_counts``
+the SSD scan's, ``ssd_scan_bwd_variant_counts`` its backward's) and
 ``reset_launch_counts`` sets them all to 0, so a run can show that its path
 went through the kernels.
 
-``flash_attention`` and ``rmsnorm`` are differentiable: where grad is
-enabled and an input requires it, they go through a ``torch.autograd.Function``
-whose forward is the same dispatch and whose backward is the flash backward
-kernels (attention; plain version on the CPU) or plain PyTorch (RMSNorm,
-whose gradient JAX leaves to XLA: there is no Pallas kernel to port).
-Elsewhere (serving) they call the forward dispatch directly, so the
-Function layer adds no launch there. ``moe_gmm`` and ``ssd_scan`` have no
-backward on the card yet (JAX has none for their kernels either; MoE and
-SSM training are later items): on a CUDA tensor that would need one they
-raise.
+All four entry points are differentiable: where grad is enabled and an
+input requires it, they go through a ``torch.autograd.Function`` whose
+forward is the same dispatch and whose backward is a kernel on the card
+(the flash backward's dq and dk/dv; the grouped GEMM's dX and dW; the SSD
+scan's backward) and its plain version on the CPU; RMSNorm's backward is
+plain PyTorch (JAX leaves its gradient to XLA: there is no Pallas kernel to
+port). JAX's Pallas kernels have no VJP for the grouped GEMM and the SSD
+scan; JAX takes those gradients with XLA, the port with hand-written
+kernels. Elsewhere (serving) the entry points call the forward dispatch
+directly, so the Function layer adds no launch there.
 """
 from __future__ import annotations
 
@@ -35,14 +36,21 @@ from .flash_attention import (
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
 )
-from .moe_gmm import moe_gmm_cuda, moe_gmm_plain
+from .moe_gmm import (
+    moe_gmm_bwd_plain,
+    moe_gmm_cuda,
+    moe_gmm_dw_cuda,
+    moe_gmm_dx_cuda,
+    moe_gmm_plain,
+)
 from .rmsnorm import rmsnorm_cuda, rmsnorm_plain
-from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from .ssd_scan import ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_cuda, ssd_scan_plain
 
 _CUDA_WRAPPERS = {"rmsnorm": rmsnorm_cuda, "flash_fwd": flash_attention_cuda,
                   "flash_bwd_dq": flash_bwd_dq_cuda,
                   "flash_bwd_dkv": flash_bwd_dkv_cuda, "moe_gmm": moe_gmm_cuda,
-                  "ssd_scan": ssd_scan_cuda}
+                  "moe_gmm_dx": moe_gmm_dx_cuda, "moe_gmm_dw": moe_gmm_dw_cuda,
+                  "ssd_scan": ssd_scan_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda}
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -159,37 +167,93 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # grouped expert GEMM
 # ---------------------------------------------------------------------------
-def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(E, C, D) x (E, D, F) -> (E, C, F), f32 accumulation, buf's dtype.
-    Differentiable on the CPU only (plain PyTorch); on the card a call that
-    would need a gradient is refused, not taken to another path."""
+def moe_gmm_fwd(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, D) x (E, D, F) -> (E, C, F); see ``kernels.moe_gmm``."""
     if _on_cuda(buf, "moe_gmm"):
-        if _needs_grad(buf, w):
-            raise NotImplementedError(
-                "moe_gmm: no backward kernel on the card yet; it comes with MoE "
-                "training (dX = dY·Wᵀ and dW = Xᵀ·dY through the grouped GEMM)")
         return moe_gmm_cuda(buf, w)
     return moe_gmm_plain(buf, w)
+
+
+def moe_gmm_bwd(buf: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                need_dbuf: bool = True, need_dw: bool = True,
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """→ (dbuf = dy·wᵀ, dw = bufᵀ·dy) per expert, each only where asked for:
+    the dX and dW kernels on the card, ``moe_gmm_bwd_plain`` on the CPU."""
+    if _on_cuda(buf, "moe_gmm_bwd"):
+        dy = dy.contiguous()
+        return (moe_gmm_dx_cuda(dy, w) if need_dbuf else None,
+                moe_gmm_dw_cuda(buf, dy) if need_dw else None)
+    dbuf, dw = moe_gmm_bwd_plain(buf, w, dy)
+    return (dbuf if need_dbuf else None), (dw if need_dw else None)
+
+
+class _MoEGmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, w):
+        ctx.save_for_backward(buf, w)
+        return moe_gmm_fwd(buf, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        buf, w = ctx.saved_tensors
+        return moe_gmm_bwd(buf, w, dy, *ctx.needs_input_grad)
+
+
+def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, D) x (E, D, F) -> (E, C, F), f32 accumulation, buf's dtype;
+    differentiable (dX and dW through the backward kernels on the card)."""
+    if _needs_grad(buf, w):
+        return _MoEGmm.apply(buf, w)
+    return moe_gmm_fwd(buf, w)
 
 
 # ---------------------------------------------------------------------------
 # Mamba2 SSD chunked scan
 # ---------------------------------------------------------------------------
+def ssd_scan_fwd(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B_: torch.Tensor,
+                 C_: torch.Tensor, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (y, final state); see ``ssd_scan``."""
+    if _on_cuda(xh, "ssd_scan"):
+        return ssd_scan_cuda(xh, dt, a, B_, C_)
+    return ssd_scan_plain(xh, dt, a, B_, C_, chunk)
+
+
+def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B_: torch.Tensor,
+                 C_: torch.Tensor, dy: Optional[torch.Tensor],
+                 dh_final: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """→ (dxh, ddt, da, dB, dC) for the gradients of y and of the final
+    state (None is zero): the backward kernel on the card,
+    ``ssd_scan_bwd_plain`` on the CPU."""
+    if dy is None:
+        dy = torch.zeros_like(xh)
+    if _on_cuda(xh, "ssd_scan_bwd"):
+        return ssd_scan_bwd_cuda(xh, dt, a, B_, C_, dy, dh_final)
+    return ssd_scan_bwd_plain(xh, dt, a, B_, C_, dy, dh_final)
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xh, dt, a, B_, C_, chunk):
+        ctx.set_materialize_grads(False)   # an unused final state costs nothing
+        ctx.save_for_backward(xh, dt, a, B_, C_)
+        return ssd_scan_fwd(xh, dt, a, B_, C_, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        grads = ssd_scan_bwd(*ctx.saved_tensors, dy, dh_final)
+        return (*grads, None)
+
+
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B_: torch.Tensor,
              C_: torch.Tensor, *, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (y (B, S, H, P) in xh's dtype, final state (B, H, P, N) f32); see
     ``kernels.ssd_scan``. ``chunk`` is the plain version's chunk length (the
     kernels keep their own: 128-row chunks in bf16, 64-row tiles in f32;
-    the result is the same up to rounding).
-    Differentiable on the CPU only (plain PyTorch); on the card a call that
-    would need a gradient is refused."""
-    if _on_cuda(xh, "ssd_scan"):
-        if _needs_grad(xh, dt, a, B_, C_):
-            raise NotImplementedError(
-                "ssd_scan: no backward kernel on the card yet; it comes with SSM "
-                "training")
-        return ssd_scan_cuda(xh, dt, a, B_, C_)
-    return ssd_scan_plain(xh, dt, a, B_, C_, chunk)
+    the result is the same up to rounding). Differentiable in both outputs
+    (the backward kernel on the card)."""
+    if _needs_grad(xh, dt, a, B_, C_):
+        return _SSDScan.apply(xh, dt, a, B_, C_, chunk)
+    return ssd_scan_fwd(xh, dt, a, B_, C_, chunk)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -214,6 +278,21 @@ def flash_bwd_variant_counts() -> Dict[str, Dict[str, int]]:
     sums to that kernel's ``launch_counts()`` entry."""
     return {name: dict(_CUDA_WRAPPERS[name].variant_launches)
             for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def moe_gmm_bwd_variant_counts() -> Dict[str, Dict[str, int]]:
+    """The grouped GEMM's backward launches by kernel variant (``tc``: bf16
+    on TMA + ``wgmma``, ``wmma``: other bf16, ``fma``: f32), for
+    ``moe_gmm_dx`` and ``moe_gmm_dw``; each sums to that kernel's
+    ``launch_counts()`` entry."""
+    return {name: dict(_CUDA_WRAPPERS[name].variant_launches)
+            for name in ("moe_gmm_dx", "moe_gmm_dw")}
+
+
+def ssd_scan_bwd_variant_counts() -> Dict[str, int]:
+    """The SSD backward's launches by input dtype (``bf16``, ``f32``: one
+    kernel, f32 arithmetic); they sum to ``launch_counts()["ssd_scan_bwd"]``."""
+    return dict(ssd_scan_bwd_cuda.variant_launches)
 
 
 def ssd_scan_variant_counts() -> Dict[str, int]:

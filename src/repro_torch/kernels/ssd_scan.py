@@ -37,10 +37,19 @@ On the card the prefill is bound by bytes at mamba2-370m's shape
 (B 4, S 1024, H 32, P 64, N 128: 12.0 µs of bytes, ~5.5 µs of operations
 with C·Bᵀ shared by the group). The kernels' design notes are in their
 source.
+
+The backward (the TPU kernel has none: JAX differentiates ``ssd_chunked``
+with XLA) is ``ssd_scan_bwd_cuda`` (``csrc/ssd_scan_bwd.cu``), given dy and
+the final state's gradient: one kernel for both dtypes, f32 arithmetic, one
+block per (batch, head, P tile) that recomputes each 64-row tile's incoming
+state, then walks the tiles in reverse carrying dL/dh. dB and dC (summed
+over a group's heads), ddt (over the P tiles) and da (over batch and
+sequence) are summed with f32 atomics, in no fixed order. Its arithmetic is
+``ssd_scan_bwd_plain``'s up to summation order.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +60,8 @@ from .flash_attention import _check_aligned
 DTYPES = (torch.float32, torch.bfloat16)
 STATE_DIMS = (16, 32, 64, 128)
 VARIANTS = ("tc", "fma")
+BWD_VARIANTS = ("bf16", "f32")
+BWD_TILE = 64        # rows of a tile of the backward kernel
 TC_CHUNK = 128        # rows of a chunk of the tc kernel: two warpgroups of 64
 TC_MAX_HEADS = 8      # heads a tc block takes at most (one warp scans each)
 # a tc block takes as many heads of its group as keeps at least this many
@@ -182,6 +193,104 @@ def ssd_scan_tc_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.reshape(Bb, nc * Q, H, P)[:, :S].to(xh.dtype), h
 
 
+def ssd_scan_bwd_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       B_: torch.Tensor, C_: torch.Tensor, dy: torch.Tensor,
+                       dh_final: Optional[torch.Tensor] = None, chunk: int = BWD_TILE,
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``ssd_scan_plain``'s (y, h_final) for dy (B, S, H, P)
+    and dh_final (B, H, P, N; None is zero): → (dxh, ddt, da, dB, dC), each
+    in its input's dtype, computed in f32 (f64 for f64 inputs) with one
+    cast each; dB and dC sum over the H/G heads of a group, da over batch
+    and sequence. The explicit backward of the chunked form, in chunks of
+    ``chunk`` rows (the kernel's tile; exact under any chunking): within a
+    chunk, with L_ij = exp(cum_i − cum_j) for j <= i, M = (C·Bᵀ)∘L·dt_j,
+    W = (dy·xᵀ)∘L·dt_j, T' = (C·Bᵀ)∘L∘(dy·xᵀ), w_j = exp(cum_Q − cum_j)·dt_j
+    and g the gradient of the chunk's outgoing state:
+    dx = Mᵀ·dy + w∘(B·gᵀ), dC = W·B + exp(cum)∘(dy·h_in),
+    dB = Wᵀ·C + w∘(x·g), g ← exp(cum_Q)·g + (exp(cum)∘dy)ᵀ·C; ddt and da
+    through cum by suffix sums (``csrc/ssd_scan_bwd.cu`` derives them).
+    Only exponents of arguments <= 0 are taken."""
+    Bb, S, H, P, G, N = _shapes(xh, dt, a, B_, C_)
+    if dy.shape != xh.shape or (dh_final is not None and dh_final.shape != (Bb, H, P, N)):
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} / dh_final "
+                         f"{None if dh_final is None else tuple(dh_final.shape)} do not "
+                         f"match xh {tuple(xh.shape)}")
+    acc = torch.promote_types(xh.dtype, torch.float32)
+    Q = max(1, chunk)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    x, dtf, b, c, g_y = (t.to(acc) for t in (xh, dt, B_, C_, dy))
+    af = a.to(acc)
+    if pad:             # dt = 0 rows: no decay, no input, no gradient
+        x, g_y = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, g_y))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        b, c = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (b, c))
+    R = H // G
+    x = x.reshape(Bb, nc, Q, H, P)
+    g_y = g_y.reshape(Bb, nc, Q, H, P)
+    bh = b.repeat_interleave(R, dim=2).reshape(Bb, nc, Q, H, N)
+    ch = c.repeat_interleave(R, dim=2).reshape(Bb, nc, Q, H, N)
+    dtc = dtf.reshape(Bb, nc, Q, H)
+    cum = (dtc * af).cumsum(2)                                       # (B,c,Q,H)
+    ecum = torch.exp(cum)
+    wq = torch.exp(cum[:, :, -1:] - cum)
+    w = wq * dtc
+    decay = torch.exp(cum[:, :, -1])                                 # (B,c,H)
+
+    # each chunk's incoming state, by the forward recurrence
+    states = torch.einsum("bcqhp,bcqhn->bchpn", x * w[..., None], bh)
+    h = torch.zeros(Bb, H, P, N, dtype=acc, device=xh.device)
+    h_in = []
+    for ci in range(nc):
+        h_in.append(h)
+        h = h * decay[:, ci, :, None, None] + states[:, ci]
+    h_in = torch.stack(h_in, 1)                                      # (B,c,H,P,N)
+    # each chunk's outgoing-state gradient, in reverse
+    g = torch.zeros_like(h) if dh_final is None else dh_final.to(acc)
+    g_out = [None] * nc
+    for ci in range(nc - 1, -1, -1):
+        g_out[ci] = g
+        g = g * decay[:, ci, :, None, None] + torch.einsum(
+            "bqhp,bqhn->bhpn", g_y[:, ci] * ecum[:, ci, :, :, None], ch[:, ci])
+    g_out = torch.stack(g_out, 1)                                    # (B,c,H,P,N)
+
+    # the chunk's (i, j) matrices, (B, c, H, i, j)
+    cumt = cum.transpose(2, 3)                                       # (B,c,H,Q)
+    dtt = dtc.transpose(2, 3)
+    tril = torch.ones(Q, Q, dtype=torch.bool, device=xh.device).tril()
+    lm = torch.exp((cumt[..., :, None] - cumt[..., None, :]).masked_fill(~tril, float("-inf")))
+    cb = torch.einsum("bcihn,bcjhn->bchij", ch, bh)
+    dyx = torch.einsum("bcihp,bcjhp->bchij", g_y, x)
+    m = cb * lm * dtt[..., None, :]
+    wmat = dyx * lm * dtt[..., None, :]
+    tp = cb * lm * dyx
+
+    bg = torch.einsum("bcjhn,bchpn->bcjhp", bh, g_out)
+    dxh = torch.einsum("bchij,bcihp->bcjhp", m, g_y) + w[..., None] * bg
+    u = (x * bg).sum(-1)                                             # (B,c,Q,H)
+    dyh = torch.einsum("bcihp,bchpn->bcihn", g_y, h_in)
+    dch = torch.einsum("bchij,bcjhn->bcihn", wmat, bh) + ecum[..., None] * dyh
+    dbh = torch.einsum("bchij,bcihn->bcjhn", wmat, ch) + \
+        w[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", x, g_out)
+
+    # dcum, then ddA by suffix sums within each chunk
+    row = (tp * dtt[..., None, :]).sum(-1).transpose(2, 3)           # (B,c,Q,H)
+    col = tp.sum(-2).transpose(2, 3)
+    dcum = row - dtc * col + (ch * ecum[..., None] * dyh).sum(-1) - w * u
+    dcum[:, :, -1] += decay * (g_out * h_in).sum((-1, -2)) + (w * u).sum(2)
+    dda = dcum.flip(2).cumsum(2).flip(2)
+    ddt = col + wq * u + af * dda
+    da = (dtc * dda).sum((0, 1, 2))
+
+    def unchunk(t, last):
+        return t.reshape(Bb, nc * Q, *last)[:, :S]
+
+    dB = unchunk(dbh, (G, R, N)).sum(3)
+    dC = unchunk(dch, (G, R, N)).sum(3)
+    return (unchunk(dxh, (H, P)).to(xh.dtype), unchunk(ddt, (H,)).to(dt.dtype),
+            da.to(a.dtype), dB.to(B_.dtype), dC.to(C_.dtype))
+
+
 def _variant(dtype: torch.dtype, N: int, P: int) -> str:
     """Which kernel a call takes: ``tc`` for bf16, ``fma`` for f32, at every
     state dim in ``STATE_DIMS`` and head dim that is a multiple of 32;
@@ -269,3 +378,61 @@ def ssd_scan_cuda(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 ssd_scan_cuda.launches = 0
 ssd_scan_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def ssd_scan_bwd_cuda(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      B_: torch.Tensor, C_: torch.Tensor, dy: torch.Tensor,
+                      dh_final: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """Launch ``csrc/ssd_scan_bwd.cu`` on the current stream: → (dxh, ddt,
+    da, dB, dC) in the inputs' dtypes, as ``ssd_scan_bwd_plain``. Takes the
+    forward's inputs as ``ssd_scan_cuda`` does (strided views with a
+    contiguous last dim), dy likewise, dh_final (B, H, P, N) f32 or None
+    (zero: training reads no final state, and that costs nothing). Counts
+    each launch in ``ssd_scan_bwd_cuda.launches`` and by dtype in
+    ``ssd_scan_bwd_cuda.variant_launches``."""
+    Bb, S, H, P, G, N = _shapes(xh, dt, a, B_, C_)
+    ts = (xh, dt, a, B_, C_, dy)
+    if xh.dtype not in DTYPES or any(t.dtype != xh.dtype for t in ts):
+        raise ValueError(f"ssd_scan_bwd_cuda: dtypes {[str(t.dtype) for t in ts]}; want "
+                         f"one of {DTYPES} for all")
+    if dy.shape != xh.shape or (dh_final is not None and (
+            dh_final.shape != (Bb, H, P, N) or dh_final.dtype != torch.float32)):
+        raise ValueError("ssd_scan_bwd_cuda: want dy shaped as xh and dh_final "
+                         "(B, H, P, N) f32 or None")
+    if not (xh.is_cuda and all(t.device == xh.device for t in ts)
+            and (dh_final is None or dh_final.device == xh.device)):
+        raise ValueError("ssd_scan_bwd_cuda: all inputs must be on one CUDA device")
+    _variant(xh.dtype, N, P)                       # the shapes the forward takes
+    if any(t.stride(-1) != 1 for t in (xh, B_, C_, dy)):
+        raise ValueError("ssd_scan_bwd_cuda: the last dim of xh, B_, C_ and dy must be "
+                         "contiguous")
+    dev, f32 = xh.device, torch.float32
+    dxh = torch.empty((Bb, S, H, P), dtype=xh.dtype, device=dev)
+    ddt = torch.zeros((Bb, S, H), dtype=f32, device=dev)
+    da = torch.zeros((H,), dtype=f32, device=dev)
+    dB = torch.zeros((Bb, S, G, N), dtype=f32, device=dev)
+    dC = torch.zeros((Bb, S, G, N), dtype=f32, device=dev)
+    if Bb and S and H:
+        a = a.contiguous()
+        dh = None if dh_final is None else dh_final.contiguous()
+        tiles = -(-S // BWD_TILE)
+        hbuf = torch.empty((Bb, H, tiles, P, N), dtype=f32, device=dev)
+        variant = "bf16" if xh.dtype == torch.bfloat16 else "f32"
+        lib = build.library()
+        fn = lib.repro_ssd_scan_bwd_bf16 if variant == "bf16" else lib.repro_ssd_scan_bwd_f32
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(xh.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
+                     C_.data_ptr(), dy.data_ptr(), None if dh is None else dh.data_ptr(),
+                     dxh.data_ptr(), ddt.data_ptr(), da.data_ptr(), dB.data_ptr(),
+                     dC.data_ptr(), hbuf.data_ptr(), Bb, S, H, P, G, N,
+                     *xh.stride()[:3], *dt.stride(), *B_.stride()[:3], *C_.stride()[:3],
+                     *dy.stride()[:3], stream)
+        build.check(err, f"ssd_scan_bwd ({variant})")
+        ssd_scan_bwd_cuda.launches += 1
+        ssd_scan_bwd_cuda.variant_launches[variant] += 1
+    return (dxh, ddt.to(dt.dtype), da.to(a.dtype), dB.to(B_.dtype), dC.to(C_.dtype))
+
+
+ssd_scan_bwd_cuda.launches = 0
+ssd_scan_bwd_cuda.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)

@@ -20,7 +20,12 @@ query and 8 KV heads of 256 at the prefill shape (window 1024) and the
 decode shape, RMSNorm at 4096 and 8 rows of d 3840. The flash
 backward (dq and dk/dv, O and lse from the forward kernel) at the train
 step's shape (B=4, S=T=1024, 16 heads of 64, causal) and with qwen3-moe's
-32 query and 4 KV heads of 128. ``--only`` times the calls whose name
+32 query and 4 KV heads of 128. The training backward of the MoE and SSM
+families: the grouped GEMM's dX (dy·wᵀ) and dW (bufᵀ·dy) at qwen3-moe's
+train microbatch (4 x 1024 tokens: C = 320 a expert), gate/up and down,
+each beside ``torch.bmm`` of the same product, and the SSD backward at
+mamba2-370m's and zamba2-2.7b's train microbatch (B=4, S=1024; 32 heads,
+N=128 and 80 heads, N=64). ``--only`` times the calls whose name
 contains it (``--only flash_bwd`` runs on a checkout whose forward lacks
 D = 256). ``--ssd-heads`` also times the bf16 SSD kernel at each number of
 heads a block can take at its shapes (a divisor of H/G up to
@@ -40,20 +45,26 @@ import torch
 
 from ..kernels.flash_attention import (
     _delta, flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
-from ..kernels.moe_gmm import moe_gmm_cuda
+from ..kernels.moe_gmm import moe_gmm_cuda, moe_gmm_dw_cuda, moe_gmm_dx_cuda
 from ..kernels import ssd_scan
 from ..kernels.rmsnorm import rmsnorm_cuda
-from ..kernels.ssd_scan import ssd_scan_cuda
+from ..kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 
 # qwen3-moe-30b-a3b's MoE layer: experts, d_model, d_ff_expert; tokens per
 # expert in a decode round of 8 slots, in a 511-token and a 256-token
 # admission and in a B=4 x S=1024 prefill step
 MOE_E, MOE_D, MOE_F = 128, 2048, 768
 MOE_C = {"decode": 8, "admit511": 40, "admit256": 256, "prefill": 320}
+# tokens per expert in a train microbatch of 4 x 1024 tokens:
+# round(4096 · 8 / 128 · 1.25)
+MOE_TRAIN_C = 320
 # the SSD scan's main-path shapes (B, S, H, P, G, N)
 SSD_PATHS = {"mamba2_prefill": (4, 1024, 32, 64, 1, 128),
              "zamba2_prefill": (4, 1024, 80, 64, 1, 64),
              "mamba2_admission": (1, 511, 32, 64, 1, 128)}
+# the SSD backward's: a train microbatch of each SSM config
+SSD_TRAIN_PATHS = {"mamba2_train": (4, 1024, 32, 64, 1, 128),
+                   "zamba2_train": (4, 1024, 80, 64, 1, 64)}
 
 
 # Now and then a profiler session on the card records no device event at
@@ -179,7 +190,7 @@ def main(repeats: int = 3, only: str = "", ssd_heads: bool = False) -> dict:
         o, lse = flash_attention_cuda(q, k, v, causal=True, window=0)
         bwd[path] = (q, k, v, do, lse, _delta(o, do).contiguous())
     ssd = {}
-    for path, (B, S, Hs, P, G, N) in SSD_PATHS.items():
+    for path, (B, S, Hs, P, G, N) in {**SSD_PATHS, **SSD_TRAIN_PATHS}.items():
         dt = (1e-3 + 0.099 * torch.rand(B, S, Hs, generator=gen, device="cuda")).to(bf16)
         a = -(1 + 15 * torch.rand(Hs, generator=gen, device="cuda")).to(bf16)
         ssd[path] = (randn(B, S, Hs, P), dt, a, 0.5 * randn(B, S, G, N),
@@ -215,6 +226,19 @@ def main(repeats: int = 3, only: str = "", ssd_heads: bool = False) -> dict:
             *ins, causal=True, window=0)
         calls[f"flash_bwd_dkv {path}"] = lambda ins=ins: flash_bwd_dkv_cuda(
             *ins, causal=True, window=0)
+    for path in SSD_TRAIN_PATHS:
+        ins = (*ssd.pop(path), randn(*SSD_TRAIN_PATHS[path][:4]))      # and dy
+        calls[f"ssd_scan_bwd {path}"] = lambda ins=ins: ssd_scan_bwd_cuda(*ins)
+    for part, (w, d_in) in (("gate/up", (w_up, MOE_D)), ("down", (w_down, MOE_F))):
+        buf, dy = randn(MOE_E, MOE_TRAIN_C, d_in), randn(MOE_E, MOE_TRAIN_C, w.shape[2])
+        calls[f"moe_gmm_dx train {part} C={MOE_TRAIN_C}"] = \
+            lambda dy=dy, w=w: moe_gmm_dx_cuda(dy, w)
+        calls[f"moe_gmm_dw train {part} C={MOE_TRAIN_C}"] = \
+            lambda buf=buf, dy=dy: moe_gmm_dw_cuda(buf, dy)
+        calls[f"torch.bmm dy·wT train {part} C={MOE_TRAIN_C}"] = \
+            lambda dy=dy, w=w: torch.bmm(dy, w.transpose(1, 2))
+        calls[f"torch.bmm bufT·dy train {part} C={MOE_TRAIN_C}"] = \
+            lambda buf=buf, dy=dy: torch.bmm(buf.transpose(1, 2), dy)
     for path, ins in ssd.items():
         calls[f"ssd_scan {path}"] = lambda ins=ins: ssd_scan_cuda(*ins)
         _, _, Hs, _, G, _ = SSD_PATHS[path]

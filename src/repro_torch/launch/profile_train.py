@@ -1,30 +1,36 @@
 """Where the time of a train step goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 3]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train [--config NAME] [--steps 3]
 
-Builds full-width qwen1.5-0.5b (bf16, random weights from seed 0) and the
+Builds one config at full width (bf16, random weights from seed 0) and the
 train step that ``chip_smoke.py`` drives (``train_1k``: B=8, S=1024, two
-microbatches of 4, remat "block", bf16 moments), takes one warm-up step,
+microbatches of 4, remat "block", bf16 moments; peak learning rate 1e-3,
+1e-4 for the wider configs): qwen1.5-0.5b (the
+default), qwen3-moe-30b-a3b, mamba2-370m or zamba2-2.7b, each at the depth
+that ``train_depth`` reckons for one card. Takes one warm-up step,
 ``--steps`` steps on the host clock (each ending in a synchronize), then
-one step under ``torch.profiler``. Prints host ms per step, trained
-tokens/s, the device's busy time in the profiled step and its idle share
-against the unprofiled step time (the profiler slows the host, not the
-kernels), device time by kernel family, the kernels launched per step, and
-peak memory (``torch.cuda.max_memory_allocated`` over the steps). Needs a
-CUDA card.
+one step under ``torch.profiler``. Prints the depth reckoning, host ms per
+step, trained tokens/s, the device's busy time in the profiled step and its
+idle share against the unprofiled step time (the profiler slows the host,
+not the kernels), device time by kernel family (each of the port's kernels
+a family of its own: the grouped GEMM's forward, dX and dW, the SSD scan's
+forward and backward, ...) and by kernel, the kernels launched per step,
+and peak memory (``torch.cuda.max_memory_allocated`` over the steps).
+Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from collections import defaultdict
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from ..configs import get_config
-from ..configs.base import ShapeConfig, TrainConfig
+from ..configs.base import ModelConfig, ShapeConfig, TrainConfig
 from ..data import DataConfig, TokenPipeline
 from ..kernels import ops
 from ..models import build_model
@@ -33,7 +39,32 @@ from ..runtime.train import init_state, make_train_step
 SHAPE = ShapeConfig("train_1k", 1024, 8, "train")
 TCFG = TrainConfig(remat="block", opt_dtype="bfloat16", microbatch_per_device=4,
                    warmup_steps=2, learning_rate=1e-3)
-FAMILIES = (("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),
+CONFIGS = ("qwen1.5-0.5b", "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-2.7b")
+# train state per parameter: bf16 param 2, f32 master 4, two bf16 moments
+# 4, f32 gradient accumulator 4, the step's bf16 gradient 2
+STATE_BYTES_PER_PARAM = 16
+# the device memory a config's train step may reach at its reckoned depth
+# (of the card's 80 GB), above which it is cut further
+PEAK_LIMIT_GB = {"qwen3-moe-30b-a3b": 72.0, "zamba2-2.7b": 75.0}
+# layers a config trains with on one card: qwen3-moe-30b-a3b's 48 layers
+# hold 623 M parameters each (10 GB of train state): 4 of them and the
+# 622 M of its embedding and head, 3.11 B parameters, ~50 GB of state.
+# The others train at full depth.
+TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 4}
+# peak learning rate by config (TCFG's 1e-3 for the others): at 1e-3, two
+# warm-up steps and one repeated batch, the widest configs (d 2048 and
+# 2560) overshoot and their loss climbs from the third step; 1e-4 is the
+# order of published rates at these sizes (GPT-3's 1.6e-4 at 2.7 B)
+LEARNING_RATE = {"qwen3-moe-30b-a3b": 1e-4, "mamba2-370m": 1e-4, "zamba2-2.7b": 1e-4}
+# device kernels by family: the first entry whose substrings all occur in
+# the kernel's name (the grouped GEMM's templates name their operand
+# layouts: <false, true> forward, <false, false> dX, <true, true> dW)
+FAMILIES = (("moe_gmm dX", ("moe_gmm", "false, false>")),
+            ("moe_gmm dW", ("moe_gmm", "true, true>")),
+            ("moe_gmm fwd", ("moe_gmm",)),
+            ("ssd_scan bwd", ("ssd_scan_bwd",)),
+            ("ssd_scan fwd", ("ssd_scan",)),
+            ("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),
             ("flash bwd dq", ("flash_bwd_dq",)),
             ("flash bwd dkv", ("flash_bwd_dkv",)),
             ("rmsnorm", ("rmsnorm_",)),
@@ -45,28 +76,64 @@ FAMILIES = (("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_dec
 def family(kernel_name: str) -> str:
     low = kernel_name.lower()
     for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
+        if fam.startswith(("moe_gmm", "ssd_scan")):
+            if all(k in low for k in keys):
+                return fam
+        elif any(k in low for k in keys):
             return fam
     return "other"
 
 
-def setup(seed: int = 0, device: str = "cuda"):
-    """→ (model, train_step, state, batch) of the train phase, on ``device``."""
-    cfg = get_config("qwen1.5-0.5b")
+def train_depth(config: str) -> Tuple[ModelConfig, Dict[str, Any]]:
+    """The config cut to the depth it trains at on one card, and the
+    reckoning: parameters per layer and outside the layers, train state at
+    ``STATE_BYTES_PER_PARAM``, and the cut."""
+    full = get_config(config)
+    layers = TRAIN_LAYERS.get(config, full.n_layers)
+    cfg = full if layers == full.n_layers else full.scaled(n_layers=layers)
+    total = build_model(cfg, "meta").n_params()
+    if cfg.family == "hybrid":   # the shared block sits outside the layer count
+        per_layer = None
+    else:
+        per_layer = (total - build_model(cfg.scaled(n_layers=1), "meta").n_params()) \
+            / max(layers - 1, 1)
+    return cfg, {
+        "config": config, "layers": f"{layers} of {full.n_layers}",
+        "params": total, "params_per_layer": per_layer,
+        "params_outside_layers": None if per_layer is None else total - per_layer * layers,
+        "state_gb": total * STATE_BYTES_PER_PARAM / 1e9,
+        "cut": None if layers == full.n_layers else
+        f"n_layers {full.n_layers} -> {layers}: full width, "
+        f"{STATE_BYTES_PER_PARAM} bytes of train state a parameter",
+        "peak_limit_gb": PEAK_LIMIT_GB.get(config)}
+
+
+def train_config(config: str) -> TrainConfig:
+    """TCFG at ``config``'s learning rate."""
+    return dataclasses.replace(TCFG, learning_rate=LEARNING_RATE.get(config, TCFG.learning_rate))
+
+
+def setup(seed: int = 0, device: str = "cuda", config: str = "qwen1.5-0.5b"):
+    """→ (model, train_step, state, batch) of ``config``'s train phase at
+    its ``train_depth`` and ``train_config``, on ``device``."""
+    cfg, _ = train_depth(config)
     model = build_model(cfg, device)
-    step, *_ = make_train_step(model, TCFG, SHAPE)
-    state = init_state(model, TCFG, torch.Generator(device).manual_seed(seed))
+    tcfg = train_config(config)
+    step, *_ = make_train_step(model, tcfg, SHAPE)
+    state = init_state(model, tcfg, torch.Generator(device).manual_seed(seed))
     batch = TokenPipeline(DataConfig(cfg.vocab, SHAPE.seq_len, SHAPE.global_batch,
                                      seed=seed)).batch(0)
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     return model, step, state, batch
 
 
-def main(steps: int = 3, seed: int = 0) -> Dict[str, Any]:
+def main(steps: int = 3, seed: int = 0, config: str = "qwen1.5-0.5b") -> Dict[str, Any]:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    model, step, state, batch = setup(seed)
+    _, reckoning = train_depth(config)
+    print(json.dumps({"depth_reckoning": reckoning}))
+    model, step, state, batch = setup(seed, config=config)
     torch.cuda.reset_peak_memory_stats()
     state, _ = step(state, batch)                                # warm-up
     torch.cuda.synchronize()
@@ -97,7 +164,8 @@ def main(steps: int = 3, seed: int = 0) -> Dict[str, Any]:
     tokens = SHAPE.global_batch * SHAPE.seq_len
     report = {
         "device": torch.cuda.get_device_name(0),
-        "model": f"{model.cfg.name} {model.n_params() / 1e6:.1f}M params bf16",
+        "model": f"{model.cfg.name} {model.n_params() / 1e6:.1f}M params bf16, "
+                 f"{reckoning['layers']} layers",
         "shape": f"B={SHAPE.global_batch} S={SHAPE.seq_len}, 2 microbatches, remat block",
         "step_ms": ms, "median_step_ms": step_ms,
         "trained_tok_per_s": tokens / (step_ms / 1e3),
@@ -108,7 +176,7 @@ def main(steps: int = 3, seed: int = 0) -> Dict[str, Any]:
         "device_ms_by_family": {k: v / 1e3 for k, v in sorted(
             by_family.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
-            by_kernel.items(), key=lambda kv: -kv[1])[:10]},
+            by_kernel.items(), key=lambda kv: -kv[1])[:12]},
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "loss": float(metrics["loss"]),
     }
@@ -118,7 +186,8 @@ def main(steps: int = 3, seed: int = 0) -> Dict[str, Any]:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="qwen1.5-0.5b", choices=CONFIGS)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args()
-    main(a.steps, a.seed)
+    main(a.steps, a.seed, a.config)

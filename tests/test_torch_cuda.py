@@ -8,7 +8,10 @@ Elsewhere it skips (the kernels have no CPU mode). Tolerances are those of
 tests/test_kernels.py (f32 2e-3, bf16 2e-2; for the grouped GEMM f32 1e-3,
 bf16 5e-2 relative and 5e-1 absolute); lse is f32 statistics in both
 versions, 2e-3. The SSD scan's final state is f32 in both versions, its y
-in the input dtype; each is held to the input dtype's tolerance.
+in the input dtype; each is held to the input dtype's tolerance. The
+grouped GEMM's and the SSD scan's backward kernels are held to 2e-3 (f32)
+or 2e-2 (bf16), relative and of each output's largest value: they sum in
+another order than the plain versions.
 """
 import pytest
 import torch
@@ -271,7 +274,8 @@ def test_cuda_wrappers_count_their_launches():
                             kv_len=torch.tensor([3, 16], dtype=torch.int32))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"rmsnorm": 1, "flash_fwd": 1, "flash_bwd_dq": 0,
-                                   "flash_bwd_dkv": 0, "moe_gmm": 0, "ssd_scan": 0}
+                                   "flash_bwd_dkv": 0, "moe_gmm": 0, "moe_gmm_dx": 0,
+                                   "moe_gmm_dw": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     # one differentiable call and its backward: one launch of each flash kernel
     ops.reset_launch_counts()
     q = torch.randn(2, 32, 4, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
@@ -279,7 +283,8 @@ def test_cuda_wrappers_count_their_launches():
     torch.autograd.grad(o.float().square().sum(), q)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_fwd": 1, "flash_bwd_dq": 1,
-                                   "flash_bwd_dkv": 1, "moe_gmm": 0, "ssd_scan": 0}
+                                   "flash_bwd_dkv": 1, "moe_gmm": 0, "moe_gmm_dx": 0,
+                                   "moe_gmm_dw": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def test_cuda_backward_kernels_match_plain_version_on_the_card():
@@ -428,21 +433,77 @@ def test_cuda_moe_gmm_wrapper_refuses_bad_inputs_and_counts_launches():
     assert empty.shape == (2, 0, 32) and ops.launch_counts()["moe_gmm"] == 3
 
 
-def test_cuda_moe_gmm_refuses_a_call_that_needs_a_gradient():
-    """No backward kernel yet: with grad on and an input that requires it
-    the call raises, and launches nothing; under no_grad it runs."""
+# (E, C, D, F) of the backward: C = 1, 8, 17, 40, 320 tokens per expert
+# (the contraction of dW; 320 is qwen3-moe's train microbatch), D and F of
+# one tile and partial ones, then D or F no multiple of 8 (the wmma tile)
+GMM_BWD_CASES = [(4, 1, 256, 64), (4, 8, 256, 64), (3, 17, 136, 264), (4, 40, 200, 72),
+                 (2, 320, 512, 256), (3, 17, 100, 36), (2, 70, 33, 129)]
+
+
+def _gmm_bwd_tol(dt, want):
+    """2e-2 (bf16) or 2e-3 (f32) relative, and of the largest value: a
+    product that sums C or F terms in another order."""
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-3
+    return dict(rtol=tol, atol=tol * float(want.float().abs().max()))
+
+
+def test_cuda_moe_gmm_backward_kernels_match_plain_version():
+    """dX = dy·wᵀ and dW = bufᵀ·dy against ``moe_gmm_bwd_plain``, f32 and
+    bf16, at ragged C and D/F of no tile's width; each launch on the
+    variant ``_bwd_variant`` names (bf16 with D, F multiples of 8 on ``tc``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    buf = torch.randn(2, 8, 64, device="cuda", requires_grad=True)
-    w = torch.randn(2, 64, 32, device="cuda")
+    from repro_torch.kernels.moe_gmm import _bwd_variant, moe_gmm_bwd_plain, moe_gmm_dw_cuda, \
+        moe_gmm_dx_cuda
+    gen = torch.Generator("cuda").manual_seed(8)
     ops.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        ops.moe_gmm(buf, w)
-    assert ops.launch_counts()["moe_gmm"] == 0
+    want = {"tc": 0, "wmma": 0, "fma": 0}
+    for (E, C, D, F) in GMM_BWD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            buf = torch.randn(E, C, D, generator=gen, device="cuda").to(dt)
+            w = (D ** -0.5 * torch.randn(E, D, F, generator=gen, device="cuda")).to(dt)
+            dy = torch.randn(E, C, F, generator=gen, device="cuda").to(dt)
+            dbuf, dw = moe_gmm_dx_cuda(dy, w), moe_gmm_dw_cuda(buf, dy)
+            pbuf, pw = moe_gmm_bwd_plain(buf, w, dy)
+            torch.cuda.synchronize()
+            assert dbuf.dtype == dw.dtype == dt
+            torch.testing.assert_close(dbuf.float(), pbuf.float(), **_gmm_bwd_tol(dt, pbuf))
+            torch.testing.assert_close(dw.float(), pw.float(), **_gmm_bwd_tol(dt, pw))
+            want[_bwd_variant(dt, D, F, True)] += 1
+    assert ops.moe_gmm_bwd_variant_counts() == {"moe_gmm_dx": want, "moe_gmm_dw": want}
+    assert want["tc"] == 5 and want["wmma"] == 2
+
+
+def test_cuda_moe_gmm_gradients_come_from_the_backward_kernels(monkeypatch):
+    """With grad on, ``ops.moe_gmm`` goes through the Function: one forward
+    launch, then one dX and one dW launch, never the plain backward, and
+    the gradients match it; under no_grad only the forward launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd_plain
+    gen = torch.Generator("cuda").manual_seed(9)
+    buf = torch.randn(4, 40, 256, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(4, 256, 64, generator=gen, device="cuda") / 16).bfloat16()
+    dy = torch.randn(4, 40, 64, generator=gen, device="cuda").bfloat16()
+    want = moe_gmm_bwd_plain(buf, w, dy)
+
+    def refuse(*args):
+        raise AssertionError("the plain backward ran on the card")
+
+    monkeypatch.setattr(ops, "moe_gmm_bwd_plain", refuse)
+    ops.reset_launch_counts()
+    b, ww = buf.clone().requires_grad_(), w.clone().requires_grad_()
+    got = torch.autograd.grad(ops.moe_gmm(b, ww), (b, ww), dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["moe_gmm"], counts["moe_gmm_dx"], counts["moe_gmm_dw"]) == (1, 1, 1)
+    assert ops.moe_gmm_bwd_variant_counts()["moe_gmm_dw"]["tc"] == 1
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g.float(), p.float(), **_gmm_bwd_tol(torch.bfloat16, p))
     with torch.no_grad():
-        out = ops.moe_gmm(buf, w)
-    torch.testing.assert_close(out, moe_gmm_plain(buf.detach(), w), **GMM_TOL[torch.float32])
-    assert ops.launch_counts()["moe_gmm"] == 1
+        ops.moe_gmm(b, ww)
+    counts = ops.launch_counts()
+    assert (counts["moe_gmm"], counts["moe_gmm_dx"], counts["moe_gmm_dw"]) == (2, 1, 1)
 
 
 def _ssd_inputs(B, S, H, P, G, N, dt, gen, strided=False, a_range=(0.5, 2.0)):
@@ -487,13 +548,16 @@ def test_cuda_ssd_scan_matches_plain_version_on_the_card():
                 torch.testing.assert_close(h, ph, rtol=2e-3, atol=2e-3)
 
 
-def test_cuda_ssd_scan_refuses_bad_inputs_and_a_call_that_needs_a_gradient():
-    """No backward kernel yet (JAX has none): with grad on and an input that
-    requires it ``ops.ssd_scan`` raises and launches nothing; under no_grad
-    it runs and counts one launch. Unsupported state dims, head dims, mixed
-    dtypes and a non-contiguous last dim are refused."""
+def test_cuda_ssd_scan_refuses_bad_inputs_and_differentiates_through_its_kernels(monkeypatch):
+    """Unsupported state dims, head dims, mixed dtypes and a non-contiguous
+    last dim are refused. With grad on, ``ops.ssd_scan`` goes through the
+    Function: one forward launch, one backward launch, never the plain
+    backward, gradients as ``ssd_scan_bwd_plain``'s; an unused final state
+    reaches the backward as no gradient; under no_grad only the forward
+    launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_plain
     gen = torch.Generator("cuda").manual_seed(4)
     xh, dt, a, b, c = _ssd_inputs(1, 16, 2, 32, 1, 16, torch.float32, gen)
     bad = [((xh, dt, a, b[..., :8], c[..., :8]), "state dim"),
@@ -504,16 +568,71 @@ def test_cuda_ssd_scan_refuses_bad_inputs_and_a_call_that_needs_a_gradient():
     for args, match in bad:
         with pytest.raises(ValueError, match=match):
             ssd_scan_cuda(*args)
+    ins = _ssd_inputs(2, 100, 4, 32, 2, 16, torch.float32, gen, strided=True)
+    dy = torch.randn(2, 100, 4, 32, generator=gen, device="cuda")
+    want = ssd_scan_bwd_plain(*ins, dy)
+
+    def refuse(*args):
+        raise AssertionError("the plain backward ran on the card")
+
+    monkeypatch.setattr(ops, "ssd_scan_bwd_plain", refuse)
     ops.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="SSM training"):
-        ops.ssd_scan(xh.requires_grad_(), dt, a, b, c)
-    assert ops.launch_counts()["ssd_scan"] == 0
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    y, _ = ops.ssd_scan(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == 1 and ops.launch_counts()["ssd_scan_bwd"] == 1
+    assert ops.ssd_scan_bwd_variant_counts() == {"bf16": 0, "f32": 1}
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, rtol=2e-3, atol=2e-3 * float(p.abs().max()))
     with torch.no_grad():
-        y, h = ops.ssd_scan(xh, dt, a, b, c)
-    py, ph = ssd_scan_plain(xh.detach(), dt, a, b, c)
+        y, h = ops.ssd_scan(*ins)
+    py, ph = ssd_scan_plain(*ins)
     torch.testing.assert_close(y, py, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(h, ph, rtol=2e-3, atol=2e-3)
-    assert ops.launch_counts()["ssd_scan"] == 1
+    assert ops.launch_counts()["ssd_scan"] == 2 and ops.launch_counts()["ssd_scan_bwd"] == 1
+
+
+# (B, S, H, P, G, N) of the SSD backward: S at the 64-row tile's edges and
+# ragged (1, 37, 63, 64, 65, 127, 129, 300), G = 1, 2, 4 with several
+# heads a group, every state dim, P = 32, 64, 128
+SSD_BWD_CASES = [
+    (2, 1, 4, 64, 1, 128), (1, 37, 8, 32, 2, 16), (2, 63, 4, 64, 1, 32),
+    (1, 64, 8, 128, 4, 64), (2, 65, 8, 32, 2, 128), (1, 127, 4, 64, 2, 16),
+    (2, 129, 16, 64, 4, 32), (1, 300, 8, 128, 1, 64),
+]
+
+
+def test_cuda_ssd_scan_backward_matches_plain_version():
+    """dxh, ddt, da, dB and dC against ``ssd_scan_bwd_plain``, f32 within
+    2e-3 and bf16 within 2e-2, relative and of each output's largest value
+    (dB, dC, ddt and da are sums in no fixed order: f32 atomics over the
+    heads of a group, the P tiles, batch and sequence), strided model
+    views, strong decay, dh_final zero and not. The largest value is taken
+    as at least 1e-3: at S = 1 da is exactly 0 (a single row's decay
+    leaves no trace) and the kernel's cancelling f32 sums leave ~1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_bwd_plain
+    gen = torch.Generator("cuda").manual_seed(10)
+    ops.reset_launch_counts()
+    n = {"bf16": 0, "f32": 0}
+    for i, (B, S, H, P, G, N) in enumerate(SSD_BWD_CASES):
+        for dt, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
+            ins = _ssd_inputs(B, S, H, P, G, N, dt, gen, strided=True,
+                              a_range=(1.0, 16.0) if i % 2 else (0.5, 2.0))
+            dy = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dt)
+            dh = torch.randn(B, H, P, N, generator=gen, device="cuda") if i % 3 else None
+            got = ssd_scan_bwd_cuda(*ins, dy, dh)
+            want = ssd_scan_bwd_plain(*ins, dy, dh)
+            torch.cuda.synchronize()
+            for name, g, p in zip(("dxh", "ddt", "da", "dB", "dC"), got, want):
+                assert g.dtype == p.dtype, name
+                scale = max(float(p.float().abs().max()), 1e-3)
+                torch.testing.assert_close(g.float(), p.float(), rtol=tol, atol=tol * scale,
+                                           msg=lambda m: f"{name} {(B, S, H, P, G, N)} {dt}: {m}")
+            n["bf16" if dt == torch.bfloat16 else "f32"] += 1
+    assert ops.ssd_scan_bwd_variant_counts() == n
 
 
 def test_cuda_ssd_scan_tc_matches_plain_versions_on_the_card():

@@ -64,7 +64,8 @@ GMM_CASES = [(2, 64, 128, 96), (8, 128, 64, 256), (3, 96, 160, 32),
              (4, 1, 128, 64), (4, 8, 128, 64), (4, 40, 128, 64),
              (8, 40, 128, 64), (8, 40, 64, 128), (8, 82, 128, 64), (8, 100, 64, 128)]
 NO_LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-               "moe_gmm": 0, "ssd_scan": 0}
+               "moe_gmm": 0, "moe_gmm_dx": 0, "moe_gmm_dw": 0, "ssd_scan": 0,
+               "ssd_scan_bwd": 0}
 
 
 def _tol(name):
@@ -314,12 +315,14 @@ def test_build_hash_covers_every_source(tmp_path, monkeypatch):
     names = {p.name for p in build.sources()}
     assert {"flash_fwd.cu", "rmsnorm.cu", "errors.cu"} <= names
     assert build.source_hash() == build.source_hash()
-    assert {"flash_bwd.cu", "moe_gmm.cu", "ssd_scan.cu", "hopper.cuh"} <= names
+    assert {"flash_bwd.cu", "moe_gmm.cu", "ssd_scan.cu", "ssd_scan_bwd.cu", "hopper.cuh"} <= names
     assert set(build.SIGNATURES) == {
         f"repro_{k}_{t}" for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                                    "moe_gmm", "ssd_scan")
         for t in ("f32", "bf16")} | {
-            "repro_flash_decode_bf16", "repro_moe_gmm_bf16_tc", "repro_moe_gmm_bf16_decode"}
+            "repro_flash_decode_bf16", "repro_moe_gmm_bf16_tc", "repro_moe_gmm_bf16_decode",
+            "repro_moe_gmm_bwd_bf16_tc", "repro_moe_gmm_bwd_bf16", "repro_moe_gmm_bwd_f32",
+            "repro_ssd_scan_bwd_f32", "repro_ssd_scan_bwd_bf16"}
     # a change to any source, the shared header included, changes the hash
     for src in build.sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
@@ -475,7 +478,8 @@ def test_moe_gmm_variant_picker(dtype, C, D, F, aligned, want):
 
 def test_moe_gmm_on_cpu_is_differentiable():
     """On the CPU ``ops.moe_gmm`` is the plain product, gradients included
-    (dX = dY·Wᵀ, dW = Xᵀ·dY); the card refuses a call that needs them."""
+    (dX = dY·Wᵀ, dW = Xᵀ·dY, through ``moe_gmm_bwd_plain``); on the card
+    they come from the dX and dW kernels."""
     buf = torch.randn(3, 5, 16, dtype=torch.float64, requires_grad=True)
     w = torch.randn(3, 16, 8, dtype=torch.float64, requires_grad=True)
     assert torch.autograd.gradcheck(ops.moe_gmm, (buf, w))
