@@ -40,12 +40,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                of 8 and a misaligned base (the wmma tile), its launches by
                variant checked, timed at the MoE train microbatch (gate/up
                and down, C = 320) beside ``torch.bmm``; the SSD backward
-               (dxh, ddt, da, dB, dC) in f32 and bf16 at ragged S (1 to
-               300, the 64-row tile's edges), G = 1, 2, 4, every state
-               dim, P = 32, 64, 128, strided views, strong decay, dh_final
-               zero and not, each output within TOL relative and of its
-               largest value and per 64-row tile, timed at mamba2-370m's
-               and zamba2-2.7b's train microbatch.
+               (dxh, ddt, da, dB, dC) in f32 (``fma``) and bf16 (``tc``)
+               at ragged S (1 to 300, the 64-row tile's and the 128-row
+               chunk's edges), G = 1, 2, 4, every state dim, P = 32, 64,
+               128, strided views, strong decay, dh_final zero and not,
+               each output within TOL relative and of its largest value
+               and per 64-row tile of ``ssd_scan_bwd_plain``, the bf16
+               kernel also within TC_PLAIN_TOL of its own arithmetic
+               (``ssd_scan_bwd_tc_plain``), its launches by variant
+               checked, both variants timed (``tc`` whole and by its three
+               kernels) at mamba2-370m's and zamba2-2.7b's train
+               microbatch.
   4. serve   — full-width qwen1.5-0.5b (bf16, random weights from seed 0):
                ``make_prefill_step`` at B=4, S=1024, then 16 requests through
                ``ContinuousBatcher(batch_slots=8, max_len=2048)`` in
@@ -107,8 +112,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                dense step; mamba2 ssd_scan 4·48, ssd_scan_bwd 2·48, no
                attention; zamba2 as mamba2 over its 54 Mamba layers plus
                the shared block's 9 flash launches each way. Every bf16
-               forward gmm launch on ``tc_prefill``, every SSD forward on
-               ``tc``, every backward on its bf16 kernel; step time and
+               forward gmm launch on ``tc_prefill``, every SSD forward and
+               backward on ``tc``, every other backward on its tensor-core
+               kernel; step time and
                peak memory printed. Before each, a gradient guard: one
                microbatch's loss gradients through the kernels against the
                same through the plain versions of the grouped GEMM and the
@@ -141,6 +147,8 @@ LSE_TOL = 2e-3                                    # f32 statistics either way
 GUARD_TOL = 2e-2                                  # relative to max |logit|
 GRAD_F32_TOL = 1e-3                               # f32 gradients, kernels vs plain
 TILE_REL_TOL = 1e-2                               # backward, per 64-row tile
+TC_PLAIN_TOL = 8e-3                               # a kernel vs its own bf16
+                                                  # arithmetic: two bf16 ulps
 
 # the JAX test cases of tests/test_kernels.py (B = 2), then rows of a d
 # that is no multiple of 8 (element loads: the scalar tail) under the row
@@ -796,34 +804,49 @@ def gmm_bwd_phase(gen):
 
 
 def ssd_bwd_phase(gen):
-    """The SSD backward kernel against ``ssd_scan_bwd_plain``: SSD_BWD_CASES
-    in f32 and bf16 (strided views, both a ranges, dh_final zero and not),
-    every output held to TOL relative and TOL of its largest |value| (dB,
-    dC, ddt and da are f32 atomic sums over a group's heads, the P tiles,
-    batch and sequence: in no fixed order) and dxh, dB, dC per 64-row tile
-    of each (batch, head or group) within TILE_REL_TOL; launches by dtype
-    checked. Then the train microbatches of mamba2-370m and zamba2-2.7b
-    (bf16, strong decay, dh_final None as in training), also timed."""
+    """The SSD backward against ``ssd_scan_bwd_plain``: SSD_BWD_CASES in f32
+    (``fma``) and bf16 (``tc``), strided views, both a ranges, dh_final
+    zero and not, every output held to TOL relative and TOL of its largest
+    |value| (dB, dC, ddt and da are f32 sums across blocks, over a group's
+    heads, the P tiles, batch and sequence: in no fixed order) and dxh, dB,
+    dC per 64-row tile of each (batch, head or group) within TILE_REL_TOL;
+    ``tc`` also within TC_PLAIN_TOL of ``ssd_scan_bwd_tc_plain`` (its own
+    arithmetic: the same bf16 roundings, another summation order);
+    launches by variant checked. Then the train microbatches of mamba2-370m
+    and zamba2-2.7b (bf16, strong decay, dh_final None as in training),
+    also timed: ``tc`` whole and by its three kernels, and ``fma`` on the
+    same values in f32."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_bwd_plain
-    from repro_torch.launch.kernel_times import SSD_TRAIN_PATHS, device_ms, wrapper_ms
+    from repro_torch.kernels.ssd_scan import (
+        ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_bwd_tc_plain)
+    from repro_torch.launch.kernel_times import (
+        SSD_BWD_TC_STAGES, SSD_TRAIN_PATHS, device_ms, wrapper_ms)
     names = ("dxh", "ddt", "da", "dB", "dC")
 
-    def check(name, ins, dy, dh, tol):
-        got = ssd_scan_bwd_cuda(*ins, dy, dh)
-        want = ssd_scan_bwd_plain(*ins, dy, dh)
+    def held(name, got, want, tol, tiles):
         err, tile = 0.0, 0.0
         for part, g, w in zip(names, got, want):
             # at least 1e-3: at S = 1 da is exactly 0 and the kernel's
             # cancelling f32 sums leave ~1e-9
             scale = max(float(w.float().abs().max()), 1e-3)
             err = max(err, compare(f"{name} {part}", g, w, tol * scale, tol) / scale)
-            if part in ("dxh", "dB", "dC"):
+            if tiles and part in ("dxh", "dB", "dC"):
                 tile = max(tile, compare_tiles(f"{name} {part}", g, w))
         return err, tile
 
-    worst, worst_tile = 0.0, 0.0
+    def check(name, ins, dy, dh, tol):
+        """→ (worst error of the largest value against the plain version,
+        worst 64-row tile, worst against the kernel's own arithmetic)."""
+        got = ssd_scan_bwd_cuda(*ins, dy, dh)
+        err, tile = held(name, got, ssd_scan_bwd_plain(*ins, dy, dh), tol, True)
+        own = 0.0
+        if dy.dtype == torch.bfloat16:
+            own, _ = held(f"{name} (tc arithmetic)", got,
+                          ssd_scan_bwd_tc_plain(*ins, dy, dh), TC_PLAIN_TOL, False)
+        return err, tile, own
+
+    worst, worst_tile, worst_own = 0.0, 0.0, 0.0
     ops.reset_launch_counts()
     for i, case in enumerate(SSD_BWD_CASES):
         B, S, H, P, G, N = case
@@ -831,41 +854,57 @@ def ssd_bwd_phase(gen):
             ins = _ssd_inputs(gen, *case, dt, a_range=SSD_A_RANGES[i % 2])
             dy = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dt)
             dh = None if i % 3 == 0 else torch.randn(B, H, P, N, generator=gen, device="cuda")
-            err, tile = check(f"ssd_scan_bwd {case} {dt} dh_final "
-                              f"{'zero' if dh is None else 'random'}", ins, dy, dh,
-                              TOL[str(dt)[6:]])
-            worst, worst_tile = max(worst, err), max(worst_tile, tile)
+            err, tile, own = check(f"ssd_scan_bwd {case} {dt} dh_final "
+                                   f"{'zero' if dh is None else 'random'}", ins, dy, dh,
+                                   TOL[str(dt)[6:]])
+            worst, worst_tile, worst_own = max(worst, err), max(worst_tile, tile), \
+                max(worst_own, own)
     n = len(SSD_BWD_CASES)
-    if ops.ssd_scan_bwd_variant_counts() != {"bf16": n, "f32": n}:
-        fail(f"ssd_scan_bwd launches by dtype {ops.ssd_scan_bwd_variant_counts()}, "
-             f"expected {n} each")
+    if ops.ssd_scan_bwd_variant_counts() != {"tc": n, "fma": n}:
+        fail(f"ssd_scan_bwd launches by variant {ops.ssd_scan_bwd_variant_counts()}, "
+             f"expected {n} each (bf16 on tc, f32 on fma)")
     print(f"ssd_scan_bwd: {2 * n} cases within tolerance; worst error {worst:.3g} of the "
-          f"largest value, worst 64-row tile {worst_tile:.3g} relative")
-    timed = {}
+          f"largest value, worst 64-row tile {worst_tile:.3g} relative, tc against its own "
+          f"arithmetic {worst_own:.3g}")
+    timed = {"tc": {}, "fma": {}}
     for path, (B, S, H, P, G, N) in SSD_TRAIN_PATHS.items():
         ins = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16, a_range=(1.0, 16.0))
         dy = torch.randn(B, S, H, P, generator=gen, device="cuda").bfloat16()
-        err, tile = check(f"ssd_scan_bwd {path}", ins, dy, None, TOL["bfloat16"])
-        worst, worst_tile = max(worst, err), max(worst_tile, tile)
+        err, tile, own = check(f"ssd_scan_bwd {path}", ins, dy, None, TOL["bfloat16"])
+        worst, worst_tile, worst_own = max(worst, err), max(worst_tile, tile), max(worst_own, own)
         # bytes: x, dy, dt, B, C read once; dx, ddt, dB, dC, da written once
-        # (bf16); operations of the chunked backward at the bf16 forward's
-        # chunk Q = 128, the Q x Q products counted over their causal half:
-        # C·Bᵀ, dy·xᵀ, Mᵀ·dy, W·B, Wᵀ·C ((Q+1)·(3N+2P) a row), and five
-        # (Q x P)·(P x N)-sized products a row (B·gᵀ, dy·h_in, x·g, the g
-        # update, the recomputed state: 10·P·N)
+        # in the inputs' type; operations of the chunked backward at the bf16
+        # forward's chunk Q = 128, the Q x Q products counted over their
+        # causal half: C·Bᵀ, dy·xᵀ, Mᵀ·dy, W·B, Wᵀ·C ((Q+1)·(3N+2P) a row),
+        # and five (Q x P)·(P x N)-sized products a row (B·gᵀ, dy·h_in,
+        # x·g, the g update, the recomputed state: 10·P·N); at the bf16
+        # tensor-core rate for bf16 inputs, the f32 one for f32
         rows = B * S * H
-        nbytes = (2 * (2 * rows * P + B * S * H + 2 * B * S * G * N) + H) * 2
         flops = float(rows) * ((128 + 1) * (3 * N + 2 * P) + 10 * P * N)
-        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-        call = lambda ins=ins, dy=dy: ssd_scan_bwd_cuda(*ins, dy)   # noqa: E731
-        timed[path] = {
-            "shape": f"B={B} S={S} H={H} P={P} G={G} N={N} bf16, strided xh/B/C, "
-                     f"dh_final none", "max_rel_err": err, "max_tile_rel_err": tile,
-            "ms": device_ms(call, kernel="ssd_scan_bwd_kernel"),
-            "ms_with_casts_and_zeroing": device_ms(call), "wrapper_ms": wrapper_ms(call),
-            "plain_ms": device_ms(lambda: ssd_scan_bwd_plain(*ins, dy), iters=3),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        print(f"ssd_scan_bwd {path}: {json.dumps(timed[path])}")
+        elems = 2 * (2 * rows * P + B * S * H + 2 * B * S * G * N) + H
+        f32_ins = tuple(t.float() for t in ins)
+        for variant, xs, dys, size, rate in (
+                ("tc", ins, dy, 2, PEAK_BF16_FLOPS),
+                ("fma", f32_ins, dy.float(), 4, PEAK_F32_FLOPS)):
+            b_ms, b_by = bound(elems * size, flops, rate)
+            call = lambda xs=xs, dys=dys: ssd_scan_bwd_cuda(*xs, dys)   # noqa: E731
+            timed[variant][path] = {
+                "shape": f"B={B} S={S} H={H} P={P} G={G} N={N} "
+                         f"{'bf16' if variant == 'tc' else 'f32'}, strided xh/B/C, "
+                         f"dh_final none",
+                "ms": device_ms(call, kernel="ssd_scan_bwd"),
+                "ms_with_casts_and_zeroing": device_ms(call), "wrapper_ms": wrapper_ms(call),
+                "plain_ms": device_ms(lambda xs=xs, dys=dys: ssd_scan_bwd_plain(*xs, dys),
+                                      iters=3),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            if variant == "tc":
+                timed[variant][path].update(
+                    max_rel_err=err, max_tile_rel_err=tile, max_rel_err_own_arithmetic=own,
+                    ms_by_kernel={stage: device_ms(call, kernel=k)
+                                  for stage, k in SSD_BWD_TC_STAGES.items()})
+            print(f"ssd_scan_bwd {variant} {path}: {json.dumps(timed[variant][path])}")
+    # the checks above ran on both variants; the path's launches are counted
+    # in the train phase
     return worst, timed
 
 
@@ -1324,11 +1363,11 @@ def train_phase(config="qwen1.5-0.5b"):
     if per_step != expected:
         fail(f"train {cfg.name}: launches per step {per_step}, expected {expected}")
     # bf16 at S = 1024 (C = 320 tokens an expert): every forward on the
-    # tensor-core prefill variants, every backward on its tensor-core (or,
-    # for the SSD, bf16) kernel; the others' variants launch nothing
+    # tensor-core prefill variants, every backward on its tensor-core
+    # kernel; the others' variants launch nothing
     on = {"flash_fwd": "tc_prefill", "flash_bwd_dq": "tc", "flash_bwd_dkv": "tc",
           "moe_gmm": "tc_prefill", "moe_gmm_dx": "tc", "moe_gmm_dw": "tc",
-          "ssd_scan": "tc", "ssd_scan_bwd": "bf16"}
+          "ssd_scan": "tc", "ssd_scan_bwd": "tc"}
     for name, by_variant in variants.items():
         want = {v: (launches.get(name, 0) if v == on[name] else 0) for v in by_variant}
         if by_variant != want:
@@ -1493,8 +1532,10 @@ def main() -> int:
                                  for c, (n, _, _) in ssm.items()}},
         *(gmm_bwd_entry(name, gmm_bwd_err[name], gmm_bwd_t[name])
           for name in ("moe_gmm_dx", "moe_gmm_dw")),
-        # top level: mamba2-370m's train microbatch; "launches" is its train path's
-        {**ssd_bwd_t["mamba2_train"], "name": "ssd_scan_bwd", "route": "cuda",
+        # top level: mamba2-370m's train microbatch on ``tc`` (the path's
+        # variant); "launches" is its train path's; "variants" both kernels
+        # at both train shapes
+        {**ssd_bwd_t["tc"]["mamba2_train"], "name": "ssd_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:26",
          "replaces_note": "the backward of the TPU kernel, which has none: JAX "
@@ -1502,7 +1543,7 @@ def main() -> int:
          "launches": trained["mamba2-370m"][0]["ssd_scan_bwd"], "max_abs_err": ssd_bwd_err,
          "max_abs_err_is": "relative to each output's largest value",
          "library_ms": None, "library": "none: no single PyTorch call computes an SSD scan",
-         "paths": ssd_bwd_t, **train_launch_fields("ssd_scan_bwd")},
+         "variants": ssd_bwd_t, **train_launch_fields("ssd_scan_bwd")},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

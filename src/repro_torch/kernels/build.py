@@ -50,7 +50,7 @@ SIGNATURES = {
     "repro_ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_P],
     "repro_ssd_scan_bf16": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_P] + [_P, _I],
     "repro_ssd_scan_bwd_f32": [_P] * 13 + [_I] * 6 + [_LL] * 15 + [_P],
-    "repro_ssd_scan_bwd_bf16": [_P] * 13 + [_I] * 6 + [_LL] * 15 + [_P],
+    "repro_ssd_scan_bwd_bf16": [_P] * 17 + [_I] * 6 + [_LL] * 15 + [_P, _I],
 }
 
 _lock = threading.Lock()

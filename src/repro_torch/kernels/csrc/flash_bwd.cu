@@ -514,10 +514,10 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_m64n64(s, desc_k_major<D>(q_wg, BQ, kk), desc_k_major<D>(kt, BT, kk), kk > 0);
+        wgmma_ss<64>(s, desc_k_major<D>(q_wg, BQ, kk), desc_k_major<D>(kt, BT, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_m64n64(dp, desc_k_major<D>(do_wg, BQ, kk), desc_k_major<D>(vt, BT, kk),
+        wgmma_ss<64>(dp, desc_k_major<D>(do_wg, BQ, kk), desc_k_major<D>(vt, BT, kk),
                         kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -549,7 +549,7 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BT / 16; ++kk)
-        wgmma_rs_tb<D>(acc, da[kk], desc_mn_major<D>(kt, BT, kk));
+        wgmma_rs<D>(acc, da[kk], desc_mn_major<D>(kt, BT, kk), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -688,10 +688,10 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_m64n64(s, desc_k_major<D>(k_wg, BK, kk), desc_k_major<D>(qt, BT, kk), kk > 0);
+        wgmma_ss<64>(s, desc_k_major<D>(k_wg, BK, kk), desc_k_major<D>(qt, BT, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_m64n64(dp, desc_k_major<D>(v_wg, BK, kk), desc_k_major<D>(dot, BT, kk),
+        wgmma_ss<64>(dp, desc_k_major<D>(v_wg, BK, kk), desc_k_major<D>(dot, BT, kk),
                         kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -724,10 +724,10 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BT / 16; ++kk)
-        wgmma_rs_tb<DC>(dv, pa[kk], desc_mn_major<D>(dot + c0 * BT, BT, kk));
+        wgmma_rs<DC>(dv, pa[kk], desc_mn_major<D>(dot + c0 * BT, BT, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < BT / 16; ++kk)
-        wgmma_rs_tb<DC>(dk, da[kk], desc_mn_major<D>(qt + c0 * BT, BT, kk));
+        wgmma_rs<DC>(dk, da[kk], desc_mn_major<D>(qt + c0 * BT, BT, kk), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dk);

@@ -372,7 +372,7 @@ __global__ void __launch_bounds__(Smem<D>::kThreads, D <= 64 ? 2 : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_m64n64(s, desc_k_major<D>(q_wg, BQ, kk), desc_k_major<D>(kt, BK, kk), kk > 0);
+      wgmma_ss<64>(s, desc_k_major<D>(q_wg, BQ, kk), desc_k_major<D>(kt, BK, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -430,7 +430,7 @@ __global__ void __launch_bounds__(Smem<D>::kThreads, D <= 64 ? 2 : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs_tb<D>(o, pa[kk], desc_mn_major<D>(vt, BK, kk));
+      wgmma_rs<D>(o, pa[kk], desc_mn_major<D>(vt, BK, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);

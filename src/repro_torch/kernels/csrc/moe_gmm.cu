@@ -387,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t da = kAT ? desc_mn_major<64>(at, BK, kk) : desc_k_major<64>(at, BM, kk);
           const uint64_t db = kBT ? desc_mn_major<BN>(bt, BK, kk) : desc_k_major<64>(bt, BN, kk);
-          wgmma_ss_m64n256<kAT, kBT>(acc, da, db);
+          wgmma_ss<256, kAT, kBT>(acc, da, db, 1);
         }
         wgmma_commit();
         // done with the stage: free it at once, so that 3 stages' loads can

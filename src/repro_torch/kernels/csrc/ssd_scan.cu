@@ -521,12 +521,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 0) {   // its causal part: columns 0..63
 #pragma unroll
     for (int kk = 0; kk < N / 16; ++kk)
-      wgmma_ss_m64n64(*reinterpret_cast<float(*)[32]>(s), desc_k_major<N>(c_wg, Q, kk),
+      wgmma_ss<64>(*reinterpret_cast<float(*)[32]>(s), desc_k_major<N>(c_wg, Q, kk),
                       desc_k_major<N>(bs, Q, kk), kk > 0);
   } else {
 #pragma unroll
     for (int kk = 0; kk < N / 16; ++kk)
-      wgmma_ss_m64n128(s, desc_k_major<N>(c_wg, Q, kk), desc_k_major<N>(bs, Q, kk), kk > 0);
+      wgmma_ss<128>(s, desc_k_major<N>(c_wg, Q, kk), desc_k_major<N>(bs, Q, kk), kk > 0);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -693,7 +693,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < Q / 16; ++kk)
-      if (kk < ksteps) wgmma_rs_tb<PT>(y, ma[kk], desc_mn_major<PT>(xt, Q, kk));
+      if (kk < ksteps) wgmma_rs<PT>(y, ma[kk], desc_mn_major<PT>(xt, Q, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(y);

@@ -227,7 +227,7 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B_: torch.
     if dy is None:
         dy = torch.zeros_like(xh)
     if _on_cuda(xh, "ssd_scan_bwd"):
-        return ssd_scan_bwd_cuda(xh, dt, a, B_, C_, dy, dh_final)
+        return ssd_scan_bwd_cuda(xh, dt, a, B_, C_, dy.contiguous(), dh_final)
     return ssd_scan_bwd_plain(xh, dt, a, B_, C_, dy, dh_final)
 
 
@@ -290,8 +290,9 @@ def moe_gmm_bwd_variant_counts() -> Dict[str, Dict[str, int]]:
 
 
 def ssd_scan_bwd_variant_counts() -> Dict[str, int]:
-    """The SSD backward's launches by input dtype (``bf16``, ``f32``: one
-    kernel, f32 arithmetic); they sum to ``launch_counts()["ssd_scan_bwd"]``."""
+    """The SSD backward's calls by kernel variant (``tc``: bf16, chunks in
+    parallel on tensor cores; ``fma``: f32); they sum to
+    ``launch_counts()["ssd_scan_bwd"]``."""
     return dict(ssd_scan_bwd_cuda.variant_launches)
 
 

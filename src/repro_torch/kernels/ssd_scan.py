@@ -40,12 +40,24 @@ source.
 
 The backward (the TPU kernel has none: JAX differentiates ``ssd_chunked``
 with XLA) is ``ssd_scan_bwd_cuda`` (``csrc/ssd_scan_bwd.cu``), given dy and
-the final state's gradient: one kernel for both dtypes, f32 arithmetic, one
-block per (batch, head, P tile) that recomputes each 64-row tile's incoming
-state, then walks the tiles in reverse carrying dL/dh. dB and dC (summed
-over a group's heads), ddt (over the P tiles) and da (over batch and
-sequence) are summed with f32 atomics, in no fixed order. Its arithmetic is
-``ssd_scan_bwd_plain``'s up to summation order.
+the final state's gradient, by dtype (``_bwd_variant``):
+
+- ``tc`` (bf16): three launches. The chunk-local terms of both recurrences
+  (the state S_c and the gradient's G_c) per 128-row chunk in parallel; the
+  recurrences themselves over the chunks, elementwise, into each chunk's
+  h_in and outgoing-state gradient g in bf16; then every chunk's gradients
+  in parallel, the products on ``wgmma``, a block taking
+  ``_bwd_heads_per_block`` heads of one group and adding dB and dC once
+  for all of them. ``ssd_scan_bwd_tc_plain`` is its arithmetic in PyTorch.
+  xh, B_, C_ and dy must be 16-byte aligned, as the forward's.
+- ``fma`` (f32): one block per (batch, head, P tile) that recomputes each
+  64-row tile's incoming state, then walks the tiles in reverse carrying
+  dL/dh, f32 FMAs.
+
+dB and dC (summed over a group's heads), ddt (over the P tiles) and da
+(over batch and sequence) are summed in f32 across blocks, in no fixed
+order. Each kernel's arithmetic is ``ssd_scan_bwd_plain``'s up to
+summation order and, for ``tc``, its bf16 roundings.
 """
 from __future__ import annotations
 
@@ -60,8 +72,8 @@ from .flash_attention import _check_aligned
 DTYPES = (torch.float32, torch.bfloat16)
 STATE_DIMS = (16, 32, 64, 128)
 VARIANTS = ("tc", "fma")
-BWD_VARIANTS = ("bf16", "f32")
-BWD_TILE = 64        # rows of a tile of the backward kernel
+BWD_VARIANTS = ("tc", "fma")
+BWD_TILE = 64        # rows of a tile of the backward's fma kernel
 TC_CHUNK = 128        # rows of a chunk of the tc kernel: two warpgroups of 64
 TC_MAX_HEADS = 8      # heads a tc block takes at most (one warp scans each)
 # a tc block takes as many heads of its group as keeps at least this many
@@ -69,6 +81,12 @@ TC_MAX_HEADS = 8      # heads a tc block takes at most (one warp scans each)
 # x load with another's work, fewer blocks leave SMs waiting on a block's
 # loads (``kernel_times --ssd-heads`` times the choices)
 TC_MIN_BLOCKS_PER_SM = 3
+TC_BWD_MAX_HEADS = 4  # heads a tc backward block takes at most
+# a tc backward block takes as many heads of its group as keeps at least
+# this many blocks per SM (one block fills an SM): more heads add dB and
+# dC to device memory fewer times (``kernel_times --ssd-heads`` times the
+# choices)
+TC_BWD_MIN_BLOCKS_PER_SM = 1
 
 
 def _shapes(xh, dt, a, B_, C_) -> Tuple[int, int, int, int, int, int]:
@@ -291,6 +309,124 @@ def ssd_scan_bwd_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             da.to(a.dtype), dB.to(B_.dtype), dC.to(C_.dtype))
 
 
+def ssd_scan_bwd_tc_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                          B_: torch.Tensor, C_: torch.Tensor, dy: torch.Tensor,
+                          dh_final: Optional[torch.Tensor] = None, chunk: int = TC_CHUNK,
+                          ) -> Tuple[torch.Tensor, ...]:
+    """The ``tc`` backward kernels' arithmetic in PyTorch, for the tests
+    (nothing on the card's path calls it): ``ssd_scan_bwd_plain``'s
+    function in chunks of ``chunk`` rows, rounded where the kernels round
+    for bf16 inputs. The chunk states S_c = (w∘x)ᵀ·B and G_c = (e^{cum}∘dy)ᵀ·C
+    from bf16 hi + lo splits of w∘x and e^{cum}∘dy, stored in bf16; h_in and
+    the outgoing gradient g carried over the chunks in f32, rounded to bf16
+    where they enter a product (and <g, h_in>); M' = (C·Bᵀ)∘L and W = (dy·xᵀ)∘L·dt_j
+    (L_ij = e^{cum_i − cum_j}, j <= i) rounded to bf16; dt∘x, wq∘(dt∘x) and
+    e^{cum}∘dy rounded to bf16. T' = M'∘(dy·xᵀ) enters only through its
+    sums: by columns x_j·(M'ᵀ·dy)_j, by rows with dt_j dy_i·(M'·(dt∘x))_i
+    (part of dy·y, y the forward's output); the scalar chain in f32. f32
+    inputs round nothing (f64 compute in f64). → (dxh, ddt, da, dB, dC) in
+    the inputs' dtypes."""
+    Bb, S, H, P, G, N = _shapes(xh, dt, a, B_, C_)
+    if dy.shape != xh.shape or (dh_final is not None and dh_final.shape != (Bb, H, P, N)):
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} / dh_final "
+                         f"{None if dh_final is None else tuple(dh_final.shape)} do not "
+                         f"match xh {tuple(xh.shape)}")
+    acc = torch.promote_types(xh.dtype, torch.float32)
+    low = xh.dtype == torch.bfloat16
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.bfloat16).to(acc) if low else t
+
+    def split(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if not low:
+            return (t,)
+        hi = rnd(t)
+        return hi, rnd(t - hi)
+
+    Q = max(1, chunk)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    x, dtf, b, c, g_y = (t.to(acc) for t in (xh, dt, B_, C_, dy))
+    af = a.to(acc)
+    if pad:             # dt = 0 rows: no decay, no input, no gradient
+        x, g_y = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, g_y))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        b, c = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (b, c))
+    R = H // G
+    x = x.reshape(Bb, nc, Q, H, P)
+    g_y = g_y.reshape(Bb, nc, Q, H, P)
+    b = b.reshape(Bb, nc, Q, G, N)
+    c = c.reshape(Bb, nc, Q, G, N)
+    bh = b.repeat_interleave(R, dim=3)                               # (B,c,Q,H,N)
+    ch = c.repeat_interleave(R, dim=3)
+    dtc = dtf.reshape(Bb, nc, Q, H)
+    cum = (dtc * af).cumsum(2)                                       # (B,c,Q,H)
+    ecum = torch.exp(cum)
+    wq = torch.exp(cum[:, :, -1:] - cum)
+    w = wq * dtc
+    decay = torch.exp(cum[:, :, -1])                                 # (B,c,H)
+
+    # the chunk states, then both recurrences over the chunks
+    wx = x * w[..., None]
+    ey = g_y * ecum[..., None]
+    s_c = rnd(sum(torch.einsum("bcqhp,bcqhn->bchpn", part, bh) for part in split(wx)))
+    g_c = rnd(sum(torch.einsum("bcqhp,bcqhn->bchpn", part, ch) for part in split(ey)))
+    h = torch.zeros(Bb, H, P, N, dtype=acc, device=xh.device)
+    h_in = []
+    for ci in range(nc):
+        h_in.append(rnd(h))
+        h = h * decay[:, ci, :, None, None] + s_c[:, ci]
+    g = torch.zeros_like(h) if dh_final is None else dh_final.to(acc)
+    g_out = [None] * nc
+    for ci in range(nc - 1, -1, -1):
+        g_out[ci] = rnd(g)
+        g = g * decay[:, ci, :, None, None] + g_c[:, ci]
+    h_in = torch.stack(h_in, 1)                                      # (B,c,H,P,N)
+    g_out = torch.stack(g_out, 1)
+
+    # the chunk's (i, j) matrices, (B, c, H, i, j): M' = (C·Bᵀ)∘L, W = (dy·xᵀ)∘L·dt_j
+    cumt = cum.transpose(2, 3)                                       # (B,c,H,Q)
+    dtt = dtc.transpose(2, 3)
+    tril = torch.ones(Q, Q, dtype=torch.bool, device=xh.device).tril()
+    lm = torch.exp((cumt[..., :, None] - cumt[..., None, :]).masked_fill(~tril, float("-inf")))
+    cb = torch.einsum("bcign,bcjgn->bcgij", c, b).repeat_interleave(R, dim=2)
+    mp = rnd(cb * lm)
+    wmat = rnd(torch.einsum("bcihp,bcjhp->bchij", g_y, x) * lm * dtt[..., None, :])
+
+    # rows j: dx, dB; the column sums of T' = M'∘(dy·xᵀ) as x·(M'ᵀ·dy)
+    mdy = torch.einsum("bchij,bcihp->bcjhp", mp, g_y)
+    bg = torch.einsum("bcjhn,bchpn->bcjhp", bh, g_out)
+    dxh = dtc[..., None] * mdy + w[..., None] * bg
+    col = (x * mdy).sum(-1)                                          # (B,c,Q,H)
+    u = (x * bg).sum(-1)
+    xdt = rnd(x * dtc[..., None])
+    dbh = torch.einsum("bchij,bcihn->bcjhn", wmat, ch) + \
+        torch.einsum("bcjhp,bchpn->bcjhn", rnd(xdt * wq[..., None]), g_out)
+    # rows i: dC; dy·y with y the forward's output (its rows' sums of T'·dt
+    # and the incoming state's term)
+    dch = torch.einsum("bchij,bcjhn->bcihn", wmat, bh) + \
+        torch.einsum("bcihp,bchpn->bcihn", rnd(ey), h_in)
+    y = torch.einsum("bchij,bcjhp->bcihp", mp, xdt) + \
+        ecum[..., None] * torch.einsum("bcihn,bchpn->bcihp", ch, h_in)
+    dyy = (g_y * y).sum(-1)
+
+    # dcum's term dt_j·Col_j from the same rounded dt∘x as y's: the two
+    # cancel over the chunk (sum_k dt_k Col_k = sum_k of y's M' part)
+    dcum = dyy - (xdt * mdy).sum(-1) - w * u
+    dcum[:, :, -1] += decay * (g_out * h_in).sum((-1, -2)) + (w * u).sum(2)
+    dda = dcum.flip(2).cumsum(2).flip(2)
+    ddt = col + wq * u + af * dda
+    da = (dtc * dda).sum((0, 1, 2))
+
+    def unchunk(t, last):
+        return t.reshape(Bb, nc * Q, *last)[:, :S]
+
+    dB = unchunk(dbh, (G, R, N)).sum(3)
+    dC = unchunk(dch, (G, R, N)).sum(3)
+    return (unchunk(dxh, (H, P)).to(xh.dtype), unchunk(ddt, (H,)).to(dt.dtype),
+            da.to(a.dtype), dB.to(B_.dtype), dC.to(C_.dtype))
+
+
 def _variant(dtype: torch.dtype, N: int, P: int) -> str:
     """Which kernel a call takes: ``tc`` for bf16, ``fma`` for f32, at every
     state dim in ``STATE_DIMS`` and head dim that is a multiple of 32;
@@ -380,16 +516,38 @@ ssd_scan_cuda.launches = 0
 ssd_scan_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
+def _bwd_variant(dtype: torch.dtype, N: int, P: int) -> str:
+    """Which backward kernel a call takes: ``tc`` for bf16, ``fma`` for f32,
+    at the shapes the forward takes; another dtype or shape raises."""
+    _variant(dtype, N, P)
+    if dtype not in DTYPES:
+        raise ValueError(f"ssd_scan_bwd_cuda: dtype {dtype}; want one of {DTYPES}")
+    return "tc" if dtype == torch.bfloat16 else "fma"
+
+
+def _bwd_heads_per_block(B: int, S: int, H: int, G: int, P: int, sms: int) -> int:
+    """The heads a tc backward block takes: the most (a divisor of H/G, at
+    most ``TC_BWD_MAX_HEADS``) that leave the launch
+    ``TC_BWD_MIN_BLOCKS_PER_SM`` blocks an SM, else 1."""
+    units = B * -(-S // TC_CHUNK) * (P // _p_tile(P))
+    best = 1
+    for d in range(2, TC_BWD_MAX_HEADS + 1):
+        if (H // G) % d == 0 and units * (H // d) >= TC_BWD_MIN_BLOCKS_PER_SM * sms:
+            best = d
+    return best
+
+
 def ssd_scan_bwd_cuda(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       B_: torch.Tensor, C_: torch.Tensor, dy: torch.Tensor,
                       dh_final: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
-    """Launch ``csrc/ssd_scan_bwd.cu`` on the current stream: → (dxh, ddt,
-    da, dB, dC) in the inputs' dtypes, as ``ssd_scan_bwd_plain``. Takes the
-    forward's inputs as ``ssd_scan_cuda`` does (strided views with a
-    contiguous last dim), dy likewise, dh_final (B, H, P, N) f32 or None
-    (zero: training reads no final state, and that costs nothing). Counts
-    each launch in ``ssd_scan_bwd_cuda.launches`` and by dtype in
-    ``ssd_scan_bwd_cuda.variant_launches``."""
+    """Launch the backward kernel of ``csrc/ssd_scan_bwd.cu`` that
+    ``_bwd_variant`` names on the current stream: → (dxh, ddt, da, dB, dC)
+    in the inputs' dtypes, as ``ssd_scan_bwd_plain``. Takes the forward's
+    inputs as ``ssd_scan_cuda`` does (strided views with a contiguous last
+    dim; bf16 xh, B_, C_ and dy 16-byte aligned), dy likewise, dh_final (B,
+    H, P, N) f32 or None (zero: training reads no final state, and that
+    costs nothing). Counts each call in ``ssd_scan_bwd_cuda.launches`` and
+    by variant in ``ssd_scan_bwd_cuda.variant_launches``."""
     Bb, S, H, P, G, N = _shapes(xh, dt, a, B_, C_)
     ts = (xh, dt, a, B_, C_, dy)
     if xh.dtype not in DTYPES or any(t.dtype != xh.dtype for t in ts):
@@ -402,36 +560,61 @@ def ssd_scan_bwd_cuda(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if not (xh.is_cuda and all(t.device == xh.device for t in ts)
             and (dh_final is None or dh_final.device == xh.device)):
         raise ValueError("ssd_scan_bwd_cuda: all inputs must be on one CUDA device")
-    _variant(xh.dtype, N, P)                       # the shapes the forward takes
+    variant = _bwd_variant(xh.dtype, N, P)
     if any(t.stride(-1) != 1 for t in (xh, B_, C_, dy)):
         raise ValueError("ssd_scan_bwd_cuda: the last dim of xh, B_, C_ and dy must be "
                          "contiguous")
+    if variant == "tc":
+        _check_aligned("ssd_scan_bwd_cuda", xh=xh, B_=B_, C_=C_, dy=dy)
     dev, f32 = xh.device, torch.float32
     dxh = torch.empty((Bb, S, H, P), dtype=xh.dtype, device=dev)
-    ddt = torch.zeros((Bb, S, H), dtype=f32, device=dev)
-    da = torch.zeros((H,), dtype=f32, device=dev)
-    dB = torch.zeros((Bb, S, G, N), dtype=f32, device=dev)
-    dC = torch.zeros((Bb, S, G, N), dtype=f32, device=dev)
+    # dB, dC, ddt and da are summed across blocks in f32: one zeroed buffer
+    # (dB and dC first, their rows 16-byte aligned for the bulk adds), cast
+    # once to the inputs' dtype. Few tensor ops: on the host-bound train
+    # step each costs as much as a small kernel.
+    nbc, nddt = Bb * S * G * N, Bb * S * H
+    acc = torch.zeros(2 * nbc + nddt + H, dtype=f32, device=dev)
     if Bb and S and H:
         a = a.contiguous()
         dh = None if dh_final is None else dh_final.contiguous()
-        tiles = -(-S // BWD_TILE)
-        hbuf = torch.empty((Bb, H, tiles, P, N), dtype=f32, device=dev)
-        variant = "bf16" if xh.dtype == torch.bfloat16 else "f32"
         lib = build.library()
-        fn = lib.repro_ssd_scan_bwd_bf16 if variant == "bf16" else lib.repro_ssd_scan_bwd_f32
+        at = acc.data_ptr()
+        args = (xh.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                dy.data_ptr(), None if dh is None else dh.data_ptr(), dxh.data_ptr(),
+                at + 4 * 2 * nbc, at + 4 * (2 * nbc + nddt), at, at + 4 * nbc)
+        strides = (*xh.stride()[:3], *dt.stride(), *B_.stride()[:3], *C_.stride()[:3],
+                   *dy.stride()[:3])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn(xh.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
-                     C_.data_ptr(), dy.data_ptr(), None if dh is None else dh.data_ptr(),
-                     dxh.data_ptr(), ddt.data_ptr(), da.data_ptr(), dB.data_ptr(),
-                     dC.data_ptr(), hbuf.data_ptr(), Bb, S, H, P, G, N,
-                     *xh.stride()[:3], *dt.stride(), *B_.stride()[:3], *C_.stride()[:3],
-                     *dy.stride()[:3], stream)
+            if variant == "tc":
+                # scratch: per chunk S_c, G_c, h_in and g in bf16, then cum_last f32
+                nc = -(-S // TC_CHUNK)
+                n = Bb * H * nc * P * N
+                scratch = torch.empty(4 * 2 * n + 4 * Bb * H * nc, dtype=torch.uint8, device=dev)
+                sp = scratch.data_ptr()
+                heads = _bwd_heads_per_block(Bb, S, H, G, P, _sm_count(dev))
+                err = lib.repro_ssd_scan_bwd_bf16(
+                    *args, sp, sp + 2 * n, sp + 8 * n, sp + 4 * n, sp + 6 * n,
+                    Bb, S, H, P, G, N, *strides, stream, heads)
+            else:
+                hbuf = torch.empty((Bb, H, -(-S // BWD_TILE), P, N), dtype=f32, device=dev)
+                err = lib.repro_ssd_scan_bwd_f32(*args, hbuf.data_ptr(), Bb, S, H, P, G, N,
+                                                 *strides, stream)
         build.check(err, f"ssd_scan_bwd ({variant})")
         ssd_scan_bwd_cuda.launches += 1
         ssd_scan_bwd_cuda.variant_launches[variant] += 1
-    return (dxh, ddt.to(dt.dtype), da.to(a.dtype), dB.to(B_.dtype), dC.to(C_.dtype))
+    dB, dC, ddt, da = acc.to(xh.dtype).split((nbc, nbc, nddt, H))
+    return dxh, ddt.view(Bb, S, H), da, dB.view(Bb, S, G, N), dC.view(Bb, S, G, N)
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count, read once a device."""
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device]
 
 
 ssd_scan_bwd_cuda.launches = 0

@@ -25,11 +25,14 @@ families: the grouped GEMM's dX (dy·wᵀ) and dW (bufᵀ·dy) at qwen3-moe's
 train microbatch (4 x 1024 tokens: C = 320 a expert), gate/up and down,
 each beside ``torch.bmm`` of the same product, and the SSD backward at
 mamba2-370m's and zamba2-2.7b's train microbatch (B=4, S=1024; 32 heads,
-N=128 and 80 heads, N=64). ``--only`` times the calls whose name
+N=128 and 80 heads, N=64), by variant: ``tc`` on bf16 inputs, whole and
+each of its three kernels (``SSD_BWD_TC_STAGES``), and ``fma`` on the same
+values in f32. ``--only`` times the calls whose name
 contains it (``--only flash_bwd`` runs on a checkout whose forward lacks
-D = 256). ``--ssd-heads`` also times the bf16 SSD kernel at each number of
-heads a block can take at its shapes (a divisor of H/G up to
-``ssd_scan.TC_MAX_HEADS``; ``ssd_scan._heads_per_block`` picks one). A
+D = 256). ``--ssd-heads`` also times the bf16 SSD kernels at each number of
+heads a block can take at their shapes (a divisor of H/G up to
+``ssd_scan.TC_MAX_HEADS``, ``TC_BWD_MAX_HEADS`` for the backward;
+``ssd_scan._heads_per_block`` and ``_bwd_heads_per_block`` pick one). A
 time is the summed
 duration of what one call runs on the device, traced by
 ``torch.profiler``; host time between launches does not count. Prints one JSON line with ``--repeats`` readings per kernel and
@@ -65,6 +68,9 @@ SSD_PATHS = {"mamba2_prefill": (4, 1024, 32, 64, 1, 128),
 # the SSD backward's: a train microbatch of each SSM config
 SSD_TRAIN_PATHS = {"mamba2_train": (4, 1024, 32, 64, 1, 128),
                    "zamba2_train": (4, 1024, 80, 64, 1, 64)}
+# the bf16 SSD backward's three kernels, by a part of their names
+SSD_BWD_TC_STAGES = {"states": "ssd_scan_bwd_tc_states", "chain": "ssd_scan_bwd_tc_chain",
+                     "gradients": "ssd_scan_bwd_tc_kernel"}
 
 
 # Now and then a profiler session on the card records no device event at
@@ -141,15 +147,16 @@ def wrapper_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _with_heads(fn, heads: int):
-    """``fn`` with the bf16 SSD kernel's blocks taking ``heads`` heads."""
+def _with_heads(fn, heads: int, picker: str = "_heads_per_block"):
+    """``fn`` with the bf16 SSD kernel's blocks (the backward's, for
+    ``picker="_bwd_heads_per_block"``) taking ``heads`` heads."""
     def call():
-        saved = ssd_scan._heads_per_block
-        ssd_scan._heads_per_block = lambda *args: heads
+        saved = getattr(ssd_scan, picker)
+        setattr(ssd_scan, picker, lambda *args: heads)
         try:
             return fn()
         finally:
-            ssd_scan._heads_per_block = saved
+            setattr(ssd_scan, picker, saved)
     return call
 
 
@@ -226,9 +233,20 @@ def main(repeats: int = 3, only: str = "", ssd_heads: bool = False) -> dict:
             *ins, causal=True, window=0)
         calls[f"flash_bwd_dkv {path}"] = lambda ins=ins: flash_bwd_dkv_cuda(
             *ins, causal=True, window=0)
+    kernels = {}   # a call's name -> the device kernels it is timed by
     for path in SSD_TRAIN_PATHS:
         ins = (*ssd.pop(path), randn(*SSD_TRAIN_PATHS[path][:4]))      # and dy
-        calls[f"ssd_scan_bwd {path}"] = lambda ins=ins: ssd_scan_bwd_cuda(*ins)
+        f32 = tuple(t.float() for t in ins)
+        calls[f"ssd_scan_bwd {path} tc"] = lambda ins=ins: ssd_scan_bwd_cuda(*ins)
+        for stage, kernel in SSD_BWD_TC_STAGES.items():
+            calls[f"ssd_scan_bwd {path} tc {stage}"] = calls[f"ssd_scan_bwd {path} tc"]
+            kernels[f"ssd_scan_bwd {path} tc {stage}"] = kernel
+        calls[f"ssd_scan_bwd {path} fma (f32 inputs)"] = lambda f32=f32: ssd_scan_bwd_cuda(*f32)
+        _, _, Hs, _, G, _ = SSD_TRAIN_PATHS[path]
+        for heads in range(1, ssd_scan.TC_BWD_MAX_HEADS + 1) if ssd_heads else ():
+            if (Hs // G) % heads == 0:
+                calls[f"ssd_scan_bwd {path} tc heads={heads}"] = _with_heads(
+                    lambda ins=ins: ssd_scan_bwd_cuda(*ins), heads, "_bwd_heads_per_block")
     for part, (w, d_in) in (("gate/up", (w_up, MOE_D)), ("down", (w_down, MOE_F))):
         buf, dy = randn(MOE_E, MOE_TRAIN_C, d_in), randn(MOE_E, MOE_TRAIN_C, w.shape[2])
         calls[f"moe_gmm_dx train {part} C={MOE_TRAIN_C}"] = \
@@ -255,7 +273,7 @@ def main(repeats: int = 3, only: str = "", ssd_heads: bool = False) -> dict:
     out = {name: [] for name in calls}
     for _ in range(repeats):
         for name, fn in calls.items():
-            out[name].append(device_ms(fn, iters=50))
+            out[name].append(device_ms(fn, iters=50, kernel=kernels.get(name, "")))
     report = {"device": torch.cuda.get_device_name(0), "device_ms": out}
     print(json.dumps(report))
     return report
@@ -266,6 +284,6 @@ if __name__ == "__main__":
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--only", default="", help="time only the calls whose name contains this")
     ap.add_argument("--ssd-heads", action="store_true",
-                    help="also time the bf16 SSD kernel at each heads-per-block choice")
+                    help="also time the bf16 SSD kernels at each heads-per-block choice")
     args = ap.parse_args()
     main(args.repeats, args.only, args.ssd_heads)

@@ -14,7 +14,8 @@ step, trained tokens/s, the device's busy time in the profiled step and its
 idle share against the unprofiled step time (the profiler slows the host,
 not the kernels), device time by kernel family (each of the port's kernels
 a family of its own: the grouped GEMM's forward, dX and dW, the SSD scan's
-forward and backward, ...) and by kernel, the kernels launched per step,
+forward and the three kernels of its backward, ...) and by kernel, the
+kernels launched per step,
 and peak memory (``torch.cuda.max_memory_allocated`` over the steps).
 Needs a CUDA card.
 """
@@ -58,10 +59,14 @@ TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 4}
 LEARNING_RATE = {"qwen3-moe-30b-a3b": 1e-4, "mamba2-370m": 1e-4, "zamba2-2.7b": 1e-4}
 # device kernels by family: the first entry whose substrings all occur in
 # the kernel's name (the grouped GEMM's templates name their operand
-# layouts: <false, true> forward, <false, false> dX, <true, true> dW)
+# layouts: <false, true> forward, <false, false> dX, <true, true> dW; the
+# bf16 SSD backward's three kernels are "ssd_scan bwd states", "... chains"
+# and "ssd_scan bwd", the last also the f32 kernel)
 FAMILIES = (("moe_gmm dX", ("moe_gmm", "false, false>")),
             ("moe_gmm dW", ("moe_gmm", "true, true>")),
             ("moe_gmm fwd", ("moe_gmm",)),
+            ("ssd_scan bwd states", ("ssd_scan_bwd_tc_states",)),
+            ("ssd_scan bwd chains", ("ssd_scan_bwd_tc_chain",)),
             ("ssd_scan bwd", ("ssd_scan_bwd",)),
             ("ssd_scan fwd", ("ssd_scan",)),
             ("flash fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),

@@ -11,7 +11,11 @@ versions, 2e-3. The SSD scan's final state is f32 in both versions, its y
 in the input dtype; each is held to the input dtype's tolerance. The
 grouped GEMM's and the SSD scan's backward kernels are held to 2e-3 (f32)
 or 2e-2 (bf16), relative and of each output's largest value: they sum in
-another order than the plain versions.
+another order than the plain versions. The SSD backward's bf16 kernel is
+also held to ``ssd_scan_bwd_tc_plain``, its own arithmetic, within two bf16
+ulps (8e-3) relative and of each output's largest value: the two round the
+same values to bf16, in another summation order, so a rounding may land
+one ulp apart.
 """
 import pytest
 import torch
@@ -582,7 +586,7 @@ def test_cuda_ssd_scan_refuses_bad_inputs_and_differentiates_through_its_kernels
     got = torch.autograd.grad(y, leaves, dy)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ssd_scan"] == 1 and ops.launch_counts()["ssd_scan_bwd"] == 1
-    assert ops.ssd_scan_bwd_variant_counts() == {"bf16": 0, "f32": 1}
+    assert ops.ssd_scan_bwd_variant_counts() == {"tc": 0, "fma": 1}
     for g, p in zip(got, want):
         torch.testing.assert_close(g, p, rtol=2e-3, atol=2e-3 * float(p.abs().max()))
     with torch.no_grad():
@@ -616,7 +620,7 @@ def test_cuda_ssd_scan_backward_matches_plain_version():
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_bwd_plain
     gen = torch.Generator("cuda").manual_seed(10)
     ops.reset_launch_counts()
-    n = {"bf16": 0, "f32": 0}
+    n = {"tc": 0, "fma": 0}
     for i, (B, S, H, P, G, N) in enumerate(SSD_BWD_CASES):
         for dt, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
             ins = _ssd_inputs(B, S, H, P, G, N, dt, gen, strided=True,
@@ -631,8 +635,74 @@ def test_cuda_ssd_scan_backward_matches_plain_version():
                 scale = max(float(p.float().abs().max()), 1e-3)
                 torch.testing.assert_close(g.float(), p.float(), rtol=tol, atol=tol * scale,
                                            msg=lambda m: f"{name} {(B, S, H, P, G, N)} {dt}: {m}")
-            n["bf16" if dt == torch.bfloat16 else "f32"] += 1
+            n["tc" if dt == torch.bfloat16 else "fma"] += 1
     assert ops.ssd_scan_bwd_variant_counts() == n
+
+
+# (B, S, H, P, G, N) of the bf16 backward: S at its 128-row chunk's edges
+# (1, 127, 128, 129, 257, 300), G = 1, 2, 4 with up to 8 heads a group
+# (several heads a block), every state dim, P = 32, 64, 128 (two P tiles)
+SSD_BWD_TC_CASES = [
+    (2, 1, 4, 64, 1, 128), (1, 127, 8, 32, 2, 16), (2, 128, 8, 64, 1, 32),
+    (1, 129, 16, 128, 2, 64), (2, 257, 8, 64, 4, 128), (1, 300, 16, 32, 4, 64),
+    (2, 300, 8, 128, 1, 16), (1, 1024, 4, 64, 1, 128),
+]
+
+
+def test_cuda_ssd_scan_backward_tc_matches_its_arithmetic_and_the_plain_version():
+    """The bf16 kernel (three launches: the chunk states, the chains over
+    the chunks, the chunks' gradients) at its chunk's edges, strided model
+    views, both a ranges, dh_final zero and not: within two bf16 ulps of
+    ``ssd_scan_bwd_tc_plain`` and within 2e-2 of ``ssd_scan_bwd_plain``,
+    relative and of each output's largest value (at least 1e-3: at S = 1
+    da is 0); every call on ``tc``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.ssd_scan import (
+        ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_bwd_tc_plain)
+    gen = torch.Generator("cuda").manual_seed(11)
+    ops.reset_launch_counts()
+    for i, (B, S, H, P, G, N) in enumerate(SSD_BWD_TC_CASES):
+        ins = _ssd_inputs(B, S, H, P, G, N, torch.bfloat16, gen, strided=True,
+                          a_range=(1.0, 16.0) if i % 2 else (0.5, 2.0))
+        dy = torch.randn(B, S, H, P, generator=gen, device="cuda").bfloat16()
+        dh = torch.randn(B, H, P, N, generator=gen, device="cuda") if i % 3 else None
+        got = ssd_scan_bwd_cuda(*ins, dy, dh)
+        for want, tol in ((ssd_scan_bwd_tc_plain(*ins, dy, dh), 8e-3),
+                          (ssd_scan_bwd_plain(*ins, dy, dh), 2e-2)):
+            torch.cuda.synchronize()
+            for name, g, p in zip(("dxh", "ddt", "da", "dB", "dC"), got, want):
+                assert g.dtype == p.dtype == torch.bfloat16, name
+                scale = max(float(p.float().abs().max()), 1e-3)
+                torch.testing.assert_close(
+                    g.float(), p.float(), rtol=tol, atol=tol * scale,
+                    msg=lambda m: f"{name} {(B, S, H, P, G, N)} tol {tol}: {m}")
+    assert ops.ssd_scan_bwd_variant_counts() == {"tc": len(SSD_BWD_TC_CASES), "fma": 0}
+
+
+def test_cuda_ssd_scan_backward_tc_refuses_misaligned_views():
+    """The bf16 backward reads xh, B_, C_ and dy through TMA: a base that is
+    not a multiple of 16 bytes raises, naming the tensor, and launches
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    gen = torch.Generator("cuda").manual_seed(12)
+    ins = _ssd_inputs(2, 64, 4, 64, 1, 64, torch.bfloat16, gen, strided=True)
+    dy = torch.randn(2, 64, 4, 64, generator=gen, device="cuda").bfloat16()
+
+    def shifted(t):
+        return torch.randn(t.numel() + 1, device="cuda").to(t.dtype)[1:].view(t.shape)
+
+    ops.reset_launch_counts()
+    xh, dt, a, b, c = ins
+    for args, name in (((shifted(xh), dt, a, b, c, dy), "xh"),
+                       ((xh, dt, a, shifted(b), c, dy), "B_"),
+                       ((xh, dt, a, b, shifted(c), dy), "C_"),
+                       ((xh, dt, a, b, c, shifted(dy)), "dy")):
+        with pytest.raises(ValueError, match=f"{name} .*16-byte aligned"):
+            ssd_scan_bwd_cuda(*args)
+    assert ops.launch_counts()["ssd_scan_bwd"] == 0
 
 
 def test_cuda_ssd_scan_tc_matches_plain_versions_on_the_card():
