@@ -72,7 +72,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                every forward and backward attention launch on the
                tensor-core variants, and no MoE or SSM kernel (forward or
                backward) launched.
-  6. serve SSM — after the earlier phases' memory is given back, phase 4 on
+  6. train through the CWS — after phase 5's memory is given back, the
+               same model at full width and depth through the train launch
+               (``launch.train.train``: B=8, S=1024 in one microbatch, 8
+               steps in chunks of 2, a checkpoint task every 4 steps, lr
+               1e-3), a workflow the CWS schedules on its worker threads
+               (run A); then ``step_00000008`` deleted, as after a crash
+               past step 4, and the same arguments again (run B), which
+               must resume at step 4 and retake steps 5-8. Fails if the
+               checkpoints' disk has under CKPT_MIN_FREE_GB free, a loss
+               is not finite or run A's last is not below its first, a task
+               of either workflow did not succeed on its first attempt, a
+               step's launches are not the counts remat over 24 layers and
+               one microbatch gives (flash_fwd 48, flash_bwd_dq 24,
+               flash_bwd_dkv 24, rmsnorm 97; no other kernel) with every
+               attention launch on the tensor-core variants,
+               ``step_00000004`` does not hold step 4's state (its
+               ``data_step`` and optimizer step 4, its params the bf16 of
+               its master), or run B's losses are farther than RESUME_TOL
+               from run A's. Prints each checkpoint's seconds, the CWS's
+               provenance (task, node, runtime), the Lotaru estimate for a
+               ``train_chunk``, peak memory, steps/s and trained tokens/s,
+               the max |Δloss| of the resumed steps and whether they are
+               bit-identical.
+  7. serve SSM — after the earlier phases' memory is given back, phase 4 on
                full-width, full-depth mamba2-370m (48 layers, 419.8 M
                parameters), then on zamba2-2.7b (54 Mamba layers and one
                shared attention block applied 9 times, 2.42 B parameters),
@@ -87,20 +110,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                token through ``decode_step``, first-token logits compared
                in f32 (within GUARD_TOL) and in bf16 (against the f32
                result: the prefill no farther off than the feed).
-  7. serve MoE — after the earlier phases' memory is given back, phase 4 on
+  8. serve MoE — after the earlier phases' memory is given back, phase 4 on
                full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
                experts top-8, 30.5 B parameters in bf16 from seed 0): per
                prefill and per decode round flash_fwd 48, rmsnorm 97 and
                moe_gmm 144 launches, no backward launch; every prefill's
                moe_gmm launch (C > 16) on the tensor-core variant, every
                decode round's (C = 8) on the decode one; the cross-slot guard.
-  8. serve gemma3 — after the earlier phases' memory is given back, phase 4
+  9. serve gemma3 — after the earlier phases' memory is given back, phase 4
                on full-width, full-depth gemma3-12b (48 layers, 5 local
                layers of window 1024 to 1 global, 16 query and 8 KV heads of
                256, 12.77 B parameters in bf16 from seed 0): per prefill and
                per decode round flash_fwd 48 and rmsnorm 97 launches; the
                cross-slot guard.
-  9. train MoE, SSM, hybrid — after the earlier phases' memory is given
+ 10. train MoE, SSM, hybrid — after the earlier phases' memory is given
                back, phase 5 on qwen3-moe-30b-a3b (full width, 4 of 48
                layers: 3.11 B parameters, ~50 GB of train state at 16
                bytes a parameter; the peak must stay within 72 GB), then
@@ -121,7 +144,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                SSD scan on the card, within GRAD_F32_TOL of their norm in
                f32 and, in bf16, no farther from the f32 result than the
                plain versions' plus GUARD_TOL.
- 10. report  — the card's nvidia-smi line, one JSON line with every kernel's
+ 11. report  — the card's nvidia-smi line, one JSON line with every kernel's
                launches, error, times and bound, then
                ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -240,6 +263,13 @@ SSM_CONFIGS = ("mamba2-370m", "zamba2-2.7b")
 TRAIN_CONFIGS = ("qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-2.7b")
 MOE_CONFIG = "qwen3-moe-30b-a3b"
 GEMMA3_CONFIG = "gemma3-12b"
+# the CWS-scheduled train launch: full-width qwen1.5-0.5b in one microbatch
+# of 8 x 1024, a checkpoint task every 4 steps, profile_train's dense peak
+# learning rate (the launch's own 3e-3 is untried at this width)
+CWS_TRAIN = dict(arch="qwen1.5-0.5b", steps=8, chunk=2, batch=8, seq=1024,
+                 ckpt_every=4, lr=1e-3)
+CKPT_MIN_FREE_GB = 16.0       # two 4.6 GB checkpoints, a rewrite and room
+RESUME_TOL = 5e-2             # max |Δloss| of the resumed steps
 # the backward's timed shapes (B, S = T, Hq, Hkv, D, window), all causal:
 # the train step's microbatch (qwen1.5-0.5b), qwen3-moe-30b-a3b's heads,
 # zamba2-2.7b's shared block, a gemma3-12b local layer
@@ -1387,6 +1417,142 @@ def train_phase(config="qwen1.5-0.5b"):
                                 "reckoning": reckoning, "grad_guard": guard_rel}
 
 
+def _cws_run(ckpt_dir, expected, label):
+    """One run of the train launch, the launch counters set to 0 just before
+    it and read just after: each step's launches must be ``expected`` (and
+    no other kernel's), every attention launch on its tensor-core variant,
+    every task of the workflow SUCCEEDED on its first attempt. → (the
+    launch's result, its wall seconds, the run's launches)."""
+    import torch
+    from repro_torch.core.dag import TaskState
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+
+    # ---- the main path: counts from 0, read right after ----
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch.train(**CWS_TRAIN, ckpt_dir=ckpt_dir, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    variants = {"flash_fwd": ops.flash_variant_counts(), **ops.flash_bwd_variant_counts()}
+    # ---- end of the main path ----
+
+    dag = out["workflow"]
+    traces = out["runtime"].cws.provenance.traces_for_workflow(dag.workflow_id)
+    bad = {t.task_id: (t.state.value, t.attempt) for t in dag.tasks.values()
+           if t.state != TaskState.SUCCEEDED or t.attempt != 0}
+    if bad or sorted(t.task_id for t in traces) != sorted(dag.tasks):
+        fail(f"cws train {label}: tasks not all SUCCEEDED on their first attempt: {bad}, "
+             f"{len(traces)} attempts recorded for {len(dag.tasks)} tasks")
+    losses = [s["loss"] for s in out["steps"]]
+    if not all(math.isfinite(x) for x in losses + [s["grad_norm"] for s in out["steps"]]):
+        fail(f"cws train {label}: non-finite loss or grad norm: {out['steps']}")
+    want = {name: expected.get(name, 0) for name in launches}
+    before = dict.fromkeys(launches, 0)
+    for s in out["steps"]:
+        per = {name: s["launches"][name] - before[name] for name in launches}
+        if per != want:
+            fail(f"cws train {label}: step {s['step']} launched {per}, expected {want}")
+        before = s["launches"]
+    if before != launches:
+        fail(f"cws train {label}: launches outside the steps: {launches} against {before}")
+    on = {"flash_fwd": "tc_prefill", "flash_bwd_dq": "tc", "flash_bwd_dkv": "tc"}
+    for name, by_variant in variants.items():
+        if by_variant != {v: launches[name] if v == on[name] else 0 for v in by_variant}:
+            fail(f"cws train {label}: {name} launches by variant {by_variant}")
+    print(f"cws train {label}: from step {out['start_step']} ({out['resumed_from']}); "
+          f"losses {losses}; wall {wall:.3f} s; checkpoint seconds "
+          f"{json.dumps(out['checkpoints'])}")
+    print(f"cws train {label} provenance (task, node, runtime s): " + json.dumps(
+        [(t.task_id, t.node, t.runtime_s) for t in traces]))
+    return out, wall, launches
+
+
+def _step4_holds_step4(path):
+    """``step_00000004`` holds one step's state, step 4's: its data step and
+    optimizer step read 4 and every param is the bf16 of its master (the
+    step ends with params = bf16(master), both updated in place)."""
+    import numpy as np
+    import torch
+    with open(Path(path) / "manifest.json") as f:
+        manifest = json.load(f)
+    steps = [int(np.load(Path(path) / f"{k}.npy")) for k in ("data_step", "opt__step")]
+    if manifest["step"] != 4 or steps != [4, 4]:
+        fail(f"cws train: {path} holds data step and optimizer step {steps}, not 4")
+    keys = [k for k in manifest["leaves"] if k.startswith("params__")]
+    for key in keys:
+        p = torch.from_numpy(np.load(Path(path) / f"{key}.npy").view(np.int16))
+        master = torch.from_numpy(np.load(Path(path) / f"opt__master__{key[8:]}.npy"))
+        if not torch.equal(master.to(torch.bfloat16).view(torch.int16), p):
+            fail(f"cws train: {path}: {key} is not the bf16 of its master")
+    print(f"cws train: {path} holds step 4 (data and optimizer step 4, {len(keys)} params "
+          f"the bf16 of their master)")
+
+
+def cws_train_phase(card):
+    """Phase 6: qwen1.5-0.5b trained through the CWS by the train launch,
+    checkpointed, then resumed from its own checkpoint at step 4 after
+    ``step_00000008`` is lost. → (run A's launches, its per-step launches)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(CWS_TRAIN["arch"])
+    expected = expected_train_launches(cfg, n_micro=1)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    free_gb = shutil.disk_usage(scratch).free / 1e9
+    print(f"cws train: {free_gb:.3f} GB free on the checkpoints' disk ({scratch})")
+    if free_gb < CKPT_MIN_FREE_GB:
+        fail(f"cws train: {free_gb:.3f} GB free for the checkpoints, under "
+             f"{CKPT_MIN_FREE_GB} GB (each is about 4.6 GB)")
+    ckpt_dir = tempfile.mkdtemp(prefix="cws_train_ckpt_", dir=scratch)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        a, wall_a, launches = _cws_run(ckpt_dir, expected, "run A")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del a["state"]
+        la = {s["step"]: s["loss"] for s in a["steps"]}
+        if not la[CWS_TRAIN["steps"]] < la[1]:
+            fail(f"cws train run A: the loss did not fall: {la}")
+        if sorted(a["checkpoints"]) != [4, 8]:
+            fail(f"cws train run A: checkpoints at {sorted(a['checkpoints'])}, not 4 and 8")
+        _step4_holds_step4(Path(ckpt_dir) / "step_00000004")
+        chunk_s = [t.runtime_s for t in a["runtime"].cws.provenance.traces_for_name(
+            "train_chunk")]
+        lotaru = a["runtime"].predictor.predict("train_chunk", 0)
+        timed = [s["seconds"] for s in a["steps"][1:]]          # after one warm-up step
+        step_s = sum(timed) / len(timed)
+        tokens = CWS_TRAIN["batch"] * CWS_TRAIN["seq"]
+        print(f"cws train run A: step seconds (host clock, each ending in a read of "
+              f"the loss; first is warm-up) {[s['seconds'] for s in a['steps']]}: mean "
+              f"{step_s:.6f} s after warm-up, {1 / step_s:.4f} steps/s, "
+              f"{tokens / step_s:.1f} trained tokens/s; whole workflow "
+              f"{CWS_TRAIN['steps'] / wall_a:.4f} steps/s, "
+              f"{CWS_TRAIN['steps'] * tokens / wall_a:.1f} tokens/s with the "
+              f"checkpoints; peak memory {peak_gb:.3f} GB; {card}")
+        print(f"cws train: Lotaru's train_chunk estimate after run A (mean, std) "
+              f"{lotaru} s; the chunks took {chunk_s} s")
+        shutil.rmtree(Path(ckpt_dir) / "step_00000008")
+        release_memory("cws train run B")
+        b, _, _ = _cws_run(ckpt_dir, expected, "run B")
+        del b["state"]
+        lb = {s["step"]: s["loss"] for s in b["steps"]}
+        if b["start_step"] != 4 or sorted(lb) != [5, 6, 7, 8]:
+            fail(f"cws train run B: resumed at step {b['start_step']} and trained "
+                 f"{sorted(lb)}, not 5-8 from step 4")
+        dloss = max(abs(lb[s] - la[s]) for s in lb)
+        print(f"cws train: resumed steps 5-8, max |Δloss| {dloss} against run A "
+              f"(tol {RESUME_TOL}); bit-identical: {all(lb[s] == la[s] for s in lb)}")
+        if not dloss <= RESUME_TOL:
+            fail(f"cws train: resumed losses {lb} are {dloss} from run A's {la}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches, {name: n // CWS_TRAIN["steps"] for name, n in launches.items()}
+
+
 def release_memory(next_phase):
     """Give the earlier phases' device memory back before the next model's
     phase (the MoE model's weights alone take 61.1 GB of the card's 80,
@@ -1416,6 +1582,8 @@ def main() -> int:
     ssd_bwd_err, ssd_bwd_t = ssd_bwd_phase(gen)
     launches, per_prefill, per_round = serve_phase()
     train_launches, per_step, _ = train_phase()
+    release_memory("training through the CWS")
+    cws_launches, cws_per_step = cws_train_phase(card)
     ssm = {}
     for config in SSM_CONFIGS:
         release_memory(config)
@@ -1454,7 +1622,7 @@ def main() -> int:
                 "launches_per_gemma3_prefill": gemma_prefill[name],
                 "launches_per_gemma3_decode_round": gemma_round[name],
                 **ssm_launches(name), **variant_launches(name),
-                **train_launch_fields(name)}
+                **train_launch_fields(name), **cws_launch_fields(name)}
 
     def variant_launches(name):
         """The forward flash kernel's launches by variant on each path."""
@@ -1483,6 +1651,11 @@ def main() -> int:
                                         "by_variant": n["by_variant"].get(name)}
                 for c, (n, per, _) in trained.items() if name in n}
 
+    def cws_launch_fields(name):
+        """The kernel's launches on the CWS-scheduled train path (run A)."""
+        return {"launches_cws_train": {"total": cws_launches[name],
+                                       "per_step": cws_per_step[name]}}
+
     def gmm_bwd_entry(name, err, timed):
         # top level: the MoE train microbatch's gate/up; "launches" is the
         # qwen3-moe-30b-a3b train path's
@@ -1502,7 +1675,8 @@ def main() -> int:
                 "launches": train_launches[name], "max_abs_err": bwd_err[name],
                 **bwd_t[name]["train"], "paths": bwd_t[name],
                 "launches_by_variant": train_launches["by_variant"][name],
-                "launches_per_train_step": per_step[name], **train_launch_fields(name)}
+                "launches_per_train_step": per_step[name], **train_launch_fields(name),
+                **cws_launch_fields(name)}
 
     kernels = [
         entry("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",

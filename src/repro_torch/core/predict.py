@@ -1,25 +1,35 @@
-"""Task runtime prediction (paper §5): the Lotaru predictor.
+"""Task runtime & resource prediction plugins (paper §5).
 
-The port's own copy of ``repro.core.predict``'s ``BayesianLinReg``,
-``_features``, ``NodeProfile`` and ``LotaruPredictor``; the serving entry point
-orders requests shortest-predicted-first with it. Training from the
-provenance store (``train_from_provenance``) waits for the slice that ports
-the store.
+Implements the prediction approaches the paper plans to integrate:
 
-``LotaruPredictor`` is online task-runtime prediction without historical
-traces (Bader et al., FGCS 2024): per-task-type Bayesian linear regression
-of runtime on input size, trained from quick downscaled "local" profiling
-runs and online feedback, combined with per-node speed factors obtained
-from microbenchmarks.
+* ``LotaruPredictor`` — online task-*runtime* prediction without historical
+  traces (Bader et al., FGCS 2024): per-task-type Bayesian linear regression
+  of runtime on input size, trained from (a) quick downscaled "local" profiling
+  runs and (b) online feedback, combined with per-node speed factors obtained
+  from microbenchmarks.
+* ``FeedbackMemoryPredictor`` — task peak-*memory* prediction in the style of
+  Witt et al. (HPCS'19) / Tovar et al.: linear model of peak memory vs input
+  size with a safety margin; on under-provisioning (OOM) the scheduler retries
+  with a doubled allocation. Predicts low wastage without failures.
+* ``RooflinePrior`` — TPU adaptation (DESIGN.md §2): for gang-scheduled JAX
+  step tasks the dry-run's roofline terms (compute/memory/collective seconds)
+  give an *analytic* prior runtime, which seeds the Bayesian regression where
+  Lotaru would use microbenchmarks. This connects the scheduler to the
+  compiled-artifact analysis in ``launch/dryrun.py``.
+
+All predictors read ONLY from the provenance store / explicit observations —
+never from scheduler internals — mirroring how CWSI plugins are wired.
 """
 from __future__ import annotations
 
 import math
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .provenance import ProvenanceStore
 
 
 # --------------------------------------------------------------------------
@@ -67,7 +77,8 @@ def _features(input_size: int) -> np.ndarray:
 
 @dataclass
 class NodeProfile:
-    """Per-node microbenchmark results (Lotaru uses CPU/mem/IO scores)."""
+    """Per-node microbenchmark results (Lotaru uses CPU/mem/IO scores;
+    the TPU adaptation uses chip generation peak specs)."""
 
     node: str
     speed_factor: float = 1.0      # >1 = faster than reference
@@ -91,8 +102,8 @@ class LotaruPredictor:
         self.models: Dict[str, BayesianLinReg] = defaultdict(BayesianLinReg)
         self.nodes: Dict[str, NodeProfile] = {}
         self._fallback_mean: Dict[str, float] = {}
-        # bumped whenever predictions may change — memo key for callers
-        # caching predictor-derived quantities
+        # bumped whenever predictions may change — memo key for strategies
+        # caching predictor-derived quantities (HEFT weighted ranks)
         self.version: int = 0
 
     # -- infrastructure knowledge (CWSI stores machine characteristics) --
@@ -121,6 +132,14 @@ class LotaruPredictor:
         self._fallback_mean[name] = norm if m is None else 0.7 * m + 0.3 * norm
         self.version += 1
 
+    def train_from_provenance(self, store: ProvenanceStore) -> int:
+        n = 0
+        for t in store.task_traces:
+            if t.state == "SUCCEEDED" and t.runtime_s > 0:
+                self.observe(t.name, t.input_size, t.runtime_s, t.node)
+                n += 1
+        return n
+
     # -- inference --
     def predict(self, name: str, input_size: int,
                 node: Optional[str] = None) -> Tuple[float, float]:
@@ -137,3 +156,127 @@ class LotaruPredictor:
     def known(self, name: str) -> bool:
         m = self.models.get(name)
         return m is not None and m.count > 0
+
+
+# --------------------------------------------------------------------------
+# Peak-memory prediction with under-provisioning retries (paper §5).
+# --------------------------------------------------------------------------
+def _mem_model() -> BayesianLinReg:
+    return BayesianLinReg(beta=50.0)
+
+
+class FeedbackMemoryPredictor:
+    """Linear peak-mem-vs-input-size model with safety margin.
+
+    ``allocate`` returns the bytes to request for an attempt:
+      attempt 0 → model prediction + k·std (or the user request if no data);
+      attempt n → doubled allocation after each OOM (the paper's retry rule).
+    ``observe`` feeds measured peak memory back (online learning).
+    """
+
+    def __init__(self, sigma_margin: float = 2.0, floor_bytes: int = 64 << 20):
+        # tighter noise prior than the runtime model: peak memory is far
+        # less dispersed than runtime (beta = 1/sigma^2, sigma ≈ 0.14 log).
+        # Module-level factory, not a lambda: journal snapshots pickle the
+        # engine, predictors included.
+        self.models: Dict[str, BayesianLinReg] = defaultdict(_mem_model)
+        self.sigma_margin = sigma_margin
+        self.floor = floor_bytes
+        # empirical log-residuals per task type: high-variance tools (e.g.
+        # assemblers) need wider margins than the model's noise prior
+        self._resid: Dict[str, List[float]] = defaultdict(list)
+
+    def observe(self, name: str, input_size: int, peak_mem_bytes: int) -> None:
+        if peak_mem_bytes <= 0:
+            return
+        x = _features(input_size)
+        y = math.log(float(peak_mem_bytes))
+        m = self.models[name]
+        if m.count >= 2:
+            pred, _ = m.predict(x)
+            self._resid[name].append(y - pred)
+        m.update(x, y)
+
+    def train_from_provenance(self, store: ProvenanceStore) -> int:
+        n = 0
+        for t in store.task_traces:
+            if t.state == "SUCCEEDED" and t.peak_mem_bytes > 0:
+                self.observe(t.name, t.input_size, t.peak_mem_bytes)
+                n += 1
+        return n
+
+    def predict(self, name: str, input_size: int) -> Optional[int]:
+        model = self.models.get(name)
+        if model is None or model.count < 2:
+            return None
+        log_mu, log_std = model.predict(_features(input_size))
+        res = self._resid.get(name, ())
+        if len(res) >= 3:
+            emp = (sum(r * r for r in res) / len(res)) ** 0.5
+            log_std = max(log_std, emp)
+        return int(math.exp(min(log_mu + self.sigma_margin * log_std, 60.0)))
+
+    def allocate(self, name: str, input_size: int, user_request: int,
+                 attempt: int) -> int:
+        base = self.predict(name, input_size)
+        if base is None:
+            base = user_request
+        base = max(base, self.floor)
+        return int(base * (2 ** attempt))
+
+
+# --------------------------------------------------------------------------
+# Roofline prior for gang-scheduled JAX step tasks (TPU adaptation).
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class RooflineTerms:
+    """The three §Roofline terms for one compiled step (seconds)."""
+
+    compute_s: float
+    memory_s: float
+    collective_s: float
+
+    @property
+    def step_s(self) -> float:
+        # max(compute, memory) assumes perfect overlap of HBM traffic with
+        # MXU work; collectives overlap partially (0.5 exposure default).
+        return max(self.compute_s, self.memory_s) + 0.5 * self.collective_s
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.__getitem__)
+
+
+class RooflinePrior:
+    """Analytic runtime prior for step-programs, seeded from dry-run JSON.
+
+    ``register(name, terms, steps_per_task)`` installs the prior;
+    ``seed(lotaru)`` injects it into a LotaruPredictor as synthetic
+    observations so the Bayesian model starts at the analytic estimate and
+    refines online — exactly the cold-start role microbenchmarks play in
+    Lotaru.
+    """
+
+    def __init__(self) -> None:
+        self.terms: Dict[str, Tuple[RooflineTerms, int]] = {}
+
+    def register(self, name: str, terms: RooflineTerms, steps_per_task: int = 1) -> None:
+        self.terms[name] = (terms, steps_per_task)
+
+    def predict(self, name: str) -> Optional[float]:
+        entry = self.terms.get(name)
+        if entry is None:
+            return None
+        t, steps = entry
+        return t.step_s * steps
+
+    def seed(self, lotaru: LotaruPredictor, pseudo_obs: int = 3,
+             nominal_input: int = 1 << 30) -> None:
+        for name, (t, steps) in self.terms.items():
+            for _ in range(pseudo_obs):
+                lotaru.observe(name, nominal_input, t.step_s * steps)
