@@ -23,12 +23,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                at ragged S, decode kv_len at chunk edges, GQA 1:1 to 8:1,
                windows, every D
                (32, 64, 80, 96, 128, 256), strided q/k/v and cache views,
-               in f32 and bf16, with the launches by variant checked and a
-               misaligned view refused; the backward's two variants
-               (tensor-core for bf16, FMA for f32) at every D with ragged
-               S, windows and GQA up to 8:1, and at four timed shapes: the
-               train step's, qwen3-moe's 32/4 heads of 128, zamba2's 32
-               of 80, gemma3's 16/8 of 256 with its window); takes
+               every main path's shape (FLASH_PATHS: every family's
+               prefill and decode, among them whisper-tiny's 1500-key
+               non-causal encoder, its 448-token causal self prefill and
+               cross prefill, its self decode at kv_len 1..448 and cross
+               decode against 1500 keys with no kv_len, phi-3-vision-4.2b's
+               576 patch rows and 1024 tokens at D = 96 and its decode
+               rounds against 1632 and 2048 slots), in f32 and bf16, with
+               the launches by variant checked and a misaligned view
+               refused, each main path also timed in bf16; the
+               backward's two variants (tensor-core for bf16, FMA for f32)
+               at every D with ragged S, windows and GQA up to 8:1, and at
+               eight timed shapes: the train step's, qwen3-moe's 32/4
+               heads of 128, zamba2's 32 of 80, gemma3's 16/8 of 256 with
+               its window, whisper's encoder, its decoder's causal
+               self-attention (S = T = 448) and cross-attention
+               (non-causal, S = 448 against T = 1500), phi-3-vision's 32
+               heads of 96 over 1600 rows); takes
                the device time (``torch.profiler``) of the kernel, of the
                plain version and of one PyTorch library call of the same
                function where there is one (a yardstick only: the port never
@@ -123,28 +134,57 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                256, 12.77 B parameters in bf16 from seed 0): per prefill and
                per decode round flash_fwd 48 and rmsnorm 97 launches; the
                cross-slot guard.
- 10. train MoE, SSM, hybrid — after the earlier phases' memory is given
-               back, phase 5 on qwen3-moe-30b-a3b (full width, 4 of 48
-               layers: 3.11 B parameters, ~50 GB of train state at 16
+ 10. serve VLM — after the earlier phases' memory is given back, phase 4
+               on full-width, full-depth phi-3-vision-4.2b (32 layers, 32
+               heads of 96, 3.82 B parameters in bf16 from seed 0): the
+               prefill step takes 576 patch rows (``synthetic_extras``, f32,
+               cast by the model) before the 1024 tokens, into a cache with
+               room for VLM_ROUNDS greedy decode rounds from position 1600,
+               which follow it on the main path; then the text-only burst.
+               Per prefill and per round flash_fwd 32, rmsnorm 65; the
+               cross-slot guard; a decode guard: the rounds' logits against
+               the teacher-forced forward over the same tokens and patches
+               (``decode_guard``: in f32 within DECODE_F32_TOL, in bf16
+               no farther from the f32 forward than DECODE_BF16_RATIO
+               times the bf16 forward is; a replay planted one position
+               off must exceed each limit).
+ 11. serve audio — full-width, full-depth whisper-tiny (4 encoder and 4
+               decoder layers, 6 heads of 64): the prefill step (the
+               forward over 4 x 448 tokens and 1500 frames) twice, then 8
+               clips of 1500 frames through ``encdec_serve_cache`` and 448
+               decode steps (4 prompt tokens, then greedy). Per prefill
+               flash_fwd 12, rmsnorm 22; per cache fill 4, 9; per decode
+               round 8, 13; prefills and fill on ``tc_prefill``, rounds on
+               ``split_decode``; the decode guard as in phase 10.
+ 12. train MoE, SSM, hybrid, VLM, audio — after the earlier phases' memory
+               is given back, phase 5 on qwen3-moe-30b-a3b (full width, 4 of
+               48 layers: 3.11 B parameters, ~50 GB of train state at 16
                bytes a parameter; the peak must stay within 72 GB), then
                full-width, full-depth mamba2-370m and zamba2-2.7b (the
-               peak within 75 GB), each through
+               peak within 75 GB), phi-3-vision-4.2b (16 of 32 layers: 2.01
+               B parameters, ~32 GB of state; 576 patches before 1024
+               tokens; within 72 GB) and whisper-tiny (full depth, 448
+               tokens against 1500 frames), each through
                ``profile_train.setup(config=...)``. Per step, from remat
                over L layers and 2 microbatches: MoE moe_gmm 12·L,
                moe_gmm_dx 6·L, moe_gmm_dw 6·L and the flash kernels as the
                dense step; mamba2 ssd_scan 4·48, ssd_scan_bwd 2·48, no
                attention; zamba2 as mamba2 over its 54 Mamba layers plus
-               the shared block's 9 flash launches each way. Every bf16
+               the shared block's 9 flash launches each way; phi-3-vision
+               as the dense step; whisper's encoder (not recomputed) once
+               each way and its decoder layers' two attentions and three
+               norms. Every bf16
                forward gmm launch on ``tc_prefill``, every SSD forward and
                backward on ``tc``, every other backward on its tensor-core
                kernel; step time and
                peak memory printed. Before each, a gradient guard: one
                microbatch's loss gradients through the kernels against the
-               same through the plain versions of the grouped GEMM and the
-               SSD scan on the card, within GRAD_F32_TOL of their norm in
-               f32 and, in bf16, no farther from the f32 result than the
-               plain versions' plus GUARD_TOL.
- 11. report  — the card's nvidia-smi line, one JSON line with every kernel's
+               same through the plain versions of the family's kernels on
+               the card (the grouped GEMM's, the SSD scan's, or the flash
+               attention's and RMSNorm's), within GRAD_F32_TOL of their
+               norm in f32 and, in bf16, no farther from the f32 result
+               than the plain versions' plus GUARD_TOL.
+ 13. report  — the card's nvidia-smi line, one JSON line with every kernel's
                launches, error, times and bound, then
                ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -168,6 +208,9 @@ PEAK_F32_FLOPS = 67e12
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}        # tests/test_kernels.py's
 LSE_TOL = 2e-3                                    # f32 statistics either way
 GUARD_TOL = 2e-2                                  # relative to max |logit|
+DECODE_F32_TOL = 1e-4                             # decode vs forward, f32, of max |logit|
+DECODE_BF16_RATIO = 1.25                          # bf16 decode vs the f32 forward:
+                                                  # at most this x the bf16 forward's
 GRAD_F32_TOL = 1e-3                               # f32 gradients, kernels vs plain
 TILE_REL_TOL = 1e-2                               # backward, per 64-row tile
 TC_PLAIN_TOL = 8e-3                               # a kernel vs its own bf16
@@ -260,9 +303,46 @@ GUARD_PROMPT = 300                                # > one SSD chunk
 TRAIN_STEPS = 4
 SSM_CONFIGS = ("mamba2-370m", "zamba2-2.7b")
 # trained after the serving phases, each at its profile_train.train_depth
-TRAIN_CONFIGS = ("qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-2.7b")
+TRAIN_CONFIGS = ("qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-2.7b", "phi-3-vision-4.2b",
+                 "whisper-tiny")
 MOE_CONFIG = "qwen3-moe-30b-a3b"
 GEMMA3_CONFIG = "gemma3-12b"
+VLM_CONFIG = "phi-3-vision-4.2b"
+VLM_ROUNDS = 32               # greedy decode rounds from the VLM prefill's cache
+AUDIO_CONFIG = "whisper-tiny"
+# the forward's main-path shapes, each timed in bf16 and checked beside
+# FLASH_CASES in f32 and bf16 (B, S, T, Hq, Hkv, D, causal, window, kv_len):
+# kv_len (lo, hi) spreads the rows' lengths evenly over lo..hi, None lets
+# every row attend to all T keys.
+#   qwen1.5-0.5b: S = T = 1024, 16 heads of 64; decode B=8 against 2048 slots
+#   qwen3-moe-30b-a3b: GQA 8:1, 32 query and 4 KV heads of 128
+#   zamba2-2.7b's shared block: 32 heads of 80
+#   gemma3-12b: 16 query and 8 KV heads of 256; a local layer's window of
+#     1024 (at S = 1024 every causal key lies inside it)
+#   whisper-tiny: the encoder over 1500 frames; the decoder's causal
+#     self-attention over 448 tokens and its cross-attention to 1500 frames,
+#     in a prefill and in a decode step (self: each row's pos + 1 of 448 slots)
+#   phi-3-vision-4.2b: the prefill of 576 patch rows and 1024 tokens; the
+#     VLM_ROUNDS decode rounds after it (B=4, 1632 slots, kv_len 1601..1632)
+#     and the burst's (B=8, 2048 slots)
+FLASH_PATHS = {
+    "prefill": (4, 1024, 1024, 16, 16, 64, True, 0, None),
+    "decode": (8, 1, 2048, 16, 16, 64, False, 0, (1, 2048)),
+    "moe_prefill": (4, 1024, 1024, 32, 4, 128, True, 0, None),
+    "moe_decode": (8, 1, 2048, 32, 4, 128, False, 0, (1, 2048)),
+    "zamba2_prefill": (4, 1024, 1024, 32, 32, 80, True, 0, None),
+    "zamba2_decode": (8, 1, 2048, 32, 32, 80, False, 0, (1, 2048)),
+    "gemma3_prefill": (4, 1024, 1024, 16, 8, 256, True, 1024, None),
+    "gemma3_decode": (8, 1, 2048, 16, 8, 256, False, 0, (1, 2048)),
+    "whisper_encoder": (4, 1500, 1500, 6, 6, 64, False, 0, None),
+    "whisper_self_prefill": (4, 448, 448, 6, 6, 64, True, 0, None),
+    "whisper_cross_prefill": (4, 448, 1500, 6, 6, 64, False, 0, None),
+    "whisper_self_decode": (8, 1, 448, 6, 6, 64, False, 0, (1, 448)),
+    "whisper_cross_decode": (8, 1, 1500, 6, 6, 64, False, 0, None),
+    "phi3v_prefill": (4, 1600, 1600, 32, 32, 96, True, 0, None),
+    "phi3v_decode": (4, 1, 1632, 32, 32, 96, False, 0, (1601, 1632)),
+    "phi3v_burst_decode": (8, 1, 2048, 32, 32, 96, False, 0, (1, 2048)),
+}
 # the CWS-scheduled train launch: full-width qwen1.5-0.5b in one microbatch
 # of 8 x 1024, a checkpoint task every 4 steps, profile_train's dense peak
 # learning rate (the launch's own 3e-3 is untried at this width)
@@ -270,11 +350,20 @@ CWS_TRAIN = dict(arch="qwen1.5-0.5b", steps=8, chunk=2, batch=8, seq=1024,
                  ckpt_every=4, lr=1e-3)
 CKPT_MIN_FREE_GB = 16.0       # two 4.6 GB checkpoints, a rewrite and room
 RESUME_TOL = 5e-2             # max |Δloss| of the resumed steps
-# the backward's timed shapes (B, S = T, Hq, Hkv, D, window), all causal:
-# the train step's microbatch (qwen1.5-0.5b), qwen3-moe-30b-a3b's heads,
-# zamba2-2.7b's shared block, a gemma3-12b local layer
-BWD_PATHS = {"train": (4, 1024, 16, 16, 64, 0), "moe": (4, 1024, 32, 4, 128, 0),
-             "zamba2": (4, 1024, 32, 32, 80, 0), "gemma3": (4, 1024, 16, 8, 256, 1024)}
+# the backward's timed shapes (B, S, T, Hq, Hkv, D, causal, window): the
+# train step's microbatch (qwen1.5-0.5b), qwen3-moe-30b-a3b's heads,
+# zamba2-2.7b's shared block, a gemma3-12b local layer, whisper-tiny's
+# encoder, its decoder's causal self-attention over 448 tokens and its
+# cross-attention (448 decoder tokens against 1500 frames, non-causal),
+# phi-3-vision-4.2b's 576 patch rows and 1024 tokens
+BWD_PATHS = {"train": (4, 1024, 1024, 16, 16, 64, True, 0),
+             "moe": (4, 1024, 1024, 32, 4, 128, True, 0),
+             "zamba2": (4, 1024, 1024, 32, 32, 80, True, 0),
+             "gemma3": (4, 1024, 1024, 16, 8, 256, True, 1024),
+             "whisper_encoder": (4, 1500, 1500, 6, 6, 64, False, 0),
+             "whisper_self": (4, 448, 448, 6, 6, 64, True, 0),
+             "whisper_cross": (4, 448, 1500, 6, 6, 64, False, 0),
+             "phi3v": (4, 1600, 1600, 32, 32, 96, True, 0)}
 
 
 def fail(msg: str) -> None:
@@ -390,11 +479,15 @@ def rmsnorm_phase(gen):
                                        TOL[str(dt)[6:]]))
     # (rows, d): qwen1.5-0.5b's prefill step and decode round, then
     # qwen3-moe-30b-a3b's (and mamba2-370m's gated norm), then zamba2-2.7b's
-    # gated norm, then gemma3-12b's
+    # gated norm, then gemma3-12b's, whisper-tiny's encoder (4 clips of 1500
+    # frames) and decode round (8 clips), phi-3-vision-4.2b's prefill (4 x
+    # 1600 rows) and decode round (4 rows)
     shape_by_path = {"prefill": (4 * 1024, 1024), "decode": (8, 1024),
                      "moe_prefill": (4 * 1024, 2048), "moe_decode": (8, 2048),
                      "zamba2_prefill": (4 * 1024, 5120), "zamba2_decode": (8, 5120),
-                     "gemma3_prefill": (4 * 1024, 3840), "gemma3_decode": (8, 3840)}
+                     "gemma3_prefill": (4 * 1024, 3840), "gemma3_decode": (8, 3840),
+                     "whisper_encoder": (4 * 1500, 384), "whisper_decode": (8, 384),
+                     "phi3v_prefill": (4 * 1600, 3072), "phi3v_decode": (4, 3072)}
     timed = {}
     for path, (rows, d) in shape_by_path.items():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -439,11 +532,13 @@ def _flash_check(name, q, k, v, causal, window, kv_len=None):
 
 def flash_phase(gen):
     """The forward kernel against its plain version: the JAX test cases, the
-    variants' cases (FLASH_VARIANT_CASES), q/k/v split from one fused
-    projection, K/V as views of a stacked and of a fused cache, each in f32
-    (the FMA kernel) and bf16 (tensor-core prefill or split-KV decode); the
-    variant counts must match the shapes, FMA only for f32; a misaligned
-    bf16 view must be refused. Then the six main-path shapes, timed."""
+    main-path shapes (FLASH_PATHS, among them whisper-tiny's 1500-key
+    non-causal tail and cross decode with no kv_len), the variants' cases
+    (FLASH_VARIANT_CASES), q/k/v split from one fused projection, K/V as
+    views of a stacked and of a fused cache, each in f32 (the FMA kernel)
+    and bf16 (tensor-core prefill or split-KV decode); the variant counts
+    must match the shapes, FMA only for f32; a misaligned bf16 view must be
+    refused. Then the main-path shapes, timed."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -456,6 +551,7 @@ def flash_phase(gen):
 
     for dt in (torch.float32, torch.bfloat16):
         cases = [(2, S, T, Hq, Hkv, D, c, w, None) for (S, T, Hq, Hkv, D, c, w) in FLASH_CASES]
+        cases += [(*shape, _spread(shape[0], lens)) for (*shape, lens) in FLASH_PATHS.values()]
         for (B, S, T, Hq, Hkv, D, causal, window, lens) in cases + FLASH_VARIANT_CASES:
             q, k, v = randn(B, S, Hq, D, dt=dt), randn(B, T, Hkv, D, dt=dt), \
                 randn(B, T, Hkv, D, dt=dt)
@@ -498,31 +594,7 @@ def flash_phase(gen):
         fail("flash: a misaligned bf16 view was not refused")
     print(f"flash: checked cases by variant {want}")
 
-    timed = {
-        # qwen1.5-0.5b: B=4, S=T=1024, 16 heads of 64, causal; decode B=8, S=1
-        # against T=2048 cache slots, per-row kv_len 1..2048
-        "prefill": _flash_path("prefill", gen, 4, 1024, 1024, 16, 16, 64,
-                               "B=4 S=T=1024 H=16 D=64 causal bf16"),
-        "decode": _flash_path("decode", gen, 8, 1, 2048, 16, 16, 64,
-                              "B=8 S=1 T=2048 H=16 D=64 kv_len 1..2048 bf16"),
-        # qwen3-moe-30b-a3b: the same with GQA 8:1, 32 query and 4 KV heads of 128
-        "moe_prefill": _flash_path("moe_prefill", gen, 4, 1024, 1024, 32, 4, 128,
-                                   "B=4 S=T=1024 Hq=32 Hkv=4 D=128 causal bf16"),
-        "moe_decode": _flash_path("moe_decode", gen, 8, 1, 2048, 32, 4, 128,
-                                  "B=8 S=1 T=2048 Hq=32 Hkv=4 D=128 kv_len 1..2048 bf16"),
-        # zamba2-2.7b's shared block: 32 heads of 80
-        "zamba2_prefill": _flash_path("zamba2_prefill", gen, 4, 1024, 1024, 32, 32, 80,
-                                      "B=4 S=T=1024 H=32 D=80 causal bf16"),
-        "zamba2_decode": _flash_path("zamba2_decode", gen, 8, 1, 2048, 32, 32, 80,
-                                     "B=8 S=1 T=2048 H=32 D=80 kv_len 1..2048 bf16"),
-        # gemma3-12b: 16 query and 8 KV heads of 256; a local layer's window
-        # of 1024 (at S = 1024 every causal key lies inside it)
-        "gemma3_prefill": _flash_path("gemma3_prefill", gen, 4, 1024, 1024, 16, 8, 256,
-                                      "B=4 S=T=1024 Hq=16 Hkv=8 D=256 causal window 1024 bf16",
-                                      window=1024),
-        "gemma3_decode": _flash_path("gemma3_decode", gen, 8, 1, 2048, 16, 8, 256,
-                                     "B=8 S=1 T=2048 Hq=16 Hkv=8 D=256 kv_len 1..2048 bf16"),
-    }
+    timed = {path: _flash_path(path, gen, *spec) for path, spec in FLASH_PATHS.items()}
     for t in timed.values():
         worst = max(worst, t["max_abs_err"])
     return worst, timed
@@ -533,12 +605,21 @@ def _causal_pairs(S, window):
     return sum(min(q + 1, window) if window > 0 else q + 1 for q in range(S))
 
 
-def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape, window=0):
-    """The forward kernel at one main-path shape (bf16): checked against the
-    plain version, device times of kernel, plain and SDPA, wrapper time and
-    the bound. S = T is a causal prefill (a window of at least S changes
-    nothing, so SDPA's causal call computes the same); S = 1 a decode step
-    with per-row kv_len spread over 1..T."""
+def _spread(B, lens):
+    """A main-path kv_len (lo, hi) → B per-row lengths spread evenly over
+    lo..hi; None stays None."""
+    import torch
+    return None if lens is None else \
+        torch.linspace(lens[0], lens[1], B).round().int().tolist()
+
+
+def _flash_path(path, gen, B, S, T, Hq, Hkv, D, causal, window, lens):
+    """The forward kernel at one FLASH_PATHS shape (bf16): checked against
+    the plain version, device times of kernel, plain and SDPA, wrapper time
+    and the bound. A causal path is a prefill (a window of at least S
+    changes nothing, so SDPA's causal call computes the same); a
+    non-causal one attends to each row's kv_len keys (``_spread(B, lens)``)
+    or, with none, to all T."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
@@ -548,11 +629,13 @@ def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape, window=0):
     q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").to(bf16)
     k, v = (torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(bf16)
             for _ in range(2))
-    causal = S == T
-    kv_len = None if causal else \
-        torch.linspace(1, T, B, device="cuda").round().to(torch.int32)
-    if window and not (causal and window >= S):
-        fail(f"flash {path}: SDPA takes no window: want one of at least S")
+    if (causal and lens is not None) or (window and not (causal and window >= S)):
+        fail(f"flash {path}: SDPA takes no window below S, and its causal call no kv_len")
+    kv_len = None if lens is None else torch.tensor(_spread(B, lens), dtype=torch.int32,
+                                                    device="cuda")
+    shape = (f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} "
+             f"{'causal' if causal else 'non-causal'}{f' window {window}' if window else ''}"
+             f"{f' kv_len {lens[0]}..{lens[1]}' if lens else ''} bf16")
     o, lse, po, plse = _flash_pair(q, k, v, causal, window, kv_len)
     err = max(compare(f"flash {path} O", o, po, TOL["bfloat16"]),
               compare(f"flash {path} lse", lse, plse, LSE_TOL))
@@ -560,16 +643,18 @@ def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape, window=0):
     # 4·D per valid (query, key) pair
     if causal:
         pairs, kv_bytes = B * Hq * _causal_pairs(S, window), 2 * B * T * Hkv * D * 2
-    else:
+    elif kv_len is not None:
         valid = int(kv_len.sum())
-        pairs, kv_bytes = Hq * valid, 2 * valid * Hkv * D * 2 + B * 4
+        pairs, kv_bytes = S * Hq * valid, 2 * valid * Hkv * D * 2 + B * 4
+    else:
+        pairs, kv_bytes = B * Hq * S * T, 2 * B * T * Hkv * D * 2
     b_ms, b_by = bound(2 * B * S * Hq * D * 2 + kv_bytes + B * Hq * S * 4,
                        4.0 * D * pairs, PEAK_BF16_FLOPS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = {"enable_gqa": True} if Hq != Hkv else {}
-    if causal:
+    if kv_len is None:
         def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)
     else:
         mask = (torch.arange(T, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
 
@@ -583,7 +668,7 @@ def _flash_path(path, gen, B, S, T, Hq, Hkv, D, shape, window=0):
         "shape": shape, "max_abs_err": err, "ms": device_ms(kernel),
         "wrapper_ms": wrapper_ms(kernel),
         "plain_ms": device_ms(lambda: flash_attention_plain(
-            q, k, v, causal=causal, window=window, kv_len=kv_len), iters=5 if causal else 20),
+            q, k, v, causal=causal, window=window, kv_len=kv_len), iters=5 if S > 4 else 20),
         "library_ms": device_ms(library), "bound_ms": b_ms, "bound_by": b_by}
     print(f"flash_fwd {path}: {json.dumps(timed)}")
     return timed
@@ -951,7 +1036,7 @@ def expected_launches(cfg):
         return ({"ssd_scan": L, "rmsnorm": norms, "flash_fwd": g},
                 {"ssd_scan": 0, "rmsnorm": norms, "flash_fwd": g})
     # attention once per layer, two norms per layer and the final one, three
-    # expert GEMMs per MoE layer
+    # expert GEMMs per MoE layer (a VLM's layers are dense ones)
     each = {"flash_fwd": L, "rmsnorm": 2 * L + 1}
     if cfg.family == "moe":
         each["moe_gmm"] = 3 * L
@@ -1023,17 +1108,11 @@ def state_guard(model, params):
              f"result, the token-by-token feed {rel['token_by_token']:.3g}")
 
 
-def serve_phase(config="qwen1.5-0.5b"):
+def _serving_model(cfg):
+    """``cfg`` built on the card at full width, random weights from seed 0;
+    the peak memory counter reset first."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve_workload
     from repro_torch.models import build_model
-    from repro_torch.models.layers import tree_leaves
-    from repro_torch.runtime.serve import make_prefill_step
-
-    cfg = get_config(config)
     model = build_model(cfg, "cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1043,20 +1122,157 @@ def serve_phase(config="qwen1.5-0.5b"):
           f"{model.n_params() / 1e6:.1f}M params, {cfg.param_dtype}; init "
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    return model, params
+
+
+def vlm_replay(model, params, tokens, patches, fed, shift=0):
+    """A VLM's decode, teacher-forced: the prefill of ``patches`` and
+    ``tokens`` (B, S), then ``fed`` (B, R) by decode steps at positions
+    n_patches + S + r + ``shift`` → their logits (R, B, V). ``shift`` 1
+    plants a fault in the cache offset: each step writes and reads one slot
+    past its position, the slot skipped stays empty, and RoPE turns one
+    position too far."""
+    import torch
+    B, S = tokens.shape
+    R, n = fed.shape[1], model.cfg.vision.n_patches
+    _, cache = model.prefill(params, tokens, n + S + R + shift, {"patches": patches})
+    logits = []
+    for r in range(R):
+        out, cache = model.decode_step(params, cache, fed[:, r], n + S + r + shift)
+        logits.append(out)
+    return torch.stack(logits)
+
+
+def vlm_forward(model, params, tokens, patches, fed):
+    """The teacher-forced forward over ``patches``, ``tokens`` and ``fed``:
+    its logits at text positions S .. S + R - 1 (R, B, V), those that
+    ``vlm_replay``'s decode steps give."""
+    import torch
+    S, R = tokens.shape[1], fed.shape[1]
+    forward, _ = model.logits(params, {"tokens": torch.cat([tokens, fed], dim=1),
+                                       "patches": patches}, remat="none")
+    return forward[:, S:S + R].transpose(0, 1)
+
+
+def audio_replay(model, params, frames, fed, shift=0):
+    """An audio model's decode, teacher-forced: ``fed`` (B, R) by decode
+    steps at positions r + ``shift`` from ``encdec_serve_cache`` → their
+    logits (R, B, V). ``shift`` 1 plants a fault in the per-row positions:
+    each step takes the sinusoid of the next position and writes and reads
+    one slot too far, the slot skipped left empty."""
+    import torch
+    from repro_torch.runtime.serve import encdec_serve_cache
+    R = fed.shape[1]
+    cache = encdec_serve_cache(model, params, frames, R + shift)
+    logits = []
+    for r in range(R):
+        out, cache = model.decode_step(params, cache, fed[:, r], r + shift)
+        logits.append(out)
+    return torch.stack(logits)
+
+
+def audio_forward(model, params, frames, fed):
+    """The teacher-forced forward over ``fed`` and the same frames (R, B, V)."""
+    forward, _ = model.logits(params, {"tokens": fed, "frames": frames}, remat="none")
+    return forward.transpose(0, 1)
+
+
+def decode_guard(name, model, params, decode_logits, replay, forward):
+    """The main path's decode logits (bf16) against the teacher-forced
+    forward over the same tokens. ``replay(model, params, shift)`` feeds
+    those tokens again by decode steps, ``shift`` positions too far (0:
+    none), and ``forward(model, params)`` runs the forward. In f32 (the
+    same weights cast up) decode and forward differ only by rounding:
+    within DECODE_F32_TOL of the largest logit. A replay with a planted
+    fault (``shift`` 1) must lie beyond that limit, or the guard could not
+    see a cache offset or position off by one. In bf16 both round through
+    every layer, each its own way: the main path's decode must be no
+    farther from the f32 forward than DECODE_BF16_RATIO times the bf16
+    forward is, and the planted replay in bf16 farther than that."""
+    import gc
+    import torch
+    from repro_torch.models import build_model
+
+    def cast(t):
+        return {k: cast(v) for k, v in t.items()} if isinstance(t, dict) else t.float()
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    fwd16 = forward(model, params)
+    m32, p32 = build_model(model.cfg.scaled(param_dtype="float32"), "cuda"), cast(params)
+    fwd32 = forward(m32, p32)
+    out = {"f32_decode_vs_forward": rel(replay(m32, p32, 0), fwd32),
+           "f32_planted_vs_forward": rel(replay(m32, p32, 1), fwd32),
+           "bf16_decode_vs_forward": rel(decode_logits, fwd16),
+           "bf16_decode_vs_f32_forward": rel(decode_logits, fwd32),
+           "bf16_forward_vs_f32_forward": rel(fwd16, fwd32),
+           "bf16_planted_vs_f32_forward": rel(replay(model, params, 1), fwd32)}
+    del m32, p32, fwd32, fwd16
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"decode guard {name} ({decode_logits.shape[0]} steps, relative to the largest "
+          f"logit; planted: every step one position too far): {json.dumps(out)}")
+    if not out["f32_decode_vs_forward"] <= DECODE_F32_TOL:
+        fail(f"decode guard {name}: f32 decode is {out['f32_decode_vs_forward']:.3g} from "
+             f"the teacher-forced forward (tol {DECODE_F32_TOL})")
+    if not out["f32_planted_vs_forward"] > DECODE_F32_TOL:
+        fail(f"decode guard {name}: a decode one position off is only "
+             f"{out['f32_planted_vs_forward']:.3g} from the forward: within the guard's "
+             f"tol {DECODE_F32_TOL}")
+    limit = DECODE_BF16_RATIO * out["bf16_forward_vs_f32_forward"]
+    if not out["bf16_decode_vs_f32_forward"] <= limit:
+        fail(f"decode guard {name}: bf16 decode is {out['bf16_decode_vs_f32_forward']:.3g} "
+             f"from the f32 forward, above {DECODE_BF16_RATIO} x the bf16 forward's "
+             f"{out['bf16_forward_vs_f32_forward']:.3g}")
+    if not out["bf16_planted_vs_f32_forward"] > limit:
+        fail(f"decode guard {name}: a bf16 decode one position off is only "
+             f"{out['bf16_planted_vs_f32_forward']:.3g} from the f32 forward: within the "
+             f"guard's limit {limit:.3g}")
+    return out
+
+
+def serve_phase(config="qwen1.5-0.5b"):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic_extras
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_workload
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.runtime.serve import greedy_decode, make_prefill_step
+
+    cfg = get_config(config)
+    model, params = _serving_model(cfg)
     B, S = 4, 1024
-    step = make_prefill_step(model, ShapeConfig("prefill_1k", S, B, "prefill"))
+    # a VLM's prefill step: 576 patch rows (f32 from synthetic_extras, cast
+    # by the model) before the 1024 tokens, in a cache with room for
+    # VLM_ROUNDS decode rounds after them
+    rounds_after = VLM_ROUNDS if cfg.family == "vlm" else 0
+    step = make_prefill_step(model, ShapeConfig("prefill_1k", S + rounds_after, B, "prefill"))
     tokens = torch.randint(2, cfg.vocab, (B, S), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(1))
+    args = {"params": params, "tokens": tokens}
+    if cfg.family == "vlm":
+        args["patches"] = torch.from_numpy(synthetic_extras(
+            "vlm", B, cfg, np.random.default_rng(1))["patches"]).cuda()
 
     # ---- the main path: counts from 0, read right after ----
     ops.reset_launch_counts()
-    step({"params": params, "tokens": tokens})                 # warm-up
+    step(args)                                                 # warm-up
     torch.cuda.synchronize()
     per_prefill = ops.launch_counts()
     t0 = time.perf_counter()
-    nxt, cache = step({"params": params, "tokens": tokens})
+    nxt, cache = step(args)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    if rounds_after:
+        t0 = time.perf_counter()
+        vlm_logits, vlm_fed = greedy_decode(model, params, cache, nxt[:, None],
+                                            cfg.vision.n_patches + S, rounds_after)
+        torch.cuda.synchronize()
+        vlm_s = time.perf_counter() - t0
     served = serve_workload.run(model, params, smoke=False, seed=0)
     launches = ops.launch_counts()
     variants = ops.flash_variant_counts()
@@ -1073,8 +1289,9 @@ def serve_phase(config="qwen1.5-0.5b"):
     if not batcher.all_logits_finite():
         fail("a decode round produced non-finite logits")
     # launches of one decode round, from the main path's own counts: two
-    # prefill steps, one prefill per admission, then the engine's rounds
-    prefills, rounds = 2 + batcher.prefills, batcher.steps
+    # prefill steps, one prefill per admission, then the engine's rounds (and
+    # a VLM's rounds from its prefill's cache)
+    prefills, rounds = 2 + batcher.prefills, batcher.steps + rounds_after
     want_prefill, want_round = expected_launches(cfg)
     for name in [k for k in launches if k not in want_prefill]:   # not on this path
         if launches.pop(name) + per_prefill.pop(name):
@@ -1118,7 +1335,13 @@ def serve_phase(config="qwen1.5-0.5b"):
     elif any(ssd_variants.values()):
         fail(f"{cfg.name}: ssd_scan variants {ssd_variants} launched without an SSM")
     tok_s = served["tokens"] / served["seconds"]
-    print(f"prefill step B={B} S={S}: {prefill_ms:.3f} ms")
+    print(f"prefill step B={B} S={S}"
+          f"{f' after {cfg.vision.n_patches} patch rows' if rounds_after else ''}: "
+          f"{prefill_ms:.3f} ms")
+    if rounds_after:
+        print(f"{rounds_after} greedy decode rounds from the prefill's cache (B={B}, from "
+              f"position {cfg.vision.n_patches + S}): {vlm_s:.3f} s, "
+              f"{B * rounds_after / vlm_s:.1f} tokens/s")
     print(f"served {served['served']} requests, {served['tokens']} tokens in "
           f"{served['seconds']:.3f} s: {tok_s:.1f} generated tokens/s "
           f"({served['engine_steps']} engine rounds, prefills included)")
@@ -1131,6 +1354,11 @@ def serve_phase(config="qwen1.5-0.5b"):
               first_logits_alone(model, params, r.prompt))
     if cfg.family in ("ssm", "hybrid"):
         state_guard(model, params)
+    if rounds_after:
+        patches = args["patches"]
+        decode_guard(f"{cfg.name} decode from the prefill's cache", model, params, vlm_logits,
+                     lambda m, p, shift: vlm_replay(m, p, tokens, patches, vlm_fed, shift),
+                     lambda m, p: vlm_forward(m, p, tokens, patches, vlm_fed))
 
     print(f"launches: main path {launches} over {prefills} prefills and {rounds} "
           f"decode rounds; per prefill {per_prefill}, per decode round {per_round}")
@@ -1140,11 +1368,121 @@ def serve_phase(config="qwen1.5-0.5b"):
     return launches, per_prefill, per_round
 
 
+def expected_audio_launches(cfg):
+    """An audio model's launches per prefill step (the forward over the
+    frames and the tokens), per cache fill (the encoder) and per decode
+    round: attention once a layer in the encoder, self and cross in the
+    decoder; two norms a layer in the encoder and its final one, three a
+    decoder layer and the final one."""
+    Le, L = cfg.encdec.n_encoder_layers, cfg.n_layers
+    fill = {"flash_fwd": Le, "rmsnorm": 2 * Le + 1}
+    rnd = {"flash_fwd": 2 * L, "rmsnorm": 3 * L + 1}
+    return {k: fill[k] + rnd[k] for k in fill}, fill, rnd
+
+
+def audio_serve_phase(config=AUDIO_CONFIG):
+    """Full-width, full-depth whisper-tiny on the card, on the path
+    ``profile_serve`` profiles (its AUDIO_* sizes): the prefill step (the
+    forward over AUDIO_PREFILL tokens and 1500 frames) twice, then
+    AUDIO_CLIPS clips of 1500 frames (``synthetic_extras``, cast to bf16):
+    ``encdec_serve_cache`` (the encoder and every layer's cross K/V), the
+    AUDIO_PROMPT-token prompts fed by decode steps, greedy rounds up to
+    AUDIO_MAX_LEN positions. Launches split into two prefills, one cache
+    fill and AUDIO_MAX_LEN equal decode rounds, each of the counts
+    ``expected_audio_launches`` gives: every prefill and fill launch on
+    ``tc_prefill``, every round's on ``split_decode`` (the cross-attention's
+    with no kv_len). Then the decode guard against the teacher-forced
+    forward over the fed tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic_extras
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import (
+        AUDIO_CLIPS, AUDIO_MAX_LEN, AUDIO_PREFILL, AUDIO_PROMPT)
+    from repro_torch.runtime.serve import encdec_serve_cache, greedy_decode, make_prefill_step
+
+    cfg = get_config(config)
+    model, params = _serving_model(cfg)
+    frames = torch.from_numpy(synthetic_extras(
+        "audio", AUDIO_CLIPS, cfg, np.random.default_rng(1))["frames"]).cuda().bfloat16()
+    gen = torch.Generator("cuda").manual_seed(1)
+    pb, ps = AUDIO_PREFILL
+    step = make_prefill_step(model, ShapeConfig("prefill_448", ps, pb, "prefill"))
+    args = {"params": params, "frames": frames[:pb],
+            "tokens": torch.randint(2, cfg.vocab, (pb, ps), device="cuda", generator=gen)}
+    prompt = torch.randint(2, cfg.vocab, (AUDIO_CLIPS, AUDIO_PROMPT), device="cuda",
+                           generator=gen)
+
+    # ---- the main path: counts from 0, read right after ----
+    ops.reset_launch_counts()
+    step(args)                                                 # warm-up
+    torch.cuda.synchronize()
+    per_prefill = ops.launch_counts()
+    t0 = time.perf_counter()
+    nxt, _ = step(args)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    cache = encdec_serve_cache(model, params, frames, AUDIO_MAX_LEN)
+    torch.cuda.synchronize()
+    fill_ms = (time.perf_counter() - t0) * 1e3
+    per_fill = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    t0 = time.perf_counter()
+    logits, fed = greedy_decode(model, params, cache, prompt, 0, AUDIO_MAX_LEN)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    variants = ops.flash_variant_counts()
+    # ---- end of the main path ----
+
+    if nxt.shape != (pb,) or not bool(torch.isfinite(logits).all()):
+        fail(f"{cfg.name}: wrong prefill shape or non-finite decode logits")
+    want_prefill, want_fill, want_round = expected_audio_launches(cfg)
+    per_round = {}
+    for name, n in launches.items():
+        rest = n - 2 * per_prefill[name] - per_fill[name]
+        if name not in want_round:
+            if n:
+                fail(f"kernel {name} launched while serving {cfg.name}")
+            continue
+        if rest < 0 or rest % AUDIO_MAX_LEN:
+            fail(f"kernel {name}: {n} launches do not split into 2 prefills of "
+                 f"{per_prefill[name]}, a cache fill of {per_fill[name]} and "
+                 f"{AUDIO_MAX_LEN} equal decode rounds")
+        per_round[name] = rest // AUDIO_MAX_LEN
+    got = tuple({k: d[k] for k in want_round} for d in (per_prefill, per_fill, per_round))
+    if got != (want_prefill, want_fill, want_round):
+        fail(f"{cfg.name}: launches per prefill, cache fill and decode round {got}, "
+             f"expected {(want_prefill, want_fill, want_round)}")
+    want_variants = {"tc_prefill": 2 * want_prefill["flash_fwd"] + want_fill["flash_fwd"],
+                     "split_decode": want_round["flash_fwd"] * AUDIO_MAX_LEN, "fma": 0}
+    if variants != want_variants:
+        fail(f"{cfg.name}: flash variants {variants}, expected {want_variants}")
+    print(f"flash variants: {variants}")
+    tokens = AUDIO_CLIPS * AUDIO_MAX_LEN
+    print(f"{cfg.name}: prefill step B={pb} S={ps} with {cfg.encdec.n_frames} frames "
+          f"{prefill_ms:.3f} ms; cache fill ({AUDIO_CLIPS} clips: encoder and cross K/V) "
+          f"{fill_ms:.3f} ms; {AUDIO_MAX_LEN} decode steps ({AUDIO_PROMPT} prompt tokens, "
+          f"then greedy) {decode_s:.3f} s, {tokens / decode_s:.1f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    decode_guard(f"{cfg.name} decode from encdec_serve_cache", model, params, logits,
+                 lambda m, p, shift: audio_replay(m, p, frames, fed, shift),
+                 lambda m, p: audio_forward(m, p, frames, fed))
+    print(f"launches: main path {launches}; per prefill {got[0]}, per cache fill {got[1]}, "
+          f"per decode round {got[2]}")
+    launches = {k: launches[k] for k in want_round}
+    launches["flash_fwd_variants"] = variants
+    return launches, {"prefill": got[0], "cache_fill": got[1]}, got[2]
+
+
 def flash_bwd_phase(gen):
     """The backward kernels against the plain version: FLASH_BWD_CASES in f32
     (the FMA kernels) and bf16 (the tensor-core kernels), the launches by
-    variant checked; then the four BWD_PATHS shapes (bf16, O and lse from
-    the forward kernel), each also held per 64-row tile and timed."""
+    variant checked; then the BWD_PATHS shapes (bf16, O and lse from the
+    forward kernel), each also held per 64-row tile and timed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1185,35 +1523,36 @@ def flash_bwd_phase(gen):
     print(f"flash bwd: checked cases by variant {want}")
 
     timed = {name: {} for name in worst}
-    for path, (B, S, Hq, Hkv, D, window) in BWD_PATHS.items():
+    for path, (B, S, T, Hq, Hkv, D, causal, window) in BWD_PATHS.items():
         q, do = (randn(B, S, Hq, D).to(torch.bfloat16) for _ in range(2))
-        k, v = (randn(B, S, Hkv, D).to(torch.bfloat16) for _ in range(2))
+        k, v = (randn(B, T, Hkv, D).to(torch.bfloat16) for _ in range(2))
         tile_rel[path] = {}
-        o, lse = check(f"flash bwd {path}", q, k, v, do, True, window, TOL["bfloat16"],
+        o, lse = check(f"flash bwd {path}", q, k, v, do, causal, window, TOL["bfloat16"],
                        tiles=tile_rel[path])
         delta = _delta(o, do).contiguous()
-        pairs = B * Hq * _causal_pairs(S, window)
-        q_b, kv_b, stat_b = B * S * Hq * D * 2, B * S * Hkv * D * 2, B * Hq * S * 4
+        pairs = B * Hq * (_causal_pairs(S, window) if causal else S * T)
+        q_b, kv_b, stat_b = B * S * Hq * D * 2, B * T * Hkv * D * 2, B * Hq * S * 4
         plain_ms = device_ms(lambda: flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=True, window=window), iters=5)
+            q, k, v, o, lse, do, causal=causal, window=window), iters=5)
         # SDPA has no window; gemma3's 1024 at S = 1024 leaves every causal key
         if window and window < S:
             fail(f"flash bwd {path}: SDPA takes no window: want one of at least S")
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                              **({"enable_gqa": True} if Hq != Hkv else {}))
         dot = do.transpose(1, 2)
         library_ms = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                            retain_graph=True))
-        shape = (f"B={B} S=T={S} Hq={Hq} Hkv={Hkv} D={D} causal"
+        shape = (f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} "
+                 f"{'causal' if causal else 'non-causal'}"
                  f"{f' window {window}' if window else ''} bf16")
         calls = {
             # (call, bytes: inputs once + outputs once, operations per valid pair)
-            "flash_bwd_dq": (lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True,
+            "flash_bwd_dq": (lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal,
                                                        window=window),
                              3 * q_b + 2 * kv_b + 2 * stat_b, 3 * 2 * D),
             "flash_bwd_dkv": (lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                         causal=True, window=window),
+                                                         causal=causal, window=window),
                               2 * q_b + 4 * kv_b + 2 * stat_b, 4 * 2 * D),
         }
         for name, (call, nbytes, per_pair) in calls.items():
@@ -1226,7 +1565,7 @@ def flash_bwd_phase(gen):
                 "plain_and_library_cover": "dq, dk and dv together"}
             print(f"{name} {path}: {json.dumps(timed[name][path])}")
         whole_ms = wrapper_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                               window=window))
+                                                               causal=causal, window=window))
         print(f"flash_attention_bwd_cuda (dq + dkv + delta) {path}: wrapper {whole_ms:.4f} ms")
     return worst, timed
 
@@ -1241,6 +1580,11 @@ def expected_train_launches(cfg, n_micro):
         each = {"ssd_scan": 2 * L, "ssd_scan_bwd": L, "rmsnorm": 2 * (2 * L + 2 * g) + 1}
         if g:                             # the shared block: 1 attention, 2 norms
             each.update(flash_fwd=2 * g, flash_bwd_dq=g, flash_bwd_dkv=g)
+    elif cfg.family == "audio":           # the encoder (1 attention, 2 norms a layer,
+        Le = cfg.encdec.n_encoder_layers  # its final norm) is not recomputed; a
+        each = {"flash_fwd": Le + 4 * L,  # decoder layer has 2 attentions, 3 norms
+                "flash_bwd_dq": Le + 2 * L, "flash_bwd_dkv": Le + 2 * L,
+                "rmsnorm": 2 * Le + 1 + 6 * L + 1}
     else:                                 # attention and 2 norms a layer
         each = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
                 "rmsnorm": 4 * L + 1}
@@ -1249,42 +1593,53 @@ def expected_train_launches(cfg, n_micro):
     return {name: n_micro * n for name, n in each.items()}
 
 
+# per family: the kernels the gradient guard puts on their plain versions
+# (launch counter names), and the names their dispatch asks ``ops._on_cuda``
+GUARD_SWAPS = {
+    "moe": (("moe_gmm", "moe_gmm_dx", "moe_gmm_dw"), ("moe_gmm", "moe_gmm_bwd")),
+    "ssm": (("ssd_scan", "ssd_scan_bwd"), ("ssd_scan", "ssd_scan_bwd")),
+    "hybrid": (("ssd_scan", "ssd_scan_bwd"), ("ssd_scan", "ssd_scan_bwd")),
+    **dict.fromkeys(("vlm", "audio"), (
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm"),
+        ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm"))),
+}
+
+
 def grad_guard(config):
     """One microbatch's loss gradients, every leaf, at ``config``'s train
-    width and depth: through the kernels against the same with the grouped
-    GEMM and the SSD scan (forward and backward) on their plain versions on
-    the card, measured as the norm of the difference over the norm of the
-    plain f32 gradients. In f32 (the same weights cast up) the two differ
-    only by the kernels' summation order: within GRAD_F32_TOL. In bf16 both
-    sit some 10 % from the f32 result after 48 Mamba layers (rounding
-    through the layers, as the state guard's bf16 logits): the kernels'
-    must be no farther from it than the plain versions' plus GUARD_TOL."""
+    width and depth: through the kernels against the same with the family's
+    own kernels (forward and backward) on their plain versions on the card
+    (GUARD_SWAPS: the grouped GEMM's, the SSD scan's, or the flash
+    attention's and RMSNorm's), measured as the norm of the difference over
+    the norm of the plain f32 gradients. In f32 (the same weights cast up)
+    the two differ only by the kernels' summation order: within
+    GRAD_F32_TOL. In bf16 both sit some 10 % from the f32 result after 48
+    Mamba layers (rounding through the layers, as the state guard's bf16
+    logits): the kernels' must be no farther from it than the plain
+    versions' plus GUARD_TOL."""
     import gc
     import torch
-    from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.launch import profile_train
     from repro_torch.models import build_model
     from repro_torch.optim.adamw import tree_leaves, tree_map
 
     cfg, _ = profile_train.train_depth(config)
-    shape, tcfg = profile_train.SHAPE, profile_train.train_config(config)
+    shape, tcfg = profile_train.train_shape(config), profile_train.train_config(config)
     m16 = build_model(cfg, "cuda")
     p16 = m16.init(torch.Generator("cuda").manual_seed(0))
     m32 = build_model(cfg.scaled(param_dtype="float32"), "cuda")
     p32 = tree_map(lambda t: t.float(), p16)
     n_micro = shape.global_batch // tcfg.microbatch_per_device
-    batch = TokenPipeline(DataConfig(cfg.vocab, shape.seq_len, shape.global_batch,
-                                     seed=0)).batch(0)
-    mb = {k: torch.from_numpy(v).to("cuda")[0::n_micro] for k, v in batch.items()}
+    batch = profile_train.train_batch(cfg, shape, 0, "cuda")
+    mb = {k: v[0::n_micro] for k, v in batch.items()}
     on_cuda = ops._on_cuda
-    # the kernels the path swaps: the grouped GEMM's or the SSD scan's, both ways
-    swapped = ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw") if cfg.family == "moe" else \
-        ("ssd_scan", "ssd_scan_bwd")
+    # the kernels the path swaps (their launch counters), and the names their
+    # dispatch asks ``ops._on_cuda`` under
+    swapped, dispatch = GUARD_SWAPS[cfg.family]
 
     def plain_on_card(t, name):
-        return name not in ("moe_gmm", "moe_gmm_bwd", "ssd_scan", "ssd_scan_bwd") and \
-            on_cuda(t, name)
+        return name not in dispatch and on_cuda(t, name)
 
     def grads(model, params, plain):
         """The gradients, having checked that the kernel path launched each
@@ -1344,7 +1699,7 @@ def train_phase(config="qwen1.5-0.5b"):
     t0 = time.perf_counter()
     model, step, state, batch = profile_train.setup(seed=0, config=config)
     torch.cuda.synchronize()
-    shape, tcfg = profile_train.SHAPE, profile_train.train_config(config)
+    shape, tcfg = profile_train.train_shape(config), profile_train.train_config(config)
     print(f"train: {cfg.name} full width, {reckoning['layers']} layers, "
           f"{model.n_params() / 1e6:.1f}M params, B={shape.global_batch} "
           f"S={shape.seq_len}, {tcfg}; set-up "
@@ -1592,6 +1947,10 @@ def main() -> int:
     moe_launches, moe_prefill, moe_round = serve_phase(MOE_CONFIG)
     release_memory(GEMMA3_CONFIG)
     gemma_launches, gemma_prefill, gemma_round = serve_phase(GEMMA3_CONFIG)
+    release_memory(VLM_CONFIG)
+    vlm_launches, vlm_prefill, vlm_round = serve_phase(VLM_CONFIG)
+    release_memory(AUDIO_CONFIG)
+    audio_launches, audio_per, audio_round = audio_serve_phase()
     trained = {}
     for config in TRAIN_CONFIGS:
         release_memory(f"training {config}")
@@ -1621,6 +1980,14 @@ def main() -> int:
                 "launches_gemma3_serve": gemma_launches[name],
                 "launches_per_gemma3_prefill": gemma_prefill[name],
                 "launches_per_gemma3_decode_round": gemma_round[name],
+                **{path: t for path, t in timed.items() if path.startswith(("whisper", "phi3v"))},
+                "launches_phi3v_serve": vlm_launches[name],
+                "launches_per_phi3v_prefill": vlm_prefill[name],
+                "launches_per_phi3v_decode_round": vlm_round[name],
+                "launches_whisper_serve": audio_launches[name],
+                "launches_per_whisper_prefill": audio_per["prefill"][name],
+                "launches_per_whisper_cache_fill": audio_per["cache_fill"][name],
+                "launches_per_whisper_decode_round": audio_round[name],
                 **ssm_launches(name), **variant_launches(name),
                 **train_launch_fields(name), **cws_launch_fields(name)}
 
@@ -1629,7 +1996,8 @@ def main() -> int:
         if name != "flash_fwd":
             return {}
         paths = {"serve": launches, "moe_serve": moe_launches,
-                 "gemma3_serve": gemma_launches,
+                 "gemma3_serve": gemma_launches, "phi3v_serve": vlm_launches,
+                 "whisper_serve": audio_launches,
                  **{f"{c}_serve": n for c, (n, _, _) in ssm.items()}}
         return {"launches_by_variant": {
             "train": train_launches["by_variant"]["flash_fwd"],
@@ -1668,7 +2036,7 @@ def main() -> int:
                 "paths": timed, **train_launch_fields(name)}
 
     def bwd_entry(name, line):
-        # top level: the train step's shape; "paths" all four timed shapes
+        # top level: the train step's shape; "paths" all the timed shapes
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
                 "replaces": f"src/repro/kernels/flash_attention.py:{line}",

@@ -1,7 +1,6 @@
 # The paper's primary contribution: the Common Workflow Scheduler (CWS)
 # and its interface (CWSI) — workflow-aware scheduling inside the resource
-# manager, with prediction plugins and central provenance. The port's own
-# copy; the journal and the CWSI's HTTP transport and client are not in it.
+# manager, with prediction plugins and central provenance.
 from .dag import (  # noqa: F401
     DataRef,
     Resources,
@@ -26,6 +25,13 @@ from .arbiter import (  # noqa: F401
 )
 from . import commands  # noqa: F401
 from .cwsi import CWSI_VERSION, CWSIClient, CWSIError, CWSIServer  # noqa: F401
+from .cwsi_client import (  # noqa: F401
+    RETRYABLE_STATUSES,
+    ReliableCWSIClient,
+    TransportError,
+)
+from .cwsi_http import CWSIHTTPServer, http_transport  # noqa: F401
+from .journal import Journal, engine_config, read_commands, recover  # noqa: F401
 from .node_index import NodeCapacityIndex, NodeCaps  # noqa: F401
 from .predict import (  # noqa: F401
     FeedbackMemoryPredictor,

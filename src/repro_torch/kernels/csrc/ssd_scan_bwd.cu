@@ -61,9 +61,14 @@
 //       - by rows j, 64 columns i at a time: B.C^T and x.dy^T (wgmma),
 //         then L_ji = e^{cum_i - cum_j} (i >= j) once for both and M' =
 //         (C.B^T) o L, W = (x.dy^T) o L dt stored transposed (rows j) in
-//         bf16 to shared memory; warpgroup 1 (j >= 64) forms only i >= 64;
+//         bf16 to shared memory, with what rounding took from W's diagonal
+//         W_jj kept in f32; warpgroup 1 (j >= 64) forms only i >= 64;
 //       - rows j: dB += W^T C, M'^T dy and B g^T (wgmma, M'^T and W^T as
-//         K-major A), then dx = dt o (M'^T dy) + w o (B g^T) staged in bf16
+//         K-major A), and the diagonal's residual r_j times C_j (dB) and B_j
+//         (dC) in f32: where a row's dB or dC is that one term (the last
+//         row of the sequence when g = 0, every row at S = 1) the heads'
+//         W_jj can cancel, and bf16's rounding of each would be all of
+//         what is left; then dx = dt o (M'^T dy) + w o (B g^T) staged in bf16
 //         for one TMA store, and the sums Col_j = x_j . (M'^T dy)_j (the
 //         column sums of T'), u_j = x_j . (B g^T)_j;
 //       - x becomes dt o x in place (bf16); dB += (wq o (dt o x)) g (A from
@@ -838,7 +843,8 @@ __global__ void __launch_bounds__(kThreads)
 // aligned to the 128-byte swizzle's atom. Then per head dt, cum, e^{cum},
 // e^{cum_last - cum} (Q floats each) and cum_last; two sets (one per parity
 // of the head) of the scalar chain's inputs: dy.y, Col, dt Col, u (Q floats
-// each) and <g, h_in>; five mbarriers. At the end C, B (2 Q N bf16) stage dB and
+// each) and <g, h_in>; the diagonal's residual W_jj - bf16(W_jj) (Q floats);
+// five mbarriers. At the end C, B (2 Q N bf16) stage dB and
 // W^T, M'^T (2 Q Q bf16, at least Q N floats) stage dC in f32.
 template <int N, int PT>
 struct MainSmem {
@@ -847,7 +853,7 @@ struct MainSmem {
   static constexpr int kX = Q * PT;
   static constexpr int kH = PT * N;
   static constexpr int kSums = 4 * Q + 8;
-  static constexpr int kFloats = 4 * kMaxHeads * Q + kMaxHeads + 2 * kSums;
+  static constexpr int kFloats = 4 * kMaxHeads * Q + kMaxHeads + 2 * kSums + Q;
   static constexpr int kBytes =
       1024 + 2 * (2 * kBC + 2 * kQQ + 3 * kX + 2 * kH) + 4 * kFloats + 8 * 5 + 16;
   static_assert(2 * kQQ >= 2 * kBC, "W^T and M'^T stage dC");
@@ -883,7 +889,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* wqs = ecs + kMaxHeads * Q;
   float* last = wqs + kMaxHeads * Q;
   float* sums = last + kMaxHeads;            // two sets of L::kSums
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sums + 2 * L::kSums);   // B/C, x, dy, h, g
+  float* wres = sums + 2 * L::kSums;         // W_jj - bf16(W_jj) of the head
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wres + Q);   // B/C, x, dy, h, g
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const Unit u(p);
@@ -950,7 +957,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // M'^T = (B.C^T) o L and W^T = (x.dy^T) o L dt by rows j, 64 columns i
   // (from i0) at a time, in bf16 into their Tile<Q>s (rows j, columns i):
   // both products on wgmma, then L_ji = e^{cum_i - cum_j} (i >= j, else 0)
-  // once for both
+  // once for both; the lane that forms W_jj keeps its rounding residual in
+  // wres[j]
   auto store_strips = [&](int i0, const float* cm, const float* dk) {
     float sb[32], sx[32];
 #pragma unroll
@@ -983,10 +991,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<uint32_t*>(mt + o0) = pack_bf16(sb[4 * jj] * l00, sb[4 * jj + 1] * l01);
       *reinterpret_cast<uint32_t*>(mt + o1) =
           pack_bf16(sb[4 * jj + 2] * l10, sb[4 * jj + 3] * l11);
-      *reinterpret_cast<uint32_t*>(wt + o0) =
-          pack_bf16(sx[4 * jj] * l00 * dj0, sx[4 * jj + 1] * l01 * dj0);
-      *reinterpret_cast<uint32_t*>(wt + o1) =
-          pack_bf16(sx[4 * jj + 2] * l10 * dj1, sx[4 * jj + 3] * l11 * dj1);
+      const float w00 = sx[4 * jj] * l00 * dj0, w01 = sx[4 * jj + 1] * l01 * dj0;
+      const float w10 = sx[4 * jj + 2] * l10 * dj1, w11 = sx[4 * jj + 3] * l11 * dj1;
+      const uint32_t h0 = pack_bf16(w00, w01), h1 = pack_bf16(w10, w11);
+      *reinterpret_cast<uint32_t*>(wt + o0) = h0;
+      *reinterpret_cast<uint32_t*>(wt + o1) = h1;
+      if (i == r0 || i + 1 == r0) {
+        const float2 r = unpack(h0);
+        wres[r0] = i == r0 ? w00 - r.x : w01 - r.y;
+      }
+      if (i == r1 || i + 1 == r1) {
+        const float2 r = unpack(h1);
+        wres[r1] = i == r1 ? w10 - r.x : w11 - r.y;
+      }
     }
   };
   // per row (r0, r1) of an accumulator of PT columns: sum_p t_p acc_p with
@@ -1086,6 +1103,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(db);
       fence_regs(md);
       fence_regs(bg);
+      // the diagonal's residual: dB_j += r_j C_j, dC_j += r_j B_j
+      {
+        const float rs0 = wres[r0], rs1 = wres[r1];
+#pragma unroll
+        for (int jj = 0; jj < N / 8; ++jj) {
+          const int o0 = tile_off<N>(Q, r0, 8 * jj) + 2 * quad;
+          const int o1 = tile_off<N>(Q, r1, 8 * jj) + 2 * quad;
+          const float2 c0v = unpack(*reinterpret_cast<const uint32_t*>(cs + o0));
+          const float2 c1v = unpack(*reinterpret_cast<const uint32_t*>(cs + o1));
+          const float2 b0v = unpack(*reinterpret_cast<const uint32_t*>(bs + o0));
+          const float2 b1v = unpack(*reinterpret_cast<const uint32_t*>(bs + o1));
+          db[4 * jj] = fmaf(rs0, c0v.x, db[4 * jj]);
+          db[4 * jj + 1] = fmaf(rs0, c0v.y, db[4 * jj + 1]);
+          db[4 * jj + 2] = fmaf(rs1, c1v.x, db[4 * jj + 2]);
+          db[4 * jj + 3] = fmaf(rs1, c1v.y, db[4 * jj + 3]);
+          dc[4 * jj] = fmaf(rs0, b0v.x, dc[4 * jj]);
+          dc[4 * jj + 1] = fmaf(rs0, b0v.y, dc[4 * jj + 1]);
+          dc[4 * jj + 2] = fmaf(rs1, b1v.x, dc[4 * jj + 2]);
+          dc[4 * jj + 3] = fmaf(rs1, b1v.y, dc[4 * jj + 3]);
+        }
+      }
       float v0, v1, c0, c1, u0, u1;
       row_dots(md, xs, v0, v1);
       // dt_j Col_j for dcum from the rounded dt o x that y takes below: the

@@ -320,8 +320,11 @@ def ssd_scan_bwd_tc_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     from bf16 hi + lo splits of w∘x and e^{cum}∘dy, stored in bf16; h_in and
     the outgoing gradient g carried over the chunks in f32, rounded to bf16
     where they enter a product (and <g, h_in>); M' = (C·Bᵀ)∘L and W = (dy·xᵀ)∘L·dt_j
-    (L_ij = e^{cum_i − cum_j}, j <= i) rounded to bf16; dt∘x, wq∘(dt∘x) and
-    e^{cum}∘dy rounded to bf16. T' = M'∘(dy·xᵀ) enters only through its
+    (L_ij = e^{cum_i − cum_j}, j <= i) rounded to bf16, but W's diagonal,
+    which the kernel adds back in f32 (the rounding residual r_j times C_j
+    into dB, times B_j into dC: where a row's dB or dC is that one term, as
+    at S = 1, the heads' W_jj can cancel and leave only their roundings);
+    dt∘x, wq∘(dt∘x) and e^{cum}∘dy rounded to bf16. T' = M'∘(dy·xᵀ) enters only through its
     sums: by columns x_j·(M'ᵀ·dy)_j, by rows with dt_j dy_i·(M'·(dt∘x))_i
     (part of dy·y, y the forward's output); the scalar chain in f32. f32
     inputs round nothing (f64 compute in f64). → (dxh, ddt, da, dB, dC) in
@@ -391,7 +394,8 @@ def ssd_scan_bwd_tc_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     lm = torch.exp((cumt[..., :, None] - cumt[..., None, :]).masked_fill(~tril, float("-inf")))
     cb = torch.einsum("bcign,bcjgn->bcgij", c, b).repeat_interleave(R, dim=2)
     mp = rnd(cb * lm)
-    wmat = rnd(torch.einsum("bcihp,bcjhp->bchij", g_y, x) * lm * dtt[..., None, :])
+    w32 = torch.einsum("bcihp,bcjhp->bchij", g_y, x) * lm * dtt[..., None, :]
+    wmat = torch.where(torch.eye(Q, dtype=torch.bool, device=xh.device), w32, rnd(w32))
 
     # rows j: dx, dB; the column sums of T' = M'∘(dy·xᵀ) as x·(M'ᵀ·dy)
     mdy = torch.einsum("bchij,bcihp->bcjhp", mp, g_y)

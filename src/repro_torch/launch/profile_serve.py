@@ -1,7 +1,7 @@
 """Where the serving time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--config qwen3-moe-30b-a3b|mamba2-370m|zamba2-2.7b]
+        [--config qwen3-moe-30b-a3b|mamba2-370m|zamba2-2.7b|phi-3-vision-4.2b|whisper-tiny]
 
 Serves ``serve_workload``'s full burst (a full-width model, default
 qwen1.5-0.5b, bf16, random weights from seed 0, 8 slots) once to warm up,
@@ -19,7 +19,13 @@ stacks and input shapes, by the model function, op and shapes that
 launched each kernel; for the SSM
 and hybrid configs also the device time inside ``record_function`` ranges
 around each Mamba block and the stages it calls by name (causal conv, dt
-and a, the SSD scan). Needs a CUDA card.
+and a, the SSD scan). A VLM's prefill step takes 576 patch rows
+(``synthetic_extras``) before its 1024 tokens; its burst is text only. An
+audio model (whisper-tiny), which the batcher does not serve, is profiled
+on ``chip_smoke.py``'s path instead: the prefill step (the forward over
+B=4, S=448 and 1500 frames), then 8 clips through ``encdec_serve_cache``
+and 448 decode steps (4 prompt tokens, then greedy), once to warm up, once
+unprofiled, once profiled. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -29,13 +35,15 @@ import json
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 from ..configs import get_config
 from ..configs.base import ShapeConfig
+from ..data import synthetic_extras
 from ..kernels import ops
 from ..models import build_model, hybrid, mamba2
-from ..runtime.serve import make_prefill_step
+from ..runtime.serve import encdec_serve_cache, greedy_decode, make_prefill_step
 from . import serve_workload
 
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),
@@ -162,12 +170,100 @@ class _Timed:
         return out
 
 
+def _prefill_step_report(model, step, batch) -> dict:
+    """One prefill step after a warm-up call: its host ms unprofiled, then
+    its device time by family, top kernels, the Mamba ranges and the
+    launching sources, traced with Python stacks and input shapes."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with _mamba_ranges(), torch.profiler.profile(activities=acts, record_shapes=True,
+                                                  with_stack=True) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    step_us, step_family, step_kernel, step_n = _split(prof)
+    return {"prefill_step_ms": step_ms,
+            "prefill_step_device_ms": step_us / 1e3,
+            "prefill_step_kernels": step_n,
+            "prefill_step_device_ms_by_family": _top(step_family, 1e3),
+            "prefill_step_top_kernels_ms": _top(step_kernel, 1e3, 8),
+            "prefill_step_ranges_ms": _ranges_ms(prof),
+            "prefill_step_by_source_ms": _by_source(prof)}
+
+
+# whisper-tiny's serving path in chip_smoke.py: clips, prompt tokens fed by
+# decode steps, decoder positions, the prefill step's (B, S)
+AUDIO_CLIPS, AUDIO_PROMPT, AUDIO_MAX_LEN, AUDIO_PREFILL = 8, 4, 448, (4, 448)
+
+
+def audio_main(model, params, seed: int) -> dict:
+    """An audio model's serving profile: the prefill step, and clips served
+    by ``encdec_serve_cache`` and greedy decode steps (the batcher serves no
+    audio model)."""
+    cfg = model.cfg
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(synthetic_extras("audio", AUDIO_CLIPS, cfg, rng)["frames"]
+                              ).cuda().bfloat16()
+    prompt = torch.from_numpy(rng.integers(2, cfg.vocab, (AUDIO_CLIPS, AUDIO_PROMPT))).cuda()
+
+    def serve():
+        t0 = time.perf_counter()
+        cache = encdec_serve_cache(model, params, frames, AUDIO_MAX_LEN)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        greedy_decode(model, params, cache, prompt, 0, AUDIO_MAX_LEN)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, fill_s
+
+    serve()                                                           # warm-up
+    plain_s, plain_fill_s = serve()
+    with torch.profiler.profile(activities=acts) as prof:
+        wall, fill_s = serve()
+    busy_us, by_family, by_kernel, n_kernels = _split(prof)
+    cache = encdec_serve_cache(model, params, frames, AUDIO_MAX_LEN)
+    with torch.profiler.profile(activities=acts) as prof:
+        model.decode_step(params, cache, prompt[:, 0], 0)
+        torch.cuda.synchronize()
+    per_round = len(_kernels(prof))
+    pb, ps = AUDIO_PREFILL
+    step = make_prefill_step(model, ShapeConfig("prefill_448", ps, pb, "prefill"))
+    batch = {"params": params, "frames": frames[:pb], "tokens": torch.from_numpy(
+        rng.integers(2, cfg.vocab, (pb, ps))).cuda()}
+    tokens = AUDIO_CLIPS * AUDIO_MAX_LEN
+    return {
+        "device": torch.cuda.get_device_name(0), "config": cfg.name,
+        "path": f"{AUDIO_CLIPS} clips of {cfg.encdec.n_frames} frames: encdec_serve_cache, "
+                f"{AUDIO_MAX_LEN} decode steps ({AUDIO_PROMPT} prompt tokens, then greedy)",
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "unprofiled_wall_s": plain_s, "unprofiled_cache_fill_s": plain_fill_s,
+        "unprofiled_tok_per_s": tokens / plain_s,
+        "unprofiled_device_idle_share": 1.0 - busy_us / 1e6 / plain_s,
+        "kernels_per_decode_round": per_round,
+        "wall_s": wall, "cache_fill_s": fill_s, "tokens": tokens,
+        "device_busy_s": busy_us / 1e6, "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "kernels": n_kernels,
+        "device_s_by_family": _top(by_family, 1e6),
+        "top_kernels_s": _top(by_kernel, 1e6, 8),
+        **_prefill_step_report(model, step, batch)}
+
+
 def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     model = build_model(get_config(config), "cuda")
     params = model.init(torch.Generator("cuda").manual_seed(seed))
+    if model.cfg.family == "audio":
+        report = audio_main(model, params, seed)
+        print(json.dumps(report, indent=1))
+        if report["device_busy_s"] == 0:
+            raise SystemExit("the profiler recorded no device time")
+        return report
     serve_workload.run(model, params, smoke=False, seed=seed)        # warm-up
     plain = serve_workload.run(model, params, smoke=False, seed=seed)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -180,23 +276,14 @@ def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG) -> dict:
     per_round = sum(e.device_type == torch.autograd.DeviceType.CUDA
                     for e in prof.events())
 
-    # one prefill step at B=4, S=1024, after a warm-up call
+    # one prefill step at B=4, S=1024 (a VLM's after its patches)
     step = make_prefill_step(model, ShapeConfig("prefill_1k", 1024, 4, "prefill"))
     batch = {"params": params, "tokens": torch.randint(
         2, model.cfg.vocab, (4, 1024), device="cuda",
         generator=torch.Generator("cuda").manual_seed(1))}
-    step(batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(batch)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    with _mamba_ranges(), torch.profiler.profile(activities=acts, record_shapes=True,
-                                                  with_stack=True) as prof:
-        step(batch)
-        torch.cuda.synchronize()
-    step_us, step_family, step_kernel, step_n = _split(prof)
-    step_ranges, step_source = _ranges_ms(prof), _by_source(prof)
+    batch.update({k: torch.from_numpy(v).cuda() for k, v in synthetic_extras(
+        model.cfg.family, 4, model.cfg, np.random.default_rng(seed)).items()})
+    step_report = _prefill_step_report(model, step, batch)
 
     prefill, decode = _Timed(model.prefill_into), _Timed(model.decode_step)
     model.prefill_into, model.decode_step = prefill, decode
@@ -220,13 +307,7 @@ def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG) -> dict:
         "kernels": n_kernels,
         "device_s_by_family": _top(by_family, 1e6),
         "top_kernels_s": _top(by_kernel, 1e6, 8),
-        "prefill_step_ms": step_ms,
-        "prefill_step_device_ms": step_us / 1e3,
-        "prefill_step_kernels": step_n,
-        "prefill_step_device_ms_by_family": _top(step_family, 1e3),
-        "prefill_step_top_kernels_ms": _top(step_kernel, 1e3, 8),
-        "prefill_step_ranges_ms": step_ranges,
-        "prefill_step_by_source_ms": step_source,
+        **step_report,
     }
     print(json.dumps(report, indent=1))
     if busy_us == 0:

@@ -6,8 +6,10 @@ Builds one config at full width (bf16, random weights from seed 0) and the
 train step that ``chip_smoke.py`` drives (``train_1k``: B=8, S=1024, two
 microbatches of 4, remat "block", bf16 moments; peak learning rate 1e-3,
 1e-4 for the wider configs): qwen1.5-0.5b (the
-default), qwen3-moe-30b-a3b, mamba2-370m or zamba2-2.7b, each at the depth
-that ``train_depth`` reckons for one card. Takes one warm-up step,
+default), qwen3-moe-30b-a3b, mamba2-370m, zamba2-2.7b, phi-3-vision-4.2b
+(576 patch rows before the 1024 tokens) or whisper-tiny (1500 frames, 448
+decoder tokens: ``train_shape``), each at the depth that ``train_depth``
+reckons for one card. Takes one warm-up step,
 ``--steps`` steps on the host clock (each ending in a synchronize), then
 one step under ``torch.profiler``. Prints the depth reckoning, host ms per
 step, trained tokens/s, the device's busy time in the profiled step and its
@@ -28,35 +30,45 @@ import time
 from collections import defaultdict
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..configs import get_config
 from ..configs.base import ModelConfig, ShapeConfig, TrainConfig
-from ..data import DataConfig, TokenPipeline
+from ..data import DataConfig, TokenPipeline, synthetic_extras
 from ..kernels import ops
 from ..models import build_model
 from ..runtime.train import init_state, make_train_step
 
 SHAPE = ShapeConfig("train_1k", 1024, 8, "train")
+# whisper's decoder takes at most 448 positions (arXiv:2212.04356): it
+# trains on 448 tokens against its 1500 frames
+SHAPES = {"whisper-tiny": ShapeConfig("train_448", 448, 8, "train")}
 TCFG = TrainConfig(remat="block", opt_dtype="bfloat16", microbatch_per_device=4,
                    warmup_steps=2, learning_rate=1e-3)
-CONFIGS = ("qwen1.5-0.5b", "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-2.7b")
+CONFIGS = ("qwen1.5-0.5b", "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-2.7b",
+           "phi-3-vision-4.2b", "whisper-tiny")
 # train state per parameter: bf16 param 2, f32 master 4, two bf16 moments
 # 4, f32 gradient accumulator 4, the step's bf16 gradient 2
 STATE_BYTES_PER_PARAM = 16
 # the device memory a config's train step may reach at its reckoned depth
 # (of the card's 80 GB), above which it is cut further
-PEAK_LIMIT_GB = {"qwen3-moe-30b-a3b": 72.0, "zamba2-2.7b": 75.0}
+PEAK_LIMIT_GB = {"qwen3-moe-30b-a3b": 72.0, "zamba2-2.7b": 75.0, "phi-3-vision-4.2b": 72.0}
 # layers a config trains with on one card: qwen3-moe-30b-a3b's 48 layers
 # hold 623 M parameters each (10 GB of train state): 4 of them and the
 # 622 M of its embedding and head, 3.11 B parameters, ~50 GB of state.
-# The others train at full depth.
-TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 4}
+# phi-3-vision-4.2b's 32 layers hold 113 M each: all of them, 3.82 B
+# parameters, would take 61 GB of state before an activation or AdamW's
+# f32 temporaries of its largest leaf (0.8 G elements at full depth); 16
+# of them and the 200 M of its embedding, head and patch projection come
+# to 2.01 B, ~32 GB. The others train at full depth.
+TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 4, "phi-3-vision-4.2b": 16}
 # peak learning rate by config (TCFG's 1e-3 for the others): at 1e-3, two
 # warm-up steps and one repeated batch, the widest configs (d 2048 and
 # 2560) overshoot and their loss climbs from the third step; 1e-4 is the
 # order of published rates at these sizes (GPT-3's 1.6e-4 at 2.7 B)
-LEARNING_RATE = {"qwen3-moe-30b-a3b": 1e-4, "mamba2-370m": 1e-4, "zamba2-2.7b": 1e-4}
+LEARNING_RATE = {"qwen3-moe-30b-a3b": 1e-4, "mamba2-370m": 1e-4, "zamba2-2.7b": 1e-4,
+                 "phi-3-vision-4.2b": 1e-4}
 # device kernels by family: the first entry whose substrings all occur in
 # the kernel's name (the grouped GEMM's templates name their operand
 # layouts: <false, true> forward, <false, false> dX, <true, true> dW; the
@@ -118,18 +130,31 @@ def train_config(config: str) -> TrainConfig:
     return dataclasses.replace(TCFG, learning_rate=LEARNING_RATE.get(config, TCFG.learning_rate))
 
 
+def train_shape(config: str) -> ShapeConfig:
+    """The train step's batch and sequence length: SHAPE unless SHAPES says."""
+    return SHAPES.get(config, SHAPE)
+
+
+def train_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int, device: str):
+    """Step 0's batch of the token pipeline, and a VLM's patches or an audio
+    model's frames (``synthetic_extras``, f32: the model casts them), on
+    ``device``."""
+    batch = TokenPipeline(DataConfig(cfg.vocab, shape.seq_len, shape.global_batch,
+                                     seed=seed)).batch(0)
+    batch.update(synthetic_extras(cfg.family, shape.global_batch, cfg,
+                                  np.random.default_rng(seed)))
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
 def setup(seed: int = 0, device: str = "cuda", config: str = "qwen1.5-0.5b"):
     """→ (model, train_step, state, batch) of ``config``'s train phase at
-    its ``train_depth`` and ``train_config``, on ``device``."""
+    its ``train_depth``, ``train_shape`` and ``train_config``, on ``device``."""
     cfg, _ = train_depth(config)
     model = build_model(cfg, device)
-    tcfg = train_config(config)
-    step, *_ = make_train_step(model, tcfg, SHAPE)
+    tcfg, shape = train_config(config), train_shape(config)
+    step, *_ = make_train_step(model, tcfg, shape)
     state = init_state(model, tcfg, torch.Generator(device).manual_seed(seed))
-    batch = TokenPipeline(DataConfig(cfg.vocab, SHAPE.seq_len, SHAPE.global_batch,
-                                     seed=seed)).batch(0)
-    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    return model, step, state, batch
+    return model, step, state, train_batch(cfg, shape, seed, device)
 
 
 def main(steps: int = 3, seed: int = 0, config: str = "qwen1.5-0.5b") -> Dict[str, Any]:
@@ -166,12 +191,13 @@ def main(steps: int = 3, seed: int = 0, config: str = "qwen1.5-0.5b") -> Dict[st
     if busy_us == 0:
         raise SystemExit("the profiler recorded no device time")
     step_ms = sorted(ms)[len(ms) // 2]
-    tokens = SHAPE.global_batch * SHAPE.seq_len
+    shape = train_shape(config)
+    tokens = shape.global_batch * shape.seq_len
     report = {
         "device": torch.cuda.get_device_name(0),
         "model": f"{model.cfg.name} {model.n_params() / 1e6:.1f}M params bf16, "
                  f"{reckoning['layers']} layers",
-        "shape": f"B={SHAPE.global_batch} S={SHAPE.seq_len}, 2 microbatches, remat block",
+        "shape": f"B={shape.global_batch} S={shape.seq_len}, 2 microbatches, remat block",
         "step_ms": ms, "median_step_ms": step_ms,
         "trained_tok_per_s": tokens / (step_ms / 1e3),
         "device_busy_ms": busy_us / 1e3,

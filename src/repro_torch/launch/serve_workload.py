@@ -1,10 +1,14 @@
 """End-to-end serving entry point: continuous batching under Lotaru ordering.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_workload [--device cpu] [--smoke]
-        [--config qwen3-moe-30b-a3b|mamba2-370m|zamba2-2.7b]
+        [--config qwen3-moe-30b-a3b|mamba2-370m|zamba2-2.7b|phi-3-vision-4.2b]
 
-A model (``--config``, default qwen1.5-0.5b; a dense, MoE, SSM or hybrid
-config) serves a burst of requests through the ContinuousBatcher.
+A model (``--config``, default qwen1.5-0.5b; a dense, MoE, SSM, hybrid or
+VLM config) serves a burst of requests through the ContinuousBatcher. A
+VLM's requests are text only, as ``repro``'s batcher serves one (a
+``Request`` carries no patches). An audio model is refused: its decode
+needs the encoder's cross K/V (``runtime.serve.encdec_serve_cache``), which
+the batcher does not fill, in ``repro`` either.
 Admission order is shortest-predicted-first: the Lotaru runtime predictor
 ranks each request by its predicted decode time (the CWS rank_min analogue
 for serving), which minimises mean latency. The engine decodes one token
@@ -84,6 +88,9 @@ DEFAULT_CONFIG = "qwen1.5-0.5b"
 def main(device: Optional[str] = None, smoke: bool = False, seed: int = 0,
          config: str = DEFAULT_CONFIG) -> Dict[str, Any]:
     cfg = get_config(config, smoke=smoke)
+    if cfg.family == "audio":
+        raise SystemExit(f"{config}: the batcher serves no audio model (it does not "
+                         f"fill the encoder's cross K/V); see runtime.serve.encdec_serve_cache")
     model = build_model(cfg, device)
     params = model.init(torch.Generator(model.device).manual_seed(seed))
     out = run(model, params, smoke, seed)

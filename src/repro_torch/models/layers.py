@@ -9,10 +9,12 @@ the two frameworks' trees correspond leaf by leaf.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -178,6 +180,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, fraction: float = 1.
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1.to(x.dtype), y2.to(x.dtype), xp], dim=-1)
+
+
+def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+    """The (n, d) f32 table of sinusoidal positions (sin at even columns,
+    cos at odd), ``repro``'s: computed in numpy float64 and cast once to
+    f32, so that both frameworks add the same table to their activations."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    angle = pos / np.power(10000.0, dim / d)
+    out = np.zeros((n, d), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return torch.from_numpy(out)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_table(n: int, d: int, device: torch.device,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """``sinusoidal_positions(n, d)`` on ``device`` in ``dtype``, built once
+    per (n, d, device, dtype): the encoder and the decoder add it on every
+    call. Callers must not write to it."""
+    return sinusoidal_positions(n, d).to(device, dtype)
 
 
 # ---------------------------------------------------------------------------

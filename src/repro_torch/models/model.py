@@ -1,14 +1,17 @@
-"""Model API (port of ``repro.models.model``): dense, MoE, SSM and hybrid
-families.
+"""Model API (port of ``repro.models.model``): the dense, MoE, VLM, SSM,
+hybrid and audio families.
 
 ``Model`` is a stateless ``nn.Module``: parameters are nested dicts of
 tensors passed to each call, as in ``repro``, so the public functions keep
 ``repro``'s signatures (``init``, ``param_specs``, ``logits``, ``loss``,
 ``init_cache``, ``prefill``, ``decode_step``) and dispatch by family as
 ``repro``'s does. The model's device is the one its tensors are made on:
-``cuda`` unless the caller passes another. Unlike ``repro``'s, ``prefill``
-and ``prefill_into`` serve the SSM and hybrid families too: they leave in
-the cache the state that feeding the prompt token by token would.
+``cuda`` unless the caller passes another. A VLM's ``logits`` take the
+batch's ``patches``, an audio model's its ``frames``. Unlike ``repro``'s,
+``prefill`` and ``prefill_into`` serve the SSM and hybrid families too:
+they leave in the cache the state that feeding the prompt token by token
+would. The audio family has neither, as in ``repro``: its serving cache
+comes from ``runtime.serve.encdec_serve_cache``.
 """
 from __future__ import annotations
 
@@ -20,39 +23,54 @@ from torch import nn
 
 from .. import DEFAULT_DEVICE
 from ..configs.base import ModelConfig
-from . import hybrid, mamba2, transformer
+from . import encdec, hybrid, mamba2, transformer
 from .layers import Schema, count_params, init_params, param_specs
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
-# each family's functions, as repro's model.py dispatches them
+
+def _no_prefill(cfg: ModelConfig, *args: Any, **kwargs: Any) -> Any:
+    raise NotImplementedError(
+        f"prefill-with-cache for family {cfg.family}: its serving cache comes from "
+        f"runtime.serve.encdec_serve_cache (the encoder's cross K/V), then decode steps")
+
+
+# each family's functions, as repro's model.py dispatches them; ``inputs``
+# names the batch entries ``logits`` passes to ``forward`` after the tokens
 _FAMILIES = {
     "dense": SimpleNamespace(schema=transformer.lm_schema, forward=transformer.forward,
-                             cache_shapes=transformer.cache_shapes,
+                             inputs=(), cache_shapes=transformer.cache_shapes,
                              init_cache=transformer.init_cache,
                              decode_step=transformer.decode_step,
                              prefill=transformer.prefill,
                              prefill_into=transformer.prefill_into),
     "ssm": SimpleNamespace(schema=mamba2.ssm_lm_schema, forward=mamba2.ssm_forward,
+                           inputs=(),
                            cache_shapes=mamba2.ssm_cache_shapes,
                            init_cache=mamba2.ssm_init_cache,
                            decode_step=mamba2.ssm_decode_step,
                            prefill=mamba2.ssm_prefill,
                            prefill_into=mamba2.ssm_prefill_into),
     "hybrid": SimpleNamespace(schema=hybrid.hybrid_schema, forward=hybrid.forward,
-                              cache_shapes=hybrid.cache_shapes,
+                              inputs=(), cache_shapes=hybrid.cache_shapes,
                               init_cache=hybrid.init_cache,
                               decode_step=hybrid.decode_step, prefill=hybrid.prefill,
                               prefill_into=hybrid.prefill_into),
+    "audio": SimpleNamespace(schema=encdec.encdec_schema, forward=encdec.forward,
+                             inputs=("frames",), cache_shapes=encdec.cache_shapes,
+                             init_cache=encdec.init_cache, decode_step=encdec.decode_step,
+                             prefill=_no_prefill, prefill_into=_no_prefill),
 }
 _FAMILIES["moe"] = _FAMILIES["dense"]
+_FAMILIES["vlm"] = SimpleNamespace(**{**vars(_FAMILIES["dense"]), "inputs": ("patches",)})
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
-        transformer.require_ported(cfg)
+        if cfg.family not in _FAMILIES:
+            raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         self.device = torch.device(device if device is not None else DEFAULT_DEVICE)
         self.param_dtype = _DTYPES[cfg.param_dtype]
@@ -75,7 +93,10 @@ class Model(nn.Module):
     # ---------------- forward ----------------
     def logits(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                remat: str = "block") -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.family.forward(self.cfg, params, batch["tokens"], remat=remat)
+        """→ (logits over the token positions, aux loss). A VLM's batch
+        holds ``patches``, an audio model's ``frames``, beside the tokens."""
+        return self.family.forward(self.cfg, params, batch["tokens"],
+                                   *(batch[k] for k in self.family.inputs), remat=remat)
 
     forward = logits
 
@@ -111,10 +132,10 @@ class Model(nn.Module):
     def prefill(self, params: Dict[str, Any], tokens: torch.Tensor,
                 max_len: int, extra: Optional[Dict[str, torch.Tensor]] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        if extra:
-            raise NotImplementedError("prefill inputs beyond tokens come with "
-                                      "the VLM/audio slice")
-        return self.family.prefill(self.cfg, params, tokens, max_len)
+        """→ (last-position logits, cache of ``max_len`` slots). A VLM takes
+        ``extra["patches"]``: the cache then holds the patch rows before the
+        prompt. The audio family raises, as in ``repro``."""
+        return self.family.prefill(self.cfg, params, tokens, max_len, **(extra or {}))
 
     def prefill_into(self, params: Dict[str, Any], tokens: torch.Tensor,
                      cache: Dict[str, Any], row: int = 0) -> torch.Tensor:

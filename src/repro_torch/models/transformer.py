@@ -1,5 +1,5 @@
-"""Decoder-only transformer stack, dense and MoE families (port of
-``repro.models.transformer``); which families the port serves.
+"""Decoder-only transformer stack, dense, MoE and VLM families (port of
+``repro.models.transformer``).
 
 Parameters keep ``repro``'s scan-stacked layout: every block leaf carries a
 leading (groups, pattern_len) stack, and a Python loop over (group, pattern
@@ -12,6 +12,12 @@ attention and the MoE expert products go through ``kernels.ops``
 (hand-written kernels on CUDA, their plain versions on CPU; norms and
 attention differentiable where the inputs require grad); the other large
 products stay ``torch.matmul``.
+
+A VLM prepends its image: ``vision_proj`` maps the stub frontend's patch
+embeddings to the model width, and those rows come before the tokens'
+(``embed_inputs``). ``forward`` returns logits over the token positions
+only; ``prefill`` caches the patch rows and the prompt, so decoding goes
+on at position ``n_patches + S``.
 """
 from __future__ import annotations
 
@@ -35,20 +41,6 @@ from .layers import (
 from .moe import moe_ffn, moe_schema
 
 REMAT = ("none", "block", "full")
-
-PORTED = ("dense", "moe", "ssm", "hybrid")
-# the slice of the port that brings each family not ported yet
-LATER_SLICE = {
-    "vlm": "the VLM/audio slice (patch prefix in embed_inputs)",
-    "audio": "the VLM/audio slice (models/encdec.py)",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
-            f"with {LATER_SLICE.get(cfg.family, 'a later slice')}")
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +82,6 @@ def _kind_slots(pat: List[str]) -> List[Tuple[str, int]]:
 # schema
 # ---------------------------------------------------------------------------
 def block_schema(cfg: ModelConfig) -> Schema:
-    require_ported(cfg)
     return {
         "ln1": P((cfg.d_model,), ("embed",), "ones"),
         "attn": attention_schema(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -113,6 +104,8 @@ def lm_schema(cfg: ModelConfig) -> Schema:
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = P((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    if cfg.vision is not None:
+        s["vision_proj"] = P((cfg.vision.patch_dim, cfg.d_model), (None, "embed"))
     return s
 
 
@@ -203,16 +196,34 @@ def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     return x + y, k, v, aux
 
 
-def embed_inputs(cfg: ModelConfig, params: Dict[str, Any],
-                 tokens: torch.Tensor) -> torch.Tensor:
-    require_ported(cfg)
-    return params["embed"]["table"][tokens]
+def embed_inputs(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
+                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (B, S, d); a VLM's patches (B, n_patches, patch_dim),
+    cast to the table's dtype and projected by ``vision_proj``, come before
+    them: (B, n_patches + S, d)."""
+    x = params["embed"]["table"][tokens]
+    if n_patches(cfg, patches):
+        x = torch.cat([patches.to(x.dtype) @ params["vision_proj"], x], dim=1)
+    return x
+
+
+def n_patches(cfg: ModelConfig, patches: Optional[torch.Tensor]) -> int:
+    """The patch rows that ``patches`` put before the tokens: 0 without
+    patches; patches given to a model with no vision config raise."""
+    if patches is None:
+        return 0
+    if cfg.vision is None:
+        raise ValueError(f"{cfg.name} has no vision config: it takes no patches")
+    return cfg.vision.n_patches
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            remat: str = "block") -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (logits (B, S, V), aux_loss: the layers' MoE aux losses summed, 0
-    for a dense model). ``remat`` other than "none" keeps no
+            patches: Optional[torch.Tensor] = None, remat: str = "block",
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (logits (B, S, V) over the token positions, aux_loss: the layers'
+    MoE aux losses summed, 0 for a dense model). A VLM's ``patches`` run
+    through the layers ahead of the tokens (``embed_inputs``) and their
+    rows are dropped before the unembed. ``remat`` other than "none" keeps no
     activation of a layer group for the backward pass: each group's body
     runs under ``torch.utils.checkpoint`` and is recomputed there, as
     ``jax.checkpoint(group_body, policy=nothing_saveable)`` does in
@@ -220,7 +231,7 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     and the unembed stay outside the groups."""
     if remat not in REMAT:
         raise ValueError(f"remat={remat!r}: want one of {REMAT}")
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, patches)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     pat = layer_pattern(cfg)
@@ -241,6 +252,7 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
         else:
             x, aux = group_body(x, aux, gi)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = x[:, n_patches(cfg, patches):]                 # the text positions
     return unembed(cfg, params, x), aux
 
 
@@ -327,24 +339,31 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
 
 
 def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            max_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the full prompt through the causal kernel path, build a cache of
-    size max_len, return (last-position logits (B, V), cache)."""
+            max_len: int, patches: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the full prompt (a VLM's patch rows first) through the causal
+    kernel path, build a cache of size max_len, return (last-position
+    logits (B, V), cache). With patches the cache holds ``n_patches + S``
+    positions, and decoding goes on at position ``n_patches + S``."""
     B, S = tokens.shape
-    if S > max_len:
-        raise ValueError(f"prompt of {S} tokens does not fit max_len={max_len}")
+    n = n_patches(cfg, patches)
+    if n + S > max_len:
+        raise ValueError(f"prompt of {n} patches and {S} tokens does not fit "
+                         f"max_len={max_len}")
     table = params["embed"]["table"]
     cache = init_cache(cfg, B, max_len, table.dtype, table.device)
-    return prefill_into(cfg, params, tokens, cache, 0), cache
+    return prefill_into(cfg, params, tokens, cache, 0, patches), cache
 
 
 def prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
-                 cache: Dict[str, Any], row: int = 0) -> torch.Tensor:
-    """Prefill ``tokens`` (B, S) and write their K/V **in place** into rows
-    ``row .. row + B - 1`` of ``cache``; the slots of those rows past the
-    prompt are zeroed, so a reused row keeps nothing of its last request.
-    Returns the last-position logits (B, V)."""
-    x = embed_inputs(cfg, params, tokens)
+                 cache: Dict[str, Any], row: int = 0,
+                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill ``tokens`` (B, S), after a VLM's ``patches`` if given, and
+    write their K/V **in place** into rows ``row .. row + B - 1`` of
+    ``cache``; the slots of those rows past the prompt are zeroed, so a
+    reused row keeps nothing of its last request. Returns the last-position
+    logits (B, V)."""
+    x = embed_inputs(cfg, params, tokens, patches)
     B, S, _ = x.shape
     rows = slice(row, row + B)
     for kind, d in cache.items():

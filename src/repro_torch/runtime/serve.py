@@ -18,12 +18,13 @@ slot keeps nothing of its last request.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..configs.base import ShapeConfig
+from ..models import encdec
 from ..models.layers import tree_leaves
 from ..models.model import Model
 
@@ -40,14 +41,59 @@ def make_serve_step(model: Model, shape: ShapeConfig) -> Callable:
 
 
 def make_prefill_step(model: Model, shape: ShapeConfig) -> Callable:
-    """→ prefill_step({"params", "tokens"}) -> (next_token (B,), cache) with a
-    cache of ``shape.seq_len`` slots."""
+    """→ prefill_step({"params", "tokens", ...}) -> (next_token (B,), state).
+    Every family but audio builds a cache of ``shape.seq_len`` slots (a VLM
+    takes ``"patches"`` too, and its cache ``n_patches`` more slots for
+    them). An audio model has no prefill-with-cache: as in ``repro``, the
+    step runs its forward pass (``remat="none"``) over the tokens and
+    ``"frames"`` and returns the last position's token with the aux loss
+    (its serving cache comes from ``encdec_serve_cache``)."""
+    cfg = model.cfg
 
     def prefill_step(args: Dict[str, Any]):
-        logits, cache = model.prefill(args["params"], args["tokens"], shape.seq_len)
+        params = args["params"]
+        inputs = {k: v for k, v in args.items() if k != "params"}
+        if cfg.family == "audio":
+            logits, aux = model.logits(params, {**inputs, "labels": inputs["tokens"]},
+                                       remat="none")
+            return logits[:, -1, :].argmax(-1).to(torch.int32), aux
+        extra = {k: v for k, v in inputs.items() if k != "tokens"}
+        max_len = shape.seq_len
+        if cfg.family == "vlm" and cfg.vision is not None:
+            max_len += cfg.vision.n_patches
+        logits, cache = model.prefill(params, inputs["tokens"], max_len, extra or None)
         return logits.argmax(-1).to(torch.int32), cache
 
     return prefill_step
+
+
+def encdec_serve_cache(model: Model, params: Any, frames: torch.Tensor,
+                       max_len: int) -> Dict[str, torch.Tensor]:
+    """An audio model's serving cache for ``frames`` (B, n_frames, d): empty
+    self-attention K/V of ``max_len`` slots, and the cross K/V that the
+    encoder gives (``encdec.prefill_cross_kv``), as ``repro``'s
+    ``tests/test_models.py`` builds it. Decode steps from position 0 then
+    take the prompt and generate."""
+    ck, cv = encdec.prefill_cross_kv(model.cfg, params, frames)
+    return {**model.init_cache(frames.shape[0], max_len), "cross_k": ck, "cross_v": cv}
+
+
+def greedy_decode(model: Model, params: Any, cache: Dict[str, Any], prompt: torch.Tensor,
+                  start: int, steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` decode steps of every row from ``cache`` (updated in place),
+    step i at position ``start + i``: the first P feed ``prompt`` (B, P),
+    the rest the greedy token of the step before. → (logits (steps, B, V),
+    the fed tokens (B, steps)). From a prefill's cache, ``prompt`` is its
+    next token (P = 1) and ``start`` the prompt's length; from
+    ``encdec_serve_cache`` the prompt goes in at ``start`` 0."""
+    B, P = prompt.shape
+    fed = torch.empty(B, steps, dtype=torch.int64, device=prompt.device)
+    logits: List[torch.Tensor] = []
+    for i in range(steps):
+        fed[:, i] = prompt[:, i] if i < P else logits[-1].argmax(-1)
+        out, cache = model.decode_step(params, cache, fed[:, i], start + i)
+        logits.append(out)
+    return torch.stack(logits), fed
 
 
 # ---------------------------------------------------------------------------
