@@ -184,7 +184,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                attention's and RMSNorm's), within GRAD_F32_TOL of their
                norm in f32 and, in bf16, no farther from the f32 result
                than the plain versions' plus GUARD_TOL.
- 13. report  — the card's nvidia-smi line, one JSON line with every kernel's
+ 13. mesh    — after the earlier phases' memory is given back, the host
+               mesh (``launch.mesh.make_host_mesh``: a (1, 1) ("data",
+               "model") DeviceMesh over NCCL in a world of one, from an
+               in-process store) and phase 5's train step on it, the state
+               placed by ``make_train_step``'s shardings (params by the
+               train rules, AdamW state by ZeRO-1) as DTensors, the kernels
+               reached through ``local_map``: 4 steps, then 4 with
+               ``mesh=None`` from the same seed; every loss and every leaf
+               must be bit-identical, the launches per step phase 5's.
+               Step 2 runs under ``torch.profiler`` for its device time;
+               the host ms of both runs are printed. Then int8 compression
+               of step 1's f32 gradient tree (error feedback from a zero
+               residual: deq + residual within one f32 ulp of each leaf's
+               scale of g; the pod all-reduce over the 1-rank "pod" group
+               of a (1, 1, 1) mesh equal to dequantize(quantize(g))), both
+               timed with CUDA events; the mesh state after step 4 saved
+               and restored onto the mesh's shardings, bit-identical;
+               ``analysis.analytic_cell``'s compute and memory terms at
+               the H100 constants against step 2's device time
+               (``roofline_frac`` finite, above 0 and at most
+               ROOFLINE_MAX); last, ``make_prefill_step`` at B=4, S=1024
+               and MESH_DECODE_STEPS ``make_serve_step`` steps on the mesh,
+               the same tokens and launches as with ``mesh=None``.
+ 14. report  — the card's nvidia-smi line, one JSON line with every kernel's
                launches, error, times and bound, then
                ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -1250,7 +1273,7 @@ def serve_phase(config="qwen1.5-0.5b"):
     # by the model) before the 1024 tokens, in a cache with room for
     # VLM_ROUNDS decode rounds after them
     rounds_after = VLM_ROUNDS if cfg.family == "vlm" else 0
-    step = make_prefill_step(model, ShapeConfig("prefill_1k", S + rounds_after, B, "prefill"))
+    step, _, _ = make_prefill_step(model, ShapeConfig("prefill_1k", S + rounds_after, B, "prefill"))
     tokens = torch.randint(2, cfg.vocab, (B, S), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(1))
     args = {"params": params, "tokens": tokens}
@@ -1409,7 +1432,7 @@ def audio_serve_phase(config=AUDIO_CONFIG):
         "audio", AUDIO_CLIPS, cfg, np.random.default_rng(1))["frames"]).cuda().bfloat16()
     gen = torch.Generator("cuda").manual_seed(1)
     pb, ps = AUDIO_PREFILL
-    step = make_prefill_step(model, ShapeConfig("prefill_448", ps, pb, "prefill"))
+    step, _, _ = make_prefill_step(model, ShapeConfig("prefill_448", ps, pb, "prefill"))
     args = {"params": params, "frames": frames[:pb],
             "tokens": torch.randint(2, cfg.vocab, (pb, ps), device="cuda", generator=gen)}
     prompt = torch.randint(2, cfg.vocab, (AUDIO_CLIPS, AUDIO_PROMPT), device="cuda",
@@ -1908,6 +1931,262 @@ def cws_train_phase(card):
     return launches, {name: n // CWS_TRAIN["steps"] for name, n in launches.items()}
 
 
+# phase 13: the mesh path (qwen1.5-0.5b at profile_train's train shape, then
+# the serving shapes of phase 4)
+MESH_CONFIG = "qwen1.5-0.5b"
+MESH_DECODE_STEPS = 16
+ROOFLINE_MAX = 1.05           # measured device time under the analytic ideal fails
+
+
+def _state_diff(got, want):
+    """Leaves of two trees that differ: → {key: max |Δ|}, empty when every
+    leaf is bit-identical (``got`` may hold DTensors)."""
+    from repro_torch.checkpoint.ckpt import _leaves
+    from repro_torch.runtime.sharding import unshard_tree
+    w = dict(_leaves(want))
+    out = {}
+    for k, t in _leaves(unshard_tree(got)):
+        if not torch_equal(t, w[k]):
+            out["/".join(k)] = float((t.float() - w[k].float()).abs().max())
+    return out
+
+
+def torch_equal(a, b):
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def _cuda_ms(fn):
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def mesh_phase(card):
+    """Phase 13: the train and serve steps on the host mesh, a (1, 1)
+    ``("data", "model")`` DeviceMesh over NCCL in a world of one, with
+    DTensor state placed by ``repro``'s rules, held bit for bit against the
+    same steps with ``mesh=None``; int8 compression of a full-width
+    gradient tree; an elastic restore; the analytic roofline against the
+    measured device time. → (the mesh train path's launches, per step)."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analysis, profile_train
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import (AdamW, compressed_psum_pod, dequantize_int8,
+                                   error_feedback_update, quantize_int8)
+    from repro_torch.runtime.serve import make_prefill_step, make_serve_step
+    from repro_torch.runtime.sharding import shard_tree, unshard_tree
+    from repro_torch.runtime.train import init_state, make_train_step
+
+    mesh = make_host_mesh()
+    print(f"mesh: {mesh} over {dist.get_backend()}, world {dist.get_world_size()}")
+    cfg, _ = profile_train.train_depth(MESH_CONFIG)
+    model = build_model(cfg)
+    tcfg, shape = profile_train.train_config(MESH_CONFIG), profile_train.train_shape(MESH_CONFIG)
+    n_micro = shape.global_batch // tcfg.microbatch_per_device
+    batch = profile_train.train_batch(cfg, shape, 0, "cuda")
+    step_m, state_sh, batch_sh, specs = make_train_step(model, tcfg, shape, mesh)
+    step_0, none_sh, _, _ = make_train_step(model, tcfg, shape)
+    if none_sh is not None:
+        fail("mesh: make_train_step(mesh=None) returned shardings")
+    seed = lambda: torch.Generator("cuda").manual_seed(0)  # noqa: E731
+
+    # step 1's accumulated gradients, for the compression checks
+    grads = []
+    update = AdamW.update
+
+    def recording_update(self, g, state, params):
+        if not grads:
+            grads.append([t.to_local().clone() for t in tree_leaves(g)])
+        return update(self, g, state, params)
+
+    # ---- the main path: counts from 0, read right after ----
+    state = shard_tree(init_state(model, tcfg, seed()), state_sh)
+    batch_d = shard_tree(batch, batch_sh)
+    AdamW.update = recording_update
+    ops.reset_launch_counts()
+    losses_m, ms_m, counts = [], [], []
+    busy_ms = None
+    try:
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            if i == 1:          # step 2 under the profiler: its device time
+                acts = [torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    state, m = step_m(state, batch_d)
+                    torch.cuda.synchronize()
+                busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            else:
+                state, m = step_m(state, batch_d)
+                torch.cuda.synchronize()
+            ms_m.append((time.perf_counter() - t0) * 1e3)
+            losses_m.append(float(m["loss"]))
+            counts.append(ops.launch_counts())
+    finally:
+        AdamW.update = update
+    launches = ops.launch_counts()
+    variants = {"flash_fwd": ops.flash_variant_counts(), **ops.flash_bwd_variant_counts()}
+    # ---- end of the main path ----
+
+    expected = expected_train_launches(cfg, n_micro)
+    for name in [k for k in launches if k not in expected]:
+        if launches.pop(name):
+            fail(f"mesh train: {name} launched")
+    per_step = {}
+    for name, n in launches.items():
+        steps = [counts[0][name]] + [counts[i][name] - counts[i - 1][name]
+                                     for i in range(1, TRAIN_STEPS)]
+        if len(set(steps)) != 1:
+            fail(f"mesh train: {name} launches {steps} do not split into equal steps")
+        per_step[name] = steps[0]
+    if per_step != expected:
+        fail(f"mesh train: launches per step {per_step}, phase 5's {expected}")
+    on = {"flash_fwd": "tc_prefill", "flash_bwd_dq": "tc", "flash_bwd_dkv": "tc"}
+    for name, by_variant in variants.items():
+        want = {v: (launches[name] if v == on[name] else 0) for v in by_variant}
+        if by_variant != want:
+            fail(f"mesh train: {name} launches by variant {by_variant}, expected {want}")
+
+    ref = init_state(model, tcfg, seed())
+    losses_0, ms_0 = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        ref, m0 = step_0(ref, batch)
+        torch.cuda.synchronize()
+        ms_0.append((time.perf_counter() - t0) * 1e3)
+        losses_0.append(float(m0["loss"]))
+    diff = _state_diff(state, ref)
+    bit = losses_m == losses_0 and not diff
+    print(f"mesh train: {cfg.name} full width, {model.n_params() / 1e6:.1f}M params, "
+          f"B={shape.global_batch} S={shape.seq_len}, {n_micro} microbatches; losses on the "
+          f"mesh {losses_m}, with mesh=None {losses_0}; every loss and leaf bit-identical: "
+          f"{bit}")
+    if not bit:
+        worst = max(diff.items(), key=lambda kv: kv[1]) if diff else None
+        fail(f"mesh train: the mesh run differs from mesh=None: losses {losses_m} vs "
+             f"{losses_0}, {len(diff)} leaves differ (largest {worst})")
+    host_m, host_0 = ms_m[2:], ms_0[2:]
+    print(f"mesh train host ms a step (synchronised; step 2 on the mesh profiled): mesh "
+          f"{ms_m}, mesh=None {ms_0}; steps 3-4 mean {sum(host_m) / len(host_m):.3f} vs "
+          f"{sum(host_0) / len(host_0):.3f} ms ({card})")
+    print(f"launches: mesh train path {launches} over {TRAIN_STEPS} steps; per step "
+          f"{per_step} (phase 5's {expected})")
+
+    # ---- compression, on step 1's accumulated f32 gradient tree ----
+    g1 = grads[0]
+    (deq, res), ef_ms = _cuda_ms(lambda: error_feedback_update(
+        g1, [torch.zeros_like(t) for t in g1]))
+    for k, (g, d, r) in enumerate(zip(g1, deq, res)):
+        scale = float(g.abs().max()) / 127.0 + 1e-12
+        ulp = math.ulp(scale)
+        err = float((d + r - g).abs().max())
+        if err > ulp:
+            fail(f"compression: leaf {k}: deq + residual is {err} from g, over one ulp "
+                 f"({ulp}) of its scale")
+    pod_mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    summed, psum_ms = _cuda_ms(lambda: compressed_psum_pod(g1, pod_mesh))
+    for k, (g, got) in enumerate(zip(g1, summed)):
+        if not torch.equal(got, dequantize_int8(*quantize_int8(g))):
+            fail(f"compression: leaf {k}: the 1-rank pod sum is not dequantize(quantize(g))")
+    n_el = sum(t.numel() for t in g1)
+    print(f"compression: {len(g1)} leaves, {n_el} f32 gradients of step 1: error feedback "
+          f"{ef_ms:.3f} ms, 1-rank pod all-reduce {psum_ms:.3f} ms (CUDA events; {card})")
+    del grads, g1, deq, res, summed
+
+    # ---- elastic restore: the mesh state after step 4, saved and restored ----
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="mesh_ckpt_", dir=scratch)
+    try:
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt_dir, TRAIN_STEPS, state)
+        restored, manifest = restore_checkpoint(path, specs, state_sh)
+        diff = _state_diff(restored, unshard_tree(state))
+        print(f"mesh restore: step {manifest['step']} saved and placed back on the mesh in "
+              f"{time.perf_counter() - t0:.1f} s; bit-identical: {not diff}")
+        if diff or manifest["step"] != TRAIN_STEPS:
+            fail(f"mesh restore: {len(diff)} leaves differ: {list(diff)[:4]}")
+        del restored
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del state, ref, batch_d
+
+    # ---- the analysis against the card ----
+    ana = analysis.analytic_cell(cfg, ShapeConfig("train", shape.seq_len,
+                                                  shape.global_batch, "train"),
+                                 chips=1, n_micro=n_micro, attention_impl="flash")
+    compute_s = ana.flops_per_device / analysis.PEAK_FLOPS
+    memory_s = ana.bytes_per_device / analysis.HBM_BW
+    frac = max(compute_s, memory_s) * 1e3 / busy_ms if busy_ms else float("nan")
+    print(f"mesh roofline: analytic compute {compute_s * 1e3:.3f} ms, memory "
+          f"{memory_s * 1e3:.3f} ms (H100 constants, {ana.assumptions}); measured device "
+          f"busy time of step 2 {busy_ms:.3f} ms; roofline_frac {frac:.4f} ({card})")
+    if not (math.isfinite(frac) and 0 < frac <= ROOFLINE_MAX):
+        fail(f"mesh roofline: roofline_frac {frac} outside (0, {ROOFLINE_MAX}]")
+    release_memory("mesh serving")
+
+    # ---- serving on the mesh against mesh=None: the same tokens ----
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    B, S = 4, 1024
+    pshape = ShapeConfig("prefill_1k", S + MESH_DECODE_STEPS, B, "prefill")
+    dshape = ShapeConfig("decode", S + MESH_DECODE_STEPS, B, "decode")
+    tokens = torch.randint(2, cfg.vocab, (B, S), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    served, serve_counts = {}, {}
+    for label, m in (("mesh", mesh), ("none", None)):
+        prefill, psh, _ = make_prefill_step(model, pshape, m)
+        serve, ssh, _ = make_serve_step(model, dshape, m)
+        p_args = ({"params": shard_tree(params, psh["params"]),
+                   "tokens": shard_tree(tokens, psh["tokens"])} if m is not None
+                  else {"params": params, "tokens": tokens})
+        d_params = shard_tree(params, ssh["params"]) if m is not None else params
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        nxt, cache = prefill(p_args)
+        if m is not None:
+            cache = shard_tree(cache, ssh["cache"])
+        out = [nxt]
+        for i in range(MESH_DECODE_STEPS):
+            tok = out[-1].long()
+            if m is not None:
+                tok = shard_tree(unshard_tree(tok), ssh["token"])
+            nxt, cache = serve(d_params, cache, tok, S + i)
+            out.append(nxt)
+        out = torch.stack([unshard_tree(t) for t in out], 1)
+        torch.cuda.synchronize()
+        served[label] = (out, (time.perf_counter() - t0) * 1e3)
+        serve_counts[label] = ops.launch_counts()
+        del cache, p_args, d_params
+    if not torch.equal(served["mesh"][0], served["none"][0]):
+        fail("mesh serve: the mesh's tokens differ from mesh=None's")
+    if serve_counts["mesh"] != serve_counts["none"]:
+        fail(f"mesh serve: launches {serve_counts['mesh']} vs mesh=None's "
+             f"{serve_counts['none']}")
+    print(f"mesh serve: prefill B={B} S={S} then {MESH_DECODE_STEPS} decode steps, the same "
+          f"{served['mesh'][0].numel()} tokens as mesh=None; host ms (first call, with "
+          f"warm-up) mesh {served['mesh'][1]:.1f}, mesh=None {served['none'][1]:.1f}; "
+          f"launches {serve_counts['mesh']}")
+    del params
+    dist.destroy_process_group()
+    return launches, per_step, {"host_ms_mesh": ms_m, "host_ms_none": ms_0,
+                                "busy_ms": busy_ms, "roofline_frac": frac,
+                                "serve_launches": serve_counts["mesh"]}
+
+
 def release_memory(next_phase):
     """Give the earlier phases' device memory back before the next model's
     phase (the MoE model's weights alone take 61.1 GB of the card's 80,
@@ -1955,6 +2234,8 @@ def main() -> int:
     for config in TRAIN_CONFIGS:
         release_memory(f"training {config}")
         trained[config] = train_phase(config)
+    release_memory("the mesh phase")
+    mesh_launches, mesh_per_step, mesh_report = mesh_phase(card)
 
     def entry(name, source, replaces, err, timed):
         top = timed["prefill"]     # serving's launches below; "launches" is the train path's
@@ -1989,7 +2270,8 @@ def main() -> int:
                 "launches_per_whisper_cache_fill": audio_per["cache_fill"][name],
                 "launches_per_whisper_decode_round": audio_round[name],
                 **ssm_launches(name), **variant_launches(name),
-                **train_launch_fields(name), **cws_launch_fields(name)}
+                **train_launch_fields(name), **cws_launch_fields(name),
+                **mesh_launch_fields(name)}
 
     def variant_launches(name):
         """The forward flash kernel's launches by variant on each path."""
@@ -2024,6 +2306,11 @@ def main() -> int:
         return {"launches_cws_train": {"total": cws_launches[name],
                                        "per_step": cws_per_step[name]}}
 
+    def mesh_launch_fields(name):
+        """The kernel's launches on the mesh train path (phase 13)."""
+        return {"launches_mesh_train": {"total": mesh_launches[name],
+                                        "per_step": mesh_per_step[name]}}
+
     def gmm_bwd_entry(name, err, timed):
         # top level: the MoE train microbatch's gate/up; "launches" is the
         # qwen3-moe-30b-a3b train path's
@@ -2044,7 +2331,7 @@ def main() -> int:
                 **bwd_t[name]["train"], "paths": bwd_t[name],
                 "launches_by_variant": train_launches["by_variant"][name],
                 "launches_per_train_step": per_step[name], **train_launch_fields(name),
-                **cws_launch_fields(name)}
+                **cws_launch_fields(name), **mesh_launch_fields(name)}
 
     kernels = [
         entry("flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",

@@ -17,6 +17,12 @@ A checkpoint is written as ``step_XXXXXXXX.tmp``, renamed, then committed
 by ``.complete``; restore ignores uncommitted directories, so a crash during
 a write is harmless.
 
+A state of DTensors (a train state on a device mesh) is written as its
+full tensors, so the files are the same as one device's. Restore with
+``shardings`` places each loaded leaf onto its target sharding with
+``distribute_tensor``; the mesh may differ from the one that saved (the
+elastic path), as ``repro`` places leaves with ``jax.device_put``.
+
 ``AsyncCheckpointer`` copies the state to host memory on the calling thread
 before ``save`` returns, and a background thread does the file I/O. The
 copy is what makes it safe: the train step updates the state in place, so
@@ -35,11 +41,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from .. import DEFAULT_DEVICE
-
-_ONE_CARD = ("restore places every leaf on one device; shardings come with "
-             "the sharding slice (runtime/sharding.py): pass shardings=None")
 
 
 def _map(fn: Callable[[Tuple[str, ...], Any], Any], tree: Any,
@@ -67,15 +71,20 @@ def _leaf_key(path: Tuple[str, ...]) -> str:
     return "__".join(path) or "root"
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def host_copy(state: Any) -> Any:
-    """A copy of ``state`` in host memory, made now on the calling thread:
-    later in-place updates of ``state`` do not reach it."""
-    return _map(lambda _, t: t.detach().to("cpu", copy=True), state)
+    """A copy of ``state`` in host memory (DTensors as their full tensors),
+    made now on the calling thread: later in-place updates of ``state`` do
+    not reach it."""
+    return _map(lambda _, t: _whole(t.detach()).to("cpu", copy=True), state)
 
 
 def _stored(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
     """→ (the array written to disk, its logical dtype)."""
-    t = leaf.detach().cpu()
+    t = _whole(leaf.detach()).cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
@@ -137,15 +146,18 @@ def restore_checkpoint(path: str, like: Any,
     ``make_train_step``'s ``state_specs`` on ``meta`` included): each leaf
     checked against its crc and shape, cast to ``like``'s dtype (as
     ``repro`` casts) and placed on ``like``'s device, or on ``device``
-    (default ``cuda``) where ``like`` is on ``meta``. → (state, manifest)."""
-    if shardings is not None:
-        raise NotImplementedError(_ONE_CARD)
+    (default ``cuda``) where ``like`` is on ``meta``. With ``shardings`` (a
+    tree of ``runtime.sharding.NamedSharding`` of ``like``'s structure, as
+    ``make_train_step`` returns) each leaf goes onto its sharding's mesh
+    and placements instead, on that mesh's device type; the mesh need not
+    be the one that saved. → (state, manifest)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     leaves_meta = manifest["leaves"]
     fallback = torch.device(device if device is not None else DEFAULT_DEVICE)
 
-    def load(p: Tuple[str, ...], leaf: torch.Tensor) -> torch.Tensor:
+    def load(p: Tuple[str, ...], leaf: torch.Tensor,
+             dev: Optional[torch.device] = None) -> torch.Tensor:
         key = _leaf_key(p)
         if key not in leaves_meta:
             raise KeyError(f"checkpoint {path} missing leaf {key}")
@@ -160,10 +172,24 @@ def restore_checkpoint(path: str, like: Any,
         if tuple(t.shape) != want_shape:
             raise ValueError(
                 f"{key}: checkpoint shape {tuple(t.shape)} != wanted {want_shape}")
-        dev = fallback if leaf.device.type == "meta" else leaf.device
+        if dev is None:
+            dev = fallback if leaf.device.type == "meta" else leaf.device
         return t.to(device=dev, dtype=leaf.dtype)
 
-    return _map(load, like), manifest
+    if shardings is None:
+        return _map(load, like), manifest
+    flat_sh = [sh for _, sh in _leaves(shardings)]
+    placed = iter(flat_sh)
+
+    def load_sharded(p: Tuple[str, ...], leaf: torch.Tensor) -> torch.Tensor:
+        sh = next(placed)
+        t = load(p, leaf, torch.device(sh.mesh.device_type))
+        return distribute_tensor(t, sh.mesh, sh.placements)
+
+    if len(flat_sh) != len(_leaves(like)):
+        raise ValueError(f"shardings has {len(flat_sh)} leaves; the state "
+                         f"{len(_leaves(like))}")
+    return _map(load_sharded, like), manifest
 
 
 def prune_checkpoints(directory: str, keep: int = 3) -> None:

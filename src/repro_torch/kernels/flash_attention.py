@@ -57,6 +57,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build
 
@@ -80,11 +81,13 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
 
 def _check_kv_len(kv_len: torch.Tensor, B: int) -> None:
     """Shape and type; ``kv_len >= 1`` for a host tensor. A device tensor is
-    not read here (that would stall the stream): the kernel traps on it."""
+    not read here (that would stall the stream): the kernel traps on it; nor
+    is a fake one (a traced step's: it holds no values)."""
     if kv_len.shape != (B,) or kv_len.dtype != torch.int32:
         raise ValueError(f"kv_len: want an int32 tensor of shape ({B},), got "
                          f"{kv_len.dtype} {tuple(kv_len.shape)}")
-    if kv_len.device.type == "cpu" and bool((kv_len < 1).any()):
+    if (kv_len.device.type == "cpu" and not isinstance(kv_len, FakeTensor)
+            and bool((kv_len < 1).any())):
         raise ValueError("kv_len: every row needs at least one valid key")
 
 

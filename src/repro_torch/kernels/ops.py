@@ -21,13 +21,27 @@ port). JAX's Pallas kernels have no VJP for the grouped GEMM and the SSD
 scan; JAX takes those gradients with XLA, the port with hand-written
 kernels. Elsewhere (serving) the entry points call the forward dispatch
 directly, so the Function layer adds no launch there.
+
+On a device mesh the entry points take DTensors. A compiled kernel cannot
+read a DTensor, so each entry point states the placements its kernel takes
+per mesh dim, redistributes its inputs to them where they differ (each
+such redistribution is named below), and runs the same dispatch on every
+rank's local shard through ``local_map``; the device of the local tensor
+decides kernel or plain version, as for a plain tensor. Where a rank's
+query heads are sharded while the KV heads are replicated (GQA whose KV
+head count does not divide the "model" extent), the rank hands its kernel
+only the KV heads its query heads use.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..shards import local_shape_and_offset, place
 from .flash_attention import (
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
@@ -107,6 +121,8 @@ class _RMSNorm(torch.autograd.Function):
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim, f32 statistics, one cast to x's dtype;
     differentiable."""
+    if isinstance(x, DTensor):
+        return _sharded_rmsnorm(x, scale, eps)
     if _needs_grad(x, scale):
         return _RMSNorm.apply(x, scale, eps)
     return rmsnorm_fwd(x, scale, eps)
@@ -159,6 +175,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Differentiable flash attention (JAX's ``ops.flash_attention``):
     q (B, S, Hq, D), k/v (B, T, Hkv, D) → O (B, S, Hq, D)."""
+    if isinstance(q, DTensor):
+        return _sharded_flash_attention(q, k, v, causal, window)
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]
@@ -202,6 +220,8 @@ class _MoEGmm(torch.autograd.Function):
 def moe_gmm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, C, D) x (E, D, F) -> (E, C, F), f32 accumulation, buf's dtype;
     differentiable (dX and dW through the backward kernels on the card)."""
+    if isinstance(w, DTensor):
+        return _sharded_moe_gmm(buf, w)
     if _needs_grad(buf, w):
         return _MoEGmm.apply(buf, w)
     return moe_gmm_fwd(buf, w)
@@ -251,9 +271,123 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B_: torch.Tens
     kernels keep their own: 128-row chunks in bf16, 64-row tiles in f32;
     the result is the same up to rounding). Differentiable in both outputs
     (the backward kernel on the card)."""
+    if isinstance(xh, DTensor):
+        return _sharded_ssd_scan(xh, dt, a, B_, C_, chunk)
     if _needs_grad(xh, dt, a, B_, C_):
         return _SSDScan.apply(xh, dt, a, B_, C_, chunk)
     return ssd_scan_fwd(xh, dt, a, B_, C_, chunk)
+
+
+# ---------------------------------------------------------------------------
+# the entry points on a device mesh: local_map over each rank's shard
+# ---------------------------------------------------------------------------
+def _keep(placements, allowed) -> Tuple:
+    """``placements`` with every one not in ``allowed`` made Replicate."""
+    return tuple(p if p in allowed else Replicate() for p in placements)
+
+
+def _grad_partial_where_split(placements, split) -> Tuple:
+    """The gradient placements of an input that is ``placements`` on each
+    mesh dim: Partial where the other operand splits the work on that dim
+    (``split[i]``), else the input's own."""
+    return tuple(Partial() if s else p for p, s in zip(placements, split))
+
+
+def _sharded_rmsnorm(x: DTensor, scale: DTensor, eps: float) -> DTensor:
+    """Rows may be sharded on any mesh dim; the normalised (last) dim must
+    be whole: a shard of it is gathered first. The scale is replicated; its
+    gradient sums over the rows, so it is Partial where the rows are split."""
+    mesh = x.device_mesh
+    xp = tuple(Replicate() if isinstance(p, Partial) or p == Shard(x.ndim - 1) else p
+               for p in x.placements)
+    rep = (Replicate(),) * mesh.ndim
+    x = place(x, xp)                                   # gather a split norm dim
+    scale = place(scale, rep)
+    ds_pl = _grad_partial_where_split(rep, [isinstance(p, Shard) for p in xp])
+    return local_map(rmsnorm, out_placements=list(xp), in_placements=(xp, rep, None),
+                     in_grad_placements=(xp, ds_pl, None), device_mesh=mesh)(x, scale, eps)
+
+
+def _sharded_flash_attention(q: DTensor, k: DTensor, v: DTensor, causal: bool,
+                             window: int) -> DTensor:
+    """Batch (dim 0) and heads (dim 2) may be sharded; the sequence and the
+    head dim are gathered first. K/V follow q's placements; where q's heads
+    are split on a mesh dim but K/V's are replicated there (their head
+    count does not divide the extent), every rank keeps all KV heads and
+    slices out those its query heads use, ``[h0 // G, (h0 + h - 1) // G]``
+    for its h query heads from global head h0 and group size G; their
+    gradients are then Partial on that dim (each rank's covers its slice)."""
+    mesh = q.device_mesh
+    allowed = (Shard(0), Shard(2))
+    qp = _keep(q.placements, allowed)
+    slice_dims = [p == Shard(2) and k.placements[i] != Shard(2) for i, p in enumerate(qp)]
+    kvp = tuple(Replicate() if s else p for p, s in zip(qp, slice_dims))
+    # the sequence all-gather before attention (a sequence-sharded residual)
+    q, k, v = place(q, qp), place(k, kvp), place(v, kvp)
+    fn = functools.partial(flash_attention, causal=causal, window=window)
+    if any(slice_dims):
+        hq, hkv = q.shape[2], k.shape[2]
+        shape, offset = local_shape_and_offset(q.shape, mesh, qp)
+        h0, h = offset[2], shape[2]
+        group = hq // hkv
+        lo, hi = h0 // group, (h0 + h - 1) // group + 1
+        if hi - lo > 1 and (h0 % group or h % group):
+            raise ValueError(f"query heads {h0}..{h0 + h - 1} do not map onto whole "
+                             f"KV heads (group {group})")
+
+        def fn(ql, kl, vl):
+            return flash_attention(ql, kl[:, :, lo:hi], vl[:, :, lo:hi], causal=causal,
+                                   window=window)
+    kv_grad = _grad_partial_where_split(kvp, slice_dims)
+    return local_map(fn, out_placements=list(qp), in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kv_grad, kv_grad), device_mesh=mesh)(q, k, v)
+
+
+def _gmm_placements(bp, wp) -> Tuple[object, object, object, object, object]:
+    """On one mesh dim, from the operands' placements: → (buf's, w's, the
+    output's, buf's gradient's, w's gradient's). Experts split both
+    (Shard 0); F split on w gives F-split outputs; D split on both gives
+    partial sums; C split on buf gives C-split outputs."""
+    if wp == Shard(0):
+        return Shard(0), Shard(0), Shard(0), Shard(0), Shard(0)
+    if wp == Shard(2):
+        return Replicate(), Shard(2), Shard(2), Partial(), Shard(2)
+    if wp == Shard(1):
+        return Shard(2), Shard(1), Partial(), Shard(2), Shard(1)
+    if bp == Shard(1):
+        return Shard(1), Replicate(), Shard(1), Shard(1), Partial()
+    return Replicate(), Replicate(), Replicate(), Replicate(), Replicate()
+
+
+def _sharded_moe_gmm(buf: DTensor, w: DTensor) -> DTensor:
+    """The grouped GEMM on each rank's shard: per mesh dim by
+    ``_gmm_placements``; buf is redistributed to what w's placement asks
+    (its expert or D shard is a local slice of a replicated buffer)."""
+    mesh = w.device_mesh
+    if not isinstance(buf, DTensor):
+        buf = DTensor.from_local(buf, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    wp0 = tuple(p if isinstance(p, Shard) else Replicate() for p in w.placements)
+    plan = [_gmm_placements(b, wq) for b, wq in zip(buf.placements, wp0)]
+    bp, wp, op, bg, wg = (tuple(t) for t in zip(*plan))
+    buf, w = place(buf, bp), place(w, wp)
+    return local_map(moe_gmm, out_placements=list(op), in_placements=(bp, wp),
+                     in_grad_placements=(bg, wg), device_mesh=mesh)(buf, w)
+
+
+def _sharded_ssd_scan(xh: DTensor, dt: DTensor, a: DTensor, B_: DTensor, C_: DTensor,
+                      chunk: int) -> Tuple[DTensor, DTensor]:
+    """The scan on each rank's rows: the batch (dim 0) may be sharded; every
+    other dim is gathered first, and ``a`` (per head) replicated."""
+    mesh = xh.device_mesh
+    bp = _keep(xh.placements, (Shard(0),))
+    rep = (Replicate(),) * mesh.ndim
+    xh, dt, B_, C_ = (place(t, bp) for t in (xh, dt, B_, C_))
+    a = place(a, rep)
+    a_grad = _grad_partial_where_split(rep, [p == Shard(0) for p in bp])
+    fn = functools.partial(ssd_scan, chunk=chunk)
+    return local_map(fn, out_placements=(list(bp), list(bp)), in_placements=(bp, bp, rep, bp, bp),
+                     in_grad_placements=(bp, bp, a_grad, bp, bp),
+                     device_mesh=mesh)(xh, dt, a, B_, C_)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -231,7 +231,7 @@ def audio_main(model, params, seed: int) -> dict:
         torch.cuda.synchronize()
     per_round = len(_kernels(prof))
     pb, ps = AUDIO_PREFILL
-    step = make_prefill_step(model, ShapeConfig("prefill_448", ps, pb, "prefill"))
+    step, _, _ = make_prefill_step(model, ShapeConfig("prefill_448", ps, pb, "prefill"))
     batch = {"params": params, "frames": frames[:pb], "tokens": torch.from_numpy(
         rng.integers(2, cfg.vocab, (pb, ps))).cuda()}
     tokens = AUDIO_CLIPS * AUDIO_MAX_LEN
@@ -277,7 +277,7 @@ def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG) -> dict:
                     for e in prof.events())
 
     # one prefill step at B=4, S=1024 (a VLM's after its patches)
-    step = make_prefill_step(model, ShapeConfig("prefill_1k", 1024, 4, "prefill"))
+    step, _, _ = make_prefill_step(model, ShapeConfig("prefill_1k", 1024, 4, "prefill"))
     batch = {"params": params, "tokens": torch.randint(
         2, model.cfg.vocab, (4, 1024), device="cuda",
         generator=torch.Generator("cuda").manual_seed(1))}

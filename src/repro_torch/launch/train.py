@@ -14,7 +14,11 @@ CWSI (step chunks, then checkpoint tasks), so restarts, provenance and
 runtime prediction all come from the CWS. Checkpoints are ``repro``'s
 on-disk format: a run resumes from ``repro``'s checkpoints and ``repro``
 from its. It runs on ``cuda`` unless ``--device cpu`` is given; on the card
-the kernels are built before the workflow starts.
+the kernels are built before the workflow starts. As ``repro``'s, it trains
+on the host mesh (``launch.mesh.make_host_mesh``: one device, a (1, 1)
+``("data", "model")`` mesh), with the state and the batches placed as
+``make_train_step``'s shardings say; a process group it had to start for
+that is destroyed at the end, and the state it returns is whole.
 
 The CWS runs a checkpoint task beside the next chunk (both depend only on
 the chunk before them), and the step updates the state in place. So the
@@ -28,6 +32,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import host_copy, latest_checkpoint, restore_checkpoint, save_checkpoint
 from ..configs import get_config
@@ -41,7 +46,9 @@ from ..runtime.orchestrator import (
     TrainJobSpec,
     build_training_workflow,
 )
+from ..runtime.sharding import shard_tree, unshard_tree
 from ..runtime.train import init_state, make_train_step
+from .mesh import make_host_mesh
 
 
 def preset_100m(cfg):
@@ -71,8 +78,10 @@ def train(arch: str = "qwen1.5-0.5b", smoke: bool = False, preset: str = "none",
     shape = ShapeConfig("driver", seq, batch, "train")
     tcfg = TrainConfig(learning_rate=lr, warmup_steps=10,
                        microbatch_per_device=batch)
-    step, _, _, state_specs = make_train_step(model, tcfg, shape,
-                                              total_steps=steps)
+    owns_group = not dist.is_initialized()
+    mesh = make_host_mesh(model.device)
+    step, state_sh, batch_sh, state_specs = make_train_step(model, tcfg, shape, mesh,
+                                                            total_steps=steps)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                     global_batch=batch, seed=seed))
     if model.device.type == "cuda":
@@ -81,13 +90,13 @@ def train(arch: str = "qwen1.5-0.5b", smoke: bool = False, preset: str = "none",
     start_step = 0
     ck = latest_checkpoint(ckpt_dir) if ckpt_dir else None
     if ck:
-        state, manifest = restore_checkpoint(ck, state_specs, device=model.device)
+        state, manifest = restore_checkpoint(ck, state_specs, state_sh)
         start_step = int(manifest["step"])
         print(f"[train] resumed from {ck} at step {start_step}")
     else:
-        state = init_state(model, tcfg,
-                           torch.Generator(model.device).manual_seed(seed),
-                           total_steps=steps)
+        state = shard_tree(init_state(model, tcfg,
+                                      torch.Generator(model.device).manual_seed(seed),
+                                      total_steps=steps), state_sh)
 
     shared = SharedState(state)
     ckpt_every = ckpt_every if ckpt_dir else 0
@@ -98,8 +107,8 @@ def train(arch: str = "qwen1.5-0.5b", smoke: bool = False, preset: str = "none",
     def run_chunk(sh: SharedState, start: int, stop: int):
         for s in range(start, stop):
             t0 = time.perf_counter()
-            b = {k: torch.from_numpy(v).to(model.device)
-                 for k, v in pipe.batch(s).items()}
+            b = shard_tree({k: torch.from_numpy(v).to(model.device)
+                            for k, v in pipe.batch(s).items()}, batch_sh)
             sh.state, m = step(sh.state, b)
             loss = float(m["loss"])
             per_step.append({"step": s + 1, "loss": loss,
@@ -145,8 +154,10 @@ def train(arch: str = "qwen1.5-0.5b", smoke: bool = False, preset: str = "none",
     if losses:
         print(f"[train] done: first-chunk loss {losses[0]:.3f} → "
               f"last-chunk loss {losses[-1]:.3f}")
-    # the workflow's tasks keep ``shared``: hand the state over, not a copy
-    state, shared.state = shared.state, None
+    # the workflow's tasks keep ``shared``: hand the state over, whole
+    state, shared.state = unshard_tree(shared.state), None
+    if owns_group:
+        dist.destroy_process_group()
     return {"start_step": start_step, "resumed_from": ck,
             "steps": per_step, "chunks": list(shared.metrics),
             "checkpoints": ckpt_times, "state": state,

@@ -29,13 +29,17 @@ from .layers import (
     P,
     Schema,
     attention_schema,
+    embed,
     mlp_schema,
     qkv_project,
+    row_parallel,
     sinusoidal_table,
+    split_heads,
     stack_schema,
     swiglu,
 )
-from .transformer import REMAT, decode_slots, row_positions, unembed, unstack
+from .transformer import (REMAT, attend_cached, decode_slots, row_positions, unembed,
+                          unstack)
 
 
 def encdec_schema(cfg: ModelConfig) -> Schema:
@@ -86,7 +90,7 @@ def encode(cfg: ModelConfig, params: Dict[str, Any], frames: torch.Tensor) -> to
         hh = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v = qkv_project(hh, p["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
         o = ops.flash_attention(q, k, v, causal=False)
-        x = x + o.reshape(B, F, -1) @ p["attn"]["wo"]
+        x = x + row_parallel(o.reshape(B, F, -1), p["attn"]["wo"])
         x = x + _mlp(cfg, p, x)
     return ops.rmsnorm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
@@ -98,7 +102,7 @@ def _cross_q(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor) -> torch.Tens
     q = hh @ p["cross_attn"]["wq"]
     if "bq" in p["cross_attn"]:
         q = q + p["cross_attn"]["bq"]
-    return q.reshape(B, S, cfg.n_heads, cfg.head_dim_)
+    return split_heads(q, cfg.n_heads, cfg.head_dim_)
 
 
 def _dec_block(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
@@ -108,9 +112,9 @@ def _dec_block(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
     hh = ops.rmsnorm(h, p["ln1"], cfg.norm_eps)
     q, k, v = qkv_project(hh, p["self_attn"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
     o = ops.flash_attention(q, k, v, causal=True)
-    h = h + o.reshape(B, S, -1) @ p["self_attn"]["wo"]
+    h = h + row_parallel(o.reshape(B, S, -1), p["self_attn"]["wo"])
     o = ops.flash_attention(_cross_q(cfg, p, h), *enc_kv, causal=False)
-    h = h + o.reshape(B, S, -1) @ p["cross_attn"]["wo"]
+    h = h + row_parallel(o.reshape(B, S, -1), p["cross_attn"]["wo"])
     return h + _mlp(cfg, p, h)
 
 
@@ -121,8 +125,8 @@ def _cross_kv(cfg: ModelConfig, p: Dict[str, Any], enc: torch.Tensor,
     v = enc @ p["cross_attn"]["wv"]
     if "bk" in p["cross_attn"]:
         k, v = k + p["cross_attn"]["bk"], v + p["cross_attn"]["bv"]
-    return (k.reshape(B, F, cfg.n_kv_heads, cfg.head_dim_),
-            v.reshape(B, F, cfg.n_kv_heads, cfg.head_dim_))
+    return (split_heads(k, cfg.n_kv_heads, cfg.head_dim_),
+            split_heads(v, cfg.n_kv_heads, cfg.head_dim_))
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -137,7 +141,7 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
         raise ValueError(f"remat={remat!r}: want one of {REMAT}")
     enc = encode(cfg, params, frames)
     S = tokens.shape[1]
-    x = params["embed"]["table"][tokens]
+    x = embed(params["embed"]["table"], tokens)
     x = x + sinusoidal_table(S, cfg.d_model, x.device, x.dtype)[None]
 
     def body(h: torch.Tensor, e: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
@@ -197,20 +201,18 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any], cache: Dict[str, Any],
     B = token.shape[0]
     pos_t = row_positions(pos, B, token.device)
     rows, write, kv_len = decode_slots(pos_t, cache["self_k"].shape[2])
-    x = params["embed"]["table"][token][:, None, :]
+    x = embed(params["embed"]["table"], token)[:, None, :]
     x = x + _sinusoidal_at(pos_t, cfg.d_model).to(x.dtype)
     for li, p in enumerate(unstack(params["blocks"], 1)):
         hh = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v = qkv_project(hh, p["self_attn"], cfg.n_heads, cfg.n_kv_heads,
                               cfg.head_dim_)
-        kc, vc = cache["self_k"][li], cache["self_v"][li]
-        kc[rows, write] = k[:, 0]
-        vc[rows, write] = v[:, 0]
-        o, _ = ops.flash_attention_fwd(q, kc, vc, causal=False, window=0, kv_len=kv_len)
-        x = x + o.reshape(B, 1, -1) @ p["self_attn"]["wo"]
-        o, _ = ops.flash_attention_fwd(_cross_q(cfg, p, x), cache["cross_k"][li],
-                                       cache["cross_v"][li], causal=False, window=0)
-        x = x + o.reshape(B, 1, -1) @ p["cross_attn"]["wo"]
+        o = attend_cached(q, k, v, cache["self_k"][li], cache["self_v"][li],
+                          (rows, write, kv_len))
+        x = x + row_parallel(o.reshape(B, 1, -1), p["self_attn"]["wo"])
+        o = ops.flash_attention(_cross_q(cfg, p, x), cache["cross_k"][li],
+                                cache["cross_v"][li], causal=False)
+        x = x + row_parallel(o.reshape(B, 1, -1), p["cross_attn"]["wo"])
         x = x + _mlp(cfg, p, x)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)[:, 0, :], cache

@@ -18,11 +18,13 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import P, Schema, attention_schema, mlp_schema, stack_schema, swiglu
+from ..shards import prefill_rows
+from .layers import P, Schema, attention_schema, embed, mlp_schema, stack_schema, swiglu
 from .mamba2 import (
     mamba_block,
     mamba_cache_shape,
@@ -35,7 +37,12 @@ from .transformer import (
     attend,
     attend_one,
     decode_slots,
+    init_sharded_cache,
+    maybe_seq_shard,
+    on_shards,
     row_positions,
+    seq_whole,
+    to_residual,
     unembed,
     unstack,
 )
@@ -79,13 +86,15 @@ def _shared_attn_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
                        positions: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """→ (block output, roped K, V) for a full causal sequence."""
-    o, k, v = attend(cfg, p["attn"], ops.rmsnorm(x, p["ln1"], cfg.norm_eps), positions)
-    return _shared_ffn(cfg, p, x + o), k, v
+    o, k, v = attend(cfg, p["attn"], seq_whole(ops.rmsnorm(x, p["ln1"], cfg.norm_eps)),
+                     positions)
+    return _shared_ffn(cfg, p, x + to_residual(o, x)), k, v
 
 
 def _shared_ffn(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    h = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"])
+    h = seq_whole(ops.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x + to_residual(swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"]),
+                           x)
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -95,18 +104,20 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     ``torch.utils.checkpoint`` where grad is on."""
     if remat not in REMAT:
         raise ValueError(f"remat={remat!r}: want one of {REMAT}")
-    x = params["embed"]["table"][tokens]
+    x = embed(params["embed"]["table"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     g, k = hybrid_groups(cfg)
     layers = unstack(params["mamba"])
     shared = params.get("shared")
 
     def group_body(h: torch.Tensor, gi: int) -> torch.Tensor:
+        h = maybe_seq_shard(h)
         for p in layers[gi]:
-            h = h + mamba_block(ops.rmsnorm(h, p["ln"], cfg.norm_eps), p, cfg)[0]
+            y = mamba_block(seq_whole(ops.rmsnorm(h, p["ln"], cfg.norm_eps)), p, cfg)[0]
+            h = h + to_residual(y, h)
         if shared is not None:
             h = _shared_attn_block(cfg, shared, h, positions)[0]
-        return h
+        return maybe_seq_shard(h)
 
     for gi in range(g):
         if remat != "none" and torch.is_grad_enabled():
@@ -148,7 +159,7 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any], cache: Dict[str, torch
     ``transformer.decode_slots`` says for a full layer, at RoPE position
     ``pos[b]``."""
     pos_t = row_positions(pos, token.shape[0], token.device)
-    x = params["embed"]["table"][token]                        # (B, d)
+    x = embed(params["embed"]["table"], token)                 # (B, d)
     shared = params.get("shared")
     if shared is not None:
         at = decode_slots(pos_t, cache["attn_k"].shape[2])
@@ -170,7 +181,11 @@ def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     """→ (last-position logits (B, V), a fresh cache of ``max_len`` slots
     holding the prompt)."""
     table = params["embed"]["table"]
-    cache = init_cache(cfg, tokens.shape[0], max_len, table.dtype, table.device)
+    if isinstance(tokens, DTensor):
+        cache = init_sharded_cache(lambda b: cache_shapes(cfg, b, max_len), tokens,
+                                   table.dtype)
+    else:
+        cache = init_cache(cfg, tokens.shape[0], max_len, table.dtype, table.device)
     return prefill_into(cfg, params, tokens, cache, 0), cache
 
 
@@ -180,25 +195,33 @@ def prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     in place: every Mamba layer's conv tail and final state, every shared
     block application's K/V in slots 0..S-1 (the slots past the prompt
     zeroed). Returns the last-position logits (B, V)."""
-    x = params["embed"]["table"][tokens]
+    x = embed(params["embed"]["table"], tokens)
     B, S, _ = x.shape
-    rows = slice(row, row + B)
+    rows = prefill_rows(x, row)
+    sharded = isinstance(x, DTensor)
     shared = params.get("shared")
     if shared is not None:
         if S > cache["attn_k"].shape[2]:
             raise ValueError(f"prompt of {S} tokens does not fit "
                              f"{cache['attn_k'].shape[2]} cache slots")
         for name in ("attn_k", "attn_v"):
-            cache[name][:, rows, S:].zero_()
+            if sharded:
+                on_shards(lambda c: c[:, :, S:].zero_(), cache[name])
+            else:
+                cache[name][:, rows, S:].zero_()
     positions = torch.arange(S, device=x.device)[None, :]
     for gi, group in enumerate(unstack(params["mamba"])):
         for i, p in enumerate(group):
-            x = prefill_layer(x, p, cache["conv"][gi, i, rows], cache["ssm"][gi, i, rows],
+            x = prefill_layer(x, p, cache["conv"][gi, i][rows], cache["ssm"][gi, i][rows],
                               cfg)
         if shared is not None:
             x, k, v = _shared_attn_block(cfg, shared, x, positions)
-            cache["attn_k"][gi, rows, :S] = k
-            cache["attn_v"][gi, rows, :S] = v
+            if sharded:
+                on_shards(lambda c, t: c[:, :S].copy_(t), cache["attn_k"][gi], k)
+                on_shards(lambda c, t: c[:, :S].copy_(t), cache["attn_v"][gi], v)
+            else:
+                cache["attn_k"][gi, rows, :S] = k
+                cache["attn_v"][gi, rows, :S] = v
     # the norm is row-wise: normalising the last position only is the same
     x = ops.rmsnorm(x[:, -1:, :].contiguous(), params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)[:, 0, :]

@@ -3,7 +3,8 @@
 Parameters are described by a *schema*: a nested dict whose leaves are
 ``P(shape, axes, init)``. The same schema yields
   * ``init_params``  — materialised tensors, from an explicit ``torch.Generator``,
-  * ``param_specs``  — tensors on the ``meta`` device (no allocation).
+  * ``param_specs``  — tensors on the ``meta`` device (no allocation),
+  * ``param_axes``   — each leaf's logical axes, for the sharding rules.
 Parameter trees are nested dicts of tensors with ``repro``'s key paths, so
 the two frameworks' trees correspond leaf by leaf.
 """
@@ -17,6 +18,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..shards import place
 
 
 @dataclass(frozen=True)
@@ -97,6 +101,11 @@ def param_specs(schema: Schema, dtype=torch.bfloat16) -> Dict[str, Any]:
                        for path, p in _flatten(schema).items()})
 
 
+def param_axes(schema: Schema) -> Dict[str, Any]:
+    """The parameter tree's logical axes: a tuple per leaf."""
+    return _unflatten({path: p.axes for path, p in _flatten(schema).items()})
+
+
 def _flatten(schema: Schema, prefix: str = "") -> Dict[str, P]:
     out: Dict[str, P] = {}
     for k in sorted(schema):
@@ -125,6 +134,18 @@ def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding table (V, d) for int tokens: → (*tokens.shape,
+    d). On a DTensor table sharded over the vocab, each rank looks up the
+    tokens its shard holds and the rows are summed over the shards
+    (DTensor's vocab-parallel embedding; the sum is this all-reduce of the
+    rows): the table is never gathered."""
+    x = F.embedding(tokens, table)
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        x = place(x, tuple(Replicate() if p.is_partial() else p for p in x.placements))
+    return x
 
 
 def count_params(tree) -> int:
@@ -229,9 +250,34 @@ def qkv_project(x: torch.Tensor, p: Dict[str, torch.Tensor], n_heads: int,
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, n_heads, head_dim),
-            k.reshape(B, S, n_kv_heads, head_dim),
-            v.reshape(B, S, n_kv_heads, head_dim))
+    return (split_heads(q, n_heads, head_dim), split_heads(k, n_kv_heads, head_dim),
+            split_heads(v, n_kv_heads, head_dim))
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` where w's rows may be sharded: a replicated x is first split
+    along its last dim as w's rows are, in a step autograd sees, so that its
+    gradient comes back gathered (whole, as x was) rather than split where
+    a reshape before this product cannot take it. Plain tensors multiply."""
+    if isinstance(x, DTensor) and isinstance(w, DTensor):
+        want = tuple(Shard(x.dim() - 1) if wp == Shard(0) and xp == Replicate() else xp
+                     for xp, wp in zip(x.placements, w.placements))
+        x = place(x, want)
+    return x @ w
+
+
+def split_heads(t: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    """(B, S, n_heads·head_dim) → (B, S, n_heads, head_dim). A DTensor whose
+    last dim is split where the cut would fall inside a head (the sharding
+    rules shard the flat projection: 2 KV heads of 32 over 4 ranks) is
+    gathered on that dim first."""
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        split = [i for i, p in enumerate(t.placements) if p == Shard(2)]
+        if n_heads % math.prod(mesh.shape[i] for i in split):
+            t = place(t, tuple(Replicate() if i in split else p
+                               for i, p in enumerate(t.placements)))
+    return t.reshape(t.shape[0], t.shape[1], n_heads, head_dim)
 
 
 def mlp_schema(d_model: int, d_ff: int) -> Schema:

@@ -16,13 +16,15 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import P, Schema, stack_schema
-from .transformer import REMAT, unstack
+from ..shards import prefill_rows
+from .layers import P, Schema, embed, stack_schema
+from .transformer import REMAT, init_sharded_cache, on_shards, unstack
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -158,8 +160,12 @@ def prefill_layer(x: torch.Tensor, p: Dict[str, torch.Tensor], conv: torch.Tenso
     tails and final states into cache rows ``conv``/``ssm`` in place (the
     state cast once to the cache's dtype)."""
     y, tail, h_final = mamba_block(ops.rmsnorm(x, p["ln"], cfg.norm_eps), p, cfg)
-    conv.copy_(tail)
-    ssm.copy_(h_final)
+    if isinstance(conv, DTensor):
+        on_shards(torch.Tensor.copy_, conv, tail)
+        on_shards(torch.Tensor.copy_, ssm, h_final)
+    else:
+        conv.copy_(tail)
+        ssm.copy_(h_final)
     return x + y
 
 
@@ -183,7 +189,7 @@ def ssm_forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     ``jax.checkpoint(body, nothing_saveable)`` does in ``repro``."""
     if remat not in REMAT:
         raise ValueError(f"remat={remat!r}: want one of {REMAT}")
-    x = params["embed"]["table"][tokens]
+    x = embed(params["embed"]["table"], tokens)
     layers: List[Dict[str, Any]] = unstack(params["layers"], depth=1)
 
     def body(h: torch.Tensor, li: int) -> torch.Tensor:
@@ -220,7 +226,7 @@ def ssm_decode_step(cfg: ModelConfig, params: Dict[str, Any],
     """One token for every row: → (logits (B, V), cache), the cache updated
     **in place**. The state carries the position, so ``pos`` (an int or per
     row) is taken for the common signature and not read."""
-    x = params["embed"]["table"][token]                        # (B, d)
+    x = embed(params["embed"]["table"], token)                 # (B, d)
     for li, p in enumerate(unstack(params["layers"], depth=1)):
         x = step_layer(x, p, cache["conv"][li], cache["ssm"][li], cfg)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -232,7 +238,11 @@ def ssm_prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     """→ (last-position logits (B, V), a fresh cache holding the prompt's
     state)."""
     table = params["embed"]["table"]
-    cache = ssm_init_cache(cfg, tokens.shape[0], max_len, table.dtype, table.device)
+    if isinstance(tokens, DTensor):
+        cache = init_sharded_cache(lambda b: ssm_cache_shapes(cfg, b, max_len), tokens,
+                                   table.dtype)
+    else:
+        cache = ssm_init_cache(cfg, tokens.shape[0], max_len, table.dtype, table.device)
     return ssm_prefill_into(cfg, params, tokens, cache, 0), cache
 
 
@@ -242,10 +252,10 @@ def ssm_prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Ten
     every layer's conv and SSM state in place: what ``repro``'s batcher
     leaves there by feeding the prompt token by token from a clean slot.
     Returns the last-position logits (B, V)."""
-    x = params["embed"]["table"][tokens]
-    rows = slice(row, row + x.shape[0])
+    x = embed(params["embed"]["table"], tokens)
+    rows = prefill_rows(x, row)
     for li, p in enumerate(unstack(params["layers"], depth=1)):
-        x = prefill_layer(x, p, cache["conv"][li, rows], cache["ssm"][li, rows], cfg)
+        x = prefill_layer(x, p, cache["conv"][li][rows], cache["ssm"][li][rows], cfg)
     # the norm is row-wise: normalising the last position only is the same
     x = ops.rmsnorm(x[:, -1:, :].contiguous(), params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"])[:, 0, :]

@@ -15,16 +15,20 @@ comes from ``runtime.serve.encdec_serve_cache``.
 """
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from .. import DEFAULT_DEVICE
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
+from ..shards import local_shape_and_offset, place
 from . import encdec, hybrid, mamba2, transformer
-from .layers import Schema, count_params, init_params, param_specs
+from .layers import Schema, count_params, init_params, param_axes, param_specs
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -87,6 +91,11 @@ class Model(nn.Module):
         """The parameter tree as tensors on the ``meta`` device."""
         return param_specs(self.schema, self.param_dtype)
 
+    def param_axes(self) -> Dict[str, Any]:
+        """Each parameter's logical axes (the schema's), for
+        ``runtime.sharding``."""
+        return param_axes(self.schema)
+
     def n_params(self) -> int:
         return count_params(self.param_specs())
 
@@ -104,8 +113,11 @@ class Model(nn.Module):
              remat: str = "block") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, aux = self.logits(params, batch, remat)
         lg = logits.float()
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, batch["labels"][..., None].long())[..., 0]
+        if isinstance(lg, DTensor):
+            lse, gold = _sharded_lse_and_gold(lg, batch["labels"])
+        else:
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, batch["labels"][..., None].long())[..., 0]
         ce = (lse - gold).mean()
         total = ce
         if self.cfg.moe is not None:
@@ -117,6 +129,10 @@ class Model(nn.Module):
     def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Any]:
         """The cache's leaf shapes (nested dicts of tuples)."""
         return self.family.cache_shapes(self.cfg, batch, max_len)
+
+    def cache_specs(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """The cache as tensors on the ``meta`` device, in the param dtype."""
+        return _meta_tree(self.cache_shapes(batch, max_len), self.param_dtype)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         return self.family.init_cache(self.cfg, batch, max_len, self.param_dtype,
@@ -142,6 +158,76 @@ class Model(nn.Module):
         """Prefill into rows ``row ..`` of an existing cache, in place; →
         last-position logits. See each family's ``prefill_into``."""
         return self.family.prefill_into(self.cfg, params, tokens, cache, row)
+
+    # ---------------- dry-run inputs ----------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """``meta`` stand-ins for every model input of this cell, with
+        ``repro``'s shapes and dtypes (tokens int32)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")  # noqa: E731
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": meta((B, S), i32)}
+            if shape.kind == "train":
+                specs["labels"] = meta((B, S), i32)
+            if cfg.family == "vlm":
+                specs["patches"] = meta((B, cfg.vision.n_patches, cfg.vision.patch_dim),
+                                        self.param_dtype)
+            if cfg.family == "audio":
+                specs["frames"] = meta((B, cfg.encdec.n_frames, cfg.d_model),
+                                       self.param_dtype)
+            return specs
+        # decode: one new token against a seq_len cache
+        return {"cache": self.cache_specs(B, S), "token": meta((B,), i32),
+                "pos": meta((), i32)}
+
+    # ---------------- analytics ----------------
+    def model_flops_per_token(self) -> float:
+        """6·N (dense) / 6·N_active (MoE): FLOPs per trained token."""
+        return 6.0 * self.cfg.active_param_count()
+
+
+def _lse_and_gold_parts(lg: torch.Tensor, labels: torch.Tensor, v0: int,
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's vocab columns ``[v0, v0 + V)`` of the logits (B, S, V):
+    → (their logsumexp, the label's logit where the label falls among
+    them, else 0), each (B, S, 1)."""
+    idx = labels.long()[..., None] - v0
+    inside = (idx >= 0) & (idx < lg.shape[-1])
+    gold = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1))
+    return (torch.logsumexp(lg, dim=-1, keepdim=True),
+            torch.where(inside, gold, torch.zeros_like(gold)))
+
+
+def _sharded_lse_and_gold(lg: DTensor, labels: DTensor) -> Tuple[DTensor, DTensor]:
+    """The loss's logsumexp and gold logit over a vocab that may be sharded
+    (``"vocab"`` on "model"): each rank reduces its own columns, and the
+    ranks' parts (one per vocab shard, a new last dim) are gathered and
+    combined, a logsumexp of the logsumexps and a sum of the golds (one
+    part holds the label). The rows keep the logits' placements."""
+    mesh = lg.device_mesh
+    keep = tuple(p if p in (Shard(0), Shard(1), Shard(2)) else Replicate()
+                 for p in lg.placements)
+    lg = place(lg, keep)
+    lab_pl = tuple(Replicate() if p == Shard(2) else p for p in keep)
+    labels = place(labels, lab_pl)
+    v0 = local_shape_and_offset(lg.shape, mesh, keep)[1][2]
+    lse, gold = local_map(functools.partial(_lse_and_gold_parts, v0=v0),
+                          out_placements=(list(keep), list(keep)),
+                          in_placements=(keep, lab_pl), device_mesh=mesh)(lg, labels)
+    if lse.shape[-1] == 1:                  # the vocab is whole on every rank
+        return lse[..., 0], gold[..., 0]
+    # the parts' all-gather over the vocab-splitting mesh dims
+    whole = tuple(Replicate() if p == Shard(2) else p for p in keep)
+    lse, gold = place(lse, whole), place(gold, whole)
+    return torch.logsumexp(lse, dim=-1), gold.sum(-1)
+
+
+def _meta_tree(shapes: Any, dtype: torch.dtype) -> Any:
+    if isinstance(shapes, dict):
+        return {k: _meta_tree(v, dtype) for k, v in shapes.items()}
+    return torch.empty(shapes, dtype=dtype, device="meta")
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -9,22 +9,73 @@ through ``kernels.ops.moe_gmm``, the grouped GEMM that ``repro``'s Pallas
 kernel ``_gmm_kernel`` computes (``ecd,edf->ecf``): the hand-written kernel
 on the card, its plain version on the CPU.
 
-``repro``'s ``_constrain`` and ``ep_mode`` only place the dispatch buffers'
-shards on a mesh; on one GPU they are the identity and have no counterpart.
+On a device mesh the parameters are DTensors. Routing and dispatch run on
+the whole (replicated) token set: the tokens are gathered first, so every
+rank computes the same routing and buffer, as ``repro``'s global cumsum
+does, and ``_constrain`` then keeps each rank's shard of the buffers
+(``ep_mode``: expert-major, for expert-parallel serving; else
+capacity-major). The grouped GEMM runs on each rank's shard
+(``ops.moe_gmm``); its output is gathered for the combine, and the result
+goes back to the tokens' placements. On plain tensors ``_constrain`` is the
+identity.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+import contextvars
+from typing import Dict, Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import MoEConfig
 from ..kernels import ops
+from ..shards import place, placements
 from .layers import P, Schema
 
 # up to this many tokens per call every expert holds every token (no drop)
 NO_DROP_TOKENS = 256
+
+# Expert-parallel mode (serve path): dispatch buffers shard expert-major to
+# match EP weights, instead of capacity-major (the training layout). Set by
+# the serve-step factory.
+_EP_MODE: contextvars.ContextVar[bool] = contextvars.ContextVar("moe_ep_mode",
+                                                               default=False)
+
+
+@contextlib.contextmanager
+def ep_mode() -> Iterator[None]:
+    tok = _EP_MODE.set(True)
+    try:
+        yield
+    finally:
+        _EP_MODE.reset(tok)
+
+
+def _drop_pod(a):
+    if isinstance(a, tuple):
+        t = tuple(x for x in a if x != "pod")
+        return t if len(t) > 1 else (t[0] if t else None)
+    return None if a == "pod" else a
+
+
+def _constrain(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Redistribute a DTensor to the placements that ``axes`` (one entry per
+    leading dim: a mesh-axis name, a tuple of them, or None) name on its
+    mesh; where the mesh lacks an axis, retry with "pod" dropped, as
+    ``repro``'s does, else leave x as it is. The identity on a plain tensor
+    (no mesh)."""
+    if not isinstance(x, DTensor):
+        return x
+    names = set(x.device_mesh.mesh_dim_names)
+    for spec in (axes, tuple(_drop_pod(a) for a in axes)):
+        named = {n for a in spec if a is not None
+                 for n in ((a,) if isinstance(a, str) else a)}
+        if named <= names:
+            return place(x, placements(spec, x.device_mesh))
+    return x
 
 
 def moe_schema(d_model: int, moe: MoEConfig) -> Schema:
@@ -89,29 +140,70 @@ def dispatch(xt: torch.Tensor, flat_e: torch.Tensor, pos: torch.Tensor,
     return flat[:E * cap].view(E, cap, d)
 
 
+def _route_and_dispatch(xt: torch.Tensor, router: torch.Tensor, moe: MoEConfig):
+    """xt (T, d) → (the experts' buffer (E, cap, d), flat_e (T·K,), pos_c
+    (T·K,) each slot's row in its expert (0 where dropped), the combine
+    weights w (T·K,) in xt's dtype, the aux loss f32)."""
+    T = xt.shape[0]
+    E, K = moe.n_experts, moe.top_k
+    probs, gate, expert_idx, pos, keep, cap = route(xt, router, moe)
+    # Switch load-balance loss from the first choice: E · Σ_e f_e · p̄_e
+    assign1 = F.one_hot(expert_idx[:, 0], E).float()
+    aux = E * (assign1.mean(0) * probs.mean(0)).sum()
+    flat_e = expert_idx.reshape(T * K)
+    buf = dispatch(xt, flat_e, pos, keep, E, cap)
+    pos_c = torch.where(keep, pos, torch.zeros_like(pos))
+    w = (gate.reshape(T * K) * keep).to(xt.dtype)
+    return buf, flat_e, pos_c, w, aux
+
+
+def _combine(out: torch.Tensor, flat_e: torch.Tensor, pos_c: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """Each (token, choice) slot's expert output (E, C, d), weighted: →
+    (T·K, d)."""
+    return out[flat_e, pos_c] * w[:, None]
+
+
 def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], moe: MoEConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) → (y, aux_loss f32). Tokens past an expert's capacity
     contribute zero (they pass through residually), as in Switch/Mixtral."""
     B, S, d = x.shape
-    E, K = moe.n_experts, moe.top_k
+    K = moe.top_k
     T = B * S
-    xt = x.reshape(T, d)
-    probs, gate, expert_idx, pos, keep, cap = route(xt, p["router"], moe)
-
-    # Switch load-balance loss from the first choice: E · Σ_e f_e · p̄_e
-    assign1 = F.one_hot(expert_idx[:, 0], E).float()
-    aux = E * (assign1.mean(0) * probs.mean(0)).sum()
-
-    flat_e = expert_idx.reshape(T * K)
-    buf = dispatch(xt, flat_e, pos, keep, E, cap)
-    pos_c = torch.where(keep, pos, torch.zeros_like(pos))
+    route_fn, combine_fn = _route_and_dispatch, _combine
+    x_placements = x.placements if isinstance(x, DTensor) else None
+    if x_placements is not None:
+        mesh = x.device_mesh
+        rep = (Replicate(),) * mesh.ndim
+        # the token all-gather: routing and dispatch see every token, and
+        # every rank computes the same buffer on its local copy
+        x = place(x, rep)
+        route_fn = local_map(_route_and_dispatch, out_placements=(list(rep),) * 5,
+                             in_placements=(rep, rep, None), device_mesh=mesh)
+        combine_fn = local_map(_combine, out_placements=list(rep),
+                               in_placements=(rep, rep, rep, rep), device_mesh=mesh)
+    buf, flat_e, pos_c, w, aux = route_fn(x.reshape(T, d), _to_replicated(p["router"]), moe)
+    ep = _EP_MODE.get()
+    # each rank's shard of the buffer: expert-major to meet EP weights,
+    # else capacity-major (a local slice of the replicated buffer)
+    buf = _constrain(buf, ("pod", "data"), None, None) if ep else \
+        _constrain(buf, None, ("pod", "data"), None)
 
     g = ops.moe_gmm(buf, p["w_gate"])
     u = ops.moe_gmm(buf, p["w_up"])
     out = ops.moe_gmm(F.silu(g) * u, p["w_down"])                 # (E, C, d)
+    if isinstance(out, DTensor):
+        # the expert outputs' all-gather (and the D partial sums' reduce)
+        # for the combine, which reads every token's slots
+        out = place(out, (Replicate(),) * out.device_mesh.ndim)
+    y = combine_fn(out, flat_e, pos_c, w).reshape(T, K, d).sum(dim=1).reshape(B, S, d)
+    if x_placements is not None:
+        y = place(y, x_placements)                                # a local slice
+    return y, aux
 
-    y_slots = out[flat_e, pos_c]                                  # (T·K, d)
-    w = (gate.reshape(T * K) * keep).to(x.dtype)
-    y = (y_slots * w[:, None]).reshape(T, K, d).sum(dim=1)
-    return y.reshape(B, S, d), aux
+
+def _to_replicated(t: torch.Tensor) -> torch.Tensor:
+    if isinstance(t, DTensor):
+        return place(t, (Replicate(),) * t.device_mesh.ndim)
+    return t

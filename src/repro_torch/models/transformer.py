@@ -18,29 +18,74 @@ embeddings to the model width, and those rows come before the tokens'
 (``embed_inputs``). ``forward`` returns logits over the token positions
 only; ``prefill`` caches the patch rows and the prompt, so decoding goes
 on at position ``n_patches + S``.
+
+On a device mesh the parameters, inputs and cache are DTensors. A decode
+step's cache may be sharded over its slots (``decode_rules``' "kv_seq"):
+each rank then writes the new K/V where the slot falls in its range,
+attends over its own slots, and the ranks' partial outputs are merged by
+their logsumexp (``_sharded_attend_one``). The prefill makes its cache
+with the batch placed as the tokens are, and writes it shard by shard.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..shards import local_shape_and_offset, place, prefill_rows
 from .layers import (
     P,
     Schema,
     apply_rope,
     attention_schema,
+    embed,
     mlp_schema,
     qkv_project,
+    row_parallel,
     stack_schema,
     swiglu,
 )
-from .moe import moe_ffn, moe_schema
+from .moe import _constrain, moe_ffn, moe_schema
 
 REMAT = ("none", "block", "full")
+
+# Sequence parallelism: shard the residual stream's seq dim over the "model"
+# axis when a *global* microbatch residual exceeds this size (``repro``'s
+# threshold). Shrinks each layer group's saved input by the TP degree;
+# attention gathers the sequence back (``ops.flash_attention``).
+SEQ_SHARD_MIN_BYTES = 256 << 20
+
+
+def maybe_seq_shard(h: torch.Tensor) -> torch.Tensor:
+    if h.dim() == 3 and h.numel() * h.element_size() > SEQ_SHARD_MIN_BYTES:
+        return _constrain(h, ("pod", "data"), "model", None)
+    return h
+
+
+def to_residual(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A block's output y placed as the residual stream x before they are
+    added: with x sequence-sharded, y's partial sums (the row-parallel
+    product's) are reduce-scattered over the sequence here, in a step that
+    autograd sees, so that the gradient comes back gathered. The identity
+    when the placements already agree or on plain tensors."""
+    return place(y, x.placements) if isinstance(y, DTensor) else y
+
+
+def seq_whole(h: torch.Tensor) -> torch.Tensor:
+    """A sequence-sharded DTensor (``maybe_seq_shard``'s) gathered over its
+    sequence: the products that follow a norm read whole rows of tokens
+    (sequence parallelism's all-gather before the column-parallel
+    products; the row-parallel output's reduce comes back as a
+    reduce-scatter into the sharded residual). The identity otherwise."""
+    if isinstance(h, DTensor) and Shard(1) in h.placements:
+        return place(h, tuple(Replicate() if p == Shard(1) else p for p in h.placements))
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +199,7 @@ def attend(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor, positions: torc
     q, k, v = _roped_qkv(cfg, p, h, positions)
     o = ops.flash_attention(q, k, v, causal=True, window=window)
     B, S = h.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"], k, v
+    return row_parallel(o.reshape(B, S, -1), p["wo"]), k, v
 
 
 def decode_slots(pos_t: torch.Tensor, slots: int, window: int = 0,
@@ -177,11 +222,79 @@ def attend_one(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
     rows kc/vc (B, slots, hkv, hd) in place, where ``at`` (``decode_slots``)
     says, and it attends to its first kv_len slots."""
     q, k, v = _roped_qkv(cfg, p, h, positions)
+    o = attend_cached(q, k, v, kc, vc, at)
+    return row_parallel(o.reshape(h.shape[0], 1, -1), p["wo"])
+
+
+def attend_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kc: torch.Tensor,
+                  vc: torch.Tensor, at: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                  ) -> torch.Tensor:
+    """Write one step's k, v (B, 1, hkv, hd) into the cache rows kc/vc where
+    ``at`` says and attend with q (B, 1, Hq, hd) to each row's first kv_len
+    slots: → O (B, 1, Hq, hd). A sharded cache goes through
+    ``_sharded_attend_one``."""
+    if isinstance(kc, DTensor):
+        return _sharded_attend_one(q, k, v, kc, vc, at)
     rows, write, kv_len = at
     kc[rows, write] = k[:, 0]
     vc[rows, write] = v[:, 0]
-    o, _ = ops.flash_attention_fwd(q, kc, vc, causal=False, window=0, kv_len=kv_len)
-    return o.reshape(h.shape[0], 1, -1) @ p["wo"]
+    return ops.flash_attention_fwd(q, kc, vc, causal=False, window=0, kv_len=kv_len)[0]
+
+
+def _attend_local(q, k, v, kc, vc, write, kv_len, slot0: int):
+    """One rank's part of a decode step over its cache slots
+    ``[slot0, slot0 + slots)``: writes row b's K/V if ``write[b]`` falls
+    there, attends over its valid slots, → (O (1, b, 1, Hq, D), lse
+    (1, b, 1, Hq) f32, -inf for a row with none of its slots valid)."""
+    b, slots = kc.shape[0], kc.shape[1]
+    w = write - slot0
+    mine = ((w >= 0) & (w < slots))[:, None, None]
+    rows, w = torch.arange(b, device=kc.device), w.clamp(0, slots - 1)
+    # a row whose slot lies on another rank writes back what it read
+    kc[rows, w] = torch.where(mine, k[:, 0], kc[rows, w])
+    vc[rows, w] = torch.where(mine, v[:, 0], vc[rows, w])
+    n = (kv_len - slot0).clamp(0, slots).to(torch.int32)
+    o, lse = ops.flash_attention_fwd(q, kc, vc, causal=False, window=0,
+                                     kv_len=n.clamp(min=1))
+    lse = lse.view(b, q.shape[2], 1).transpose(1, 2)               # (b, 1, Hq)
+    valid = (n > 0)[:, None, None]
+    return (torch.where(valid[..., None], o, torch.zeros_like(o))[None],
+            torch.where(valid, lse, torch.full_like(lse, float("-inf")))[None])
+
+
+def _sharded_attend_one(q: DTensor, k: DTensor, v: DTensor, kc: DTensor, vc: DTensor,
+                        at: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> DTensor:
+    """A decode step's attention against a cache (B, slots, hkv, hd) whose
+    batch and slots may be sharded. q, k, v keep the cache's batch
+    placement and are gathered on every other mesh dim (all heads); each
+    rank runs ``_attend_local`` on its slots; where the slots are split,
+    the partial outputs are gathered and merged by their logsumexp."""
+    mesh = kc.device_mesh
+    cp = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in kc.placements)
+    qp = tuple(Shard(0) if p == Shard(0) else Replicate() for p in cp)
+    # the heads' all-gather: every rank attends with all heads
+    q, k, v = (place(t, qp) for t in (q, k, v))
+    kc, vc = place(kc, cp), place(vc, cp)
+    _, offset = local_shape_and_offset(kc.shape, mesh, cp)
+    _, write, kv_len = at
+    b_off = local_shape_and_offset(q.shape, mesh, qp)[1][0]
+    nb = q.to_local().shape[0]
+    part = tuple(Shard(0) if p == Shard(1) else (Shard(1) if p == Shard(0) else Replicate())
+                 for p in cp)
+    fn = local_map(lambda ql, kl, vl, kcl, vcl: _attend_local(
+                       ql, kl, vl, kcl, vcl, write[b_off:b_off + nb],
+                       kv_len[b_off:b_off + nb], offset[1]),
+                   out_placements=(list(part), list(part)),
+                   in_placements=(qp, qp, qp, cp, cp), device_mesh=mesh)
+    o, lse = fn(q, k, v, kc, vc)
+    if o.shape[0] == 1:                  # the slots are whole on every rank
+        return o[0]
+    # the partial outputs' all-gather over the slot-splitting mesh dims
+    gathered = tuple(Replicate() if p == Shard(0) else p for p in part)
+    o, lse = place(o, gathered), place(lse, gathered)
+    wts = torch.exp(lse - lse.amax(0, keepdim=True))               # (m, B, 1, Hq)
+    out = (o.float() * wts[..., None]).sum(0) / wts.sum(0)[..., None]
+    return out.to(o.dtype)
 
 
 def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
@@ -189,11 +302,11 @@ def _block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """→ (block output, roped K, V, MoE aux or None) for a full causal
     sequence."""
-    o, k, v = attend(cfg, p["attn"], ops.rmsnorm(x, p["ln1"], cfg.norm_eps), positions,
-                     _window_of(cfg, kind))
-    x = x + o
-    y, aux = _ffn(cfg, p["ffn"], ops.rmsnorm(x, p["ln2"], cfg.norm_eps))
-    return x + y, k, v, aux
+    o, k, v = attend(cfg, p["attn"], seq_whole(ops.rmsnorm(x, p["ln1"], cfg.norm_eps)),
+                     positions, _window_of(cfg, kind))
+    x = x + to_residual(o, x)
+    y, aux = _ffn(cfg, p["ffn"], seq_whole(ops.rmsnorm(x, p["ln2"], cfg.norm_eps)))
+    return x + to_residual(y, x), k, v, aux
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -201,7 +314,7 @@ def embed_inputs(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     """Token embeddings (B, S, d); a VLM's patches (B, n_patches, patch_dim),
     cast to the table's dtype and projected by ``vision_proj``, come before
     them: (B, n_patches + S, d)."""
-    x = params["embed"]["table"][tokens]
+    x = embed(params["embed"]["table"], tokens)
     if n_patches(cfg, patches):
         x = torch.cat([patches.to(x.dtype) @ params["vision_proj"], x], dim=1)
     return x
@@ -239,11 +352,12 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
 
     def group_body(h: torch.Tensor, aux: torch.Tensor, gi: int,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = maybe_seq_shard(h)
         for i, kind in enumerate(pat):
             h, _, _, a = _block(cfg, layers[gi][i], h, positions, kind)
             if a is not None:
                 aux = aux + a
-        return h, aux
+        return maybe_seq_shard(h), aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi in range(n_groups(cfg)):
@@ -257,6 +371,7 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
 
 
 def unembed(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    x = seq_whole(x)
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].T
     return x @ params["lm_head"]
@@ -294,12 +409,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def row_positions(pos: Union[int, torch.Tensor], B: int, device) -> torch.Tensor:
     """An int or a (B,) int tensor of per-row positions → (B,) int64 on
     ``device``; a host tensor is checked for positions below 0."""
+    if isinstance(pos, int) and pos < 0:
+        raise ValueError("pos: positions must be >= 0")
     pos_t = torch.as_tensor(pos, dtype=torch.int64)
     if pos_t.dim() == 0:
         pos_t = pos_t.expand(B)
     if pos_t.shape != (B,):
         raise ValueError(f"pos: want an int or shape ({B},), got {tuple(pos_t.shape)}")
-    if pos_t.device.type == "cpu" and bool((pos_t < 0).any()):
+    if not isinstance(pos, int) and pos_t.device.type == "cpu" and bool((pos_t < 0).any()):
         raise ValueError("pos: positions must be >= 0")
     return pos_t.to(device)
 
@@ -320,7 +437,7 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
     at = {knd: decode_slots(pos_t, d["k"].shape[3], _window_of(cfg, knd))
           for knd, d in cache.items()}
 
-    x = params["embed"]["table"][token][:, None, :]            # (B, 1, d)
+    x = embed(params["embed"]["table"], token)[:, None, :]     # (B, 1, d)
     positions = pos_t[:, None]
     pat = layer_pattern(cfg)
     kind_of = _kind_slots(pat)
@@ -351,8 +468,29 @@ def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
         raise ValueError(f"prompt of {n} patches and {S} tokens does not fit "
                          f"max_len={max_len}")
     table = params["embed"]["table"]
-    cache = init_cache(cfg, B, max_len, table.dtype, table.device)
+    if isinstance(tokens, DTensor):
+        cache = init_sharded_cache(lambda b: cache_shapes(cfg, b, max_len), tokens,
+                                   table.dtype)
+    else:
+        cache = init_cache(cfg, B, max_len, table.dtype, table.device)
     return prefill_into(cfg, params, tokens, cache, 0, patches), cache
+
+
+def init_sharded_cache(shapes_of, tokens: DTensor, dtype: torch.dtype) -> Dict[str, Any]:
+    """A zero cache of DTensors on the tokens' mesh: ``shapes_of(batch)``
+    gives its shape tree; each leaf's batch dim (the one that grows with
+    the batch) is placed as the tokens' batch, every other dim whole."""
+    mesh, B = tokens.device_mesh, tokens.shape[0]
+
+    def leaf(shape: Tuple[int, ...], wider: Tuple[int, ...]) -> DTensor:
+        d = next(i for i, (a, b) in enumerate(zip(shape, wider)) if a != b)
+        pl = tuple(Shard(d) if p == Shard(0) else Replicate() for p in tokens.placements)
+        return dtensor_zeros(shape, dtype=dtype, device_mesh=mesh, placements=pl)
+
+    def walk(a: Any, b: Any) -> Any:
+        return {k: walk(a[k], b[k]) for k in a} if isinstance(a, dict) else leaf(a, b)
+
+    return walk(shapes_of(B), shapes_of(B + 1))
 
 
 def prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -365,13 +503,17 @@ def prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     logits (B, V)."""
     x = embed_inputs(cfg, params, tokens, patches)
     B, S, _ = x.shape
-    rows = slice(row, row + B)
+    rows = prefill_rows(x, row)
+    sharded = isinstance(x, DTensor)
     for kind, d in cache.items():
         for c in d.values():                        # (g, cnt, batch, slots, hkv, hd)
             if _window_of(cfg, kind) == 0 and S > c.shape[3]:
                 raise ValueError(f"prompt of {S} tokens does not fit "
                                  f"{c.shape[3]} cache slots")
-            c[:, :, rows, S:].zero_()
+            if sharded:
+                on_shards(lambda cl: cl[:, :, :, S:].zero_(), c)
+            else:
+                c[:, :, rows, S:].zero_()
     positions = torch.arange(S, device=x.device)[None, :]
     pat = layer_pattern(cfg)
     kind_of = _kind_slots(pat)
@@ -380,11 +522,27 @@ def prefill_into(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
         for i, kind in enumerate(pat):
             x, k, v, _ = _block(cfg, layers[gi][i], x, positions, kind)
             _, slot = kind_of[i]
-            _to_cache_slots(cache[kind]["k"][gi, slot, rows], k)
-            _to_cache_slots(cache[kind]["v"][gi, slot, rows], v)
+            if sharded:
+                on_shards(_to_cache_slots, cache[kind]["k"][gi, slot], k)
+                on_shards(_to_cache_slots, cache[kind]["v"][gi, slot], v)
+            else:
+                _to_cache_slots(cache[kind]["k"][gi, slot, rows], k)
+                _to_cache_slots(cache[kind]["v"][gi, slot, rows], v)
     # the norm is row-wise: normalising the last position only is the same
     x = ops.rmsnorm(x[:, -1:, :].contiguous(), params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)[:, 0, :]
+
+
+def on_shards(fn, c: DTensor, *src: DTensor) -> None:
+    """``fn(local c, *local src)`` on every rank, writing c's shard in
+    place; each ``src`` is first brought to c's placements."""
+    pl = tuple(c.placements)
+    src = tuple(place(t, pl) for t in src)
+    def body(*local: torch.Tensor) -> None:
+        fn(*local)
+
+    local_map(body, out_placements=(None,), in_placements=(pl,) * (1 + len(src)),
+              device_mesh=c.device_mesh)(c, *src)
 
 
 def _to_cache_slots(c: torch.Tensor, k: torch.Tensor) -> None:

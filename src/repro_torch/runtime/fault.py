@@ -9,8 +9,9 @@ speculation). This module covers the *step-program* level:
   robust running estimate of step time; slow steps raise a callback that in
   production triggers slice health checks / job migration via the CWS.
 * ``resume_or_init`` — the standard restart entry: restore the latest
-  committed checkpoint, else init fresh. One card: ``shardings`` takes only
-  ``None`` until the sharding slice.
+  committed checkpoint, else init fresh. ``shardings`` may target another
+  mesh than the one the checkpoint was saved under: restore places each
+  loaded leaf with ``distribute_tensor`` (the elastic path).
 * ``ElasticPlan`` — given old/new device counts, decides the new mesh shape
   and whether the global batch or the per-device batch is preserved.
 
@@ -119,7 +120,8 @@ def resume_or_init(
     ``like`` (default: ``init_fn()``) gives the structure, dtypes and
     device; a ``like`` on ``meta`` (``make_train_step``'s ``state_specs``)
     restores onto ``device`` (default ``cuda``) without initialising first.
-    → (state, the step it holds)."""
+    ``shardings`` (``make_train_step``'s, on any mesh) places the restored
+    leaves as DTensors. → (state, the step it holds)."""
     if ckpt_dir:
         ck = latest_checkpoint(ckpt_dir)
         if ck is not None:

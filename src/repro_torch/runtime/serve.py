@@ -1,8 +1,12 @@
 """Serving runtime (port of ``repro.runtime.serve``): step factories and
 continuous batching.
 
-One GPU, so the sharding arguments of ``repro``'s factories are dropped:
-each factory returns its step function only.
+``make_serve_step`` and ``make_prefill_step`` return ``repro``'s triple
+(step, shardings, specs). With a ``DeviceMesh`` the shardings place the
+params and the step's inputs (decode: ``decode_rules``, with expert
+parallelism for an MoE model of 64 experts or more; prefill:
+``train_rules``), and the step runs on DTensors; with ``mesh=None`` they
+are ``None`` and the step runs on plain tensors, as on one card.
 
 ``ContinuousBatcher`` keeps a position per slot. A request is admitted by
 one causal prefill of ``prompt[:-1]`` into its slot's cache row (the token
@@ -17,54 +21,100 @@ slot keeps nothing of its last request.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ShapeConfig
 from ..models import encdec
 from ..models.layers import tree_leaves
 from ..models.model import Model
+from ..models.moe import ep_mode
+from ..shards import place
+from .sharding import decode_rules, input_axes, shardings_for_tree, train_rules
+from .train import mesh_context
 
 
-def make_serve_step(model: Model, shape: ShapeConfig) -> Callable:
-    """→ serve_step(params, cache, token, pos) -> (next_token (B,), cache):
-    one greedy decode step against a ``shape.seq_len`` cache."""
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each row; a vocab-sharded DTensor's logits are
+    gathered over the vocab first (the batch keeps its placement)."""
+    if isinstance(logits, DTensor):
+        keep = tuple(p if p == Shard(0) else Replicate() for p in logits.placements)
+        logits = place(logits, keep)
+    return logits.argmax(-1).to(torch.int32)
+
+
+def make_serve_step(model: Model, shape: ShapeConfig, mesh: Any = None,
+                    multi_pod: bool = False) -> Tuple[Callable, Any, Dict[str, Any]]:
+    """→ (serve_step, shardings, specs). ``serve_step(params, cache, token,
+    pos) -> (next_token (B,), cache)``: one greedy decode step against a
+    ``shape.seq_len`` cache. ``shardings`` (``None`` without a mesh) has
+    ``repro``'s keys: ``params``, ``cache``, ``token``, ``pos``; ``specs``
+    the same keys on ``meta``. Contexts past 100k tokens spread the cache's
+    slots over every axis; an MoE model of 64 experts or more runs in
+    ``ep_mode`` on a mesh."""
+    long_ctx = shape.seq_len > 100_000
+    n_exp = model.cfg.moe.n_experts if model.cfg.moe else 0
+    use_ep = mesh is not None and model.cfg.family == "moe" and n_exp >= 64
+    specs = {"params": model.param_specs(), **model.input_specs(shape)}
+    shardings = None
+    if mesh is not None:
+        rules = decode_rules(multi_pod, long_ctx, model.cfg.family, n_exp)
+        shardings = {"params": shardings_for_tree(specs["params"], model.param_axes(),
+                                                  rules, mesh),
+                     **shardings_for_tree(model.input_specs(shape),
+                                          input_axes(model.cfg, "decode"), rules, mesh)}
 
     def serve_step(params, cache, token, pos):
-        logits, cache = model.decode_step(params, cache, token, pos)
-        return logits.argmax(-1).to(torch.int32), cache
+        with mesh_context(mesh), (ep_mode() if use_ep else contextlib.nullcontext()):
+            logits, cache = model.decode_step(params, cache, token, pos)
+            return _argmax(logits), cache
 
-    return serve_step
+    return serve_step, shardings, specs
 
 
-def make_prefill_step(model: Model, shape: ShapeConfig) -> Callable:
-    """→ prefill_step({"params", "tokens", ...}) -> (next_token (B,), state).
-    Every family but audio builds a cache of ``shape.seq_len`` slots (a VLM
-    takes ``"patches"`` too, and its cache ``n_patches`` more slots for
-    them). An audio model has no prefill-with-cache: as in ``repro``, the
-    step runs its forward pass (``remat="none"``) over the tokens and
-    ``"frames"`` and returns the last position's token with the aux loss
-    (its serving cache comes from ``encdec_serve_cache``)."""
+def make_prefill_step(model: Model, shape: ShapeConfig, mesh: Any = None,
+                      multi_pod: bool = False) -> Tuple[Callable, Any, Dict[str, Any]]:
+    """→ (prefill_step, shardings, specs). ``prefill_step({"params",
+    "tokens", ...}) -> (next_token (B,), state)``. Every family but audio
+    builds a cache of ``shape.seq_len`` slots (a VLM takes ``"patches"``
+    too, and its cache ``n_patches`` more slots for them). An audio model
+    has no prefill-with-cache: as in ``repro``, the step runs its forward
+    pass (``remat="none"``) over the tokens and ``"frames"`` and returns the
+    last position's token with the aux loss (its serving cache comes from
+    ``encdec_serve_cache``). On a mesh the params and inputs are placed by
+    ``train_rules`` (``repro``'s measured choice: no expert parallelism for
+    prefill); ``shardings`` has the keys ``params`` and the inputs'."""
     cfg = model.cfg
+    specs = {"params": model.param_specs(), **model.input_specs(shape)}
+    shardings = None
+    if mesh is not None:
+        rules = train_rules(multi_pod, cfg.family)
+        shardings = {"params": shardings_for_tree(specs["params"], model.param_axes(),
+                                                  rules, mesh),
+                     **shardings_for_tree(model.input_specs(shape),
+                                          input_axes(cfg, "prefill"), rules, mesh)}
 
     def prefill_step(args: Dict[str, Any]):
         params = args["params"]
         inputs = {k: v for k, v in args.items() if k != "params"}
-        if cfg.family == "audio":
-            logits, aux = model.logits(params, {**inputs, "labels": inputs["tokens"]},
-                                       remat="none")
-            return logits[:, -1, :].argmax(-1).to(torch.int32), aux
-        extra = {k: v for k, v in inputs.items() if k != "tokens"}
-        max_len = shape.seq_len
-        if cfg.family == "vlm" and cfg.vision is not None:
-            max_len += cfg.vision.n_patches
-        logits, cache = model.prefill(params, inputs["tokens"], max_len, extra or None)
-        return logits.argmax(-1).to(torch.int32), cache
+        with mesh_context(mesh):
+            if cfg.family == "audio":
+                logits, aux = model.logits(params, {**inputs, "labels": inputs["tokens"]},
+                                           remat="none")
+                return _argmax(logits[:, -1, :]), aux
+            extra = {k: v for k, v in inputs.items() if k != "tokens"}
+            max_len = shape.seq_len
+            if cfg.family == "vlm" and cfg.vision is not None:
+                max_len += cfg.vision.n_patches
+            logits, cache = model.prefill(params, inputs["tokens"], max_len, extra or None)
+            return _argmax(logits), cache
 
-    return prefill_step
+    return prefill_step, shardings, specs
 
 
 def encdec_serve_cache(model: Model, params: Any, frames: torch.Tensor,

@@ -189,7 +189,7 @@ def test_frames_are_cast_and_prefill_follows_repro():
         tm.prefill(tp, tb["tokens"], 32)
     with pytest.raises(NotImplementedError, match="encdec_serve_cache"):
         tm.prefill_into(tp, tb["tokens"], tm.init_cache(B, 32))
-    nxt, aux = make_prefill_step(tm, ShapeConfig("p", S, B, "prefill"))(
+    nxt, aux = make_prefill_step(tm, ShapeConfig("p", S, B, "prefill"))[0](
         {"params": tp, "tokens": tb["tokens"], "frames": tb["frames"]})
     torch.testing.assert_close(nxt, want[:, -1].argmax(-1).to(torch.int32))
     assert float(aux) == 0.0

@@ -116,8 +116,6 @@ def test_restore_rejects_shape_mismatch_and_missing_leaf(tmp_path):
         restore_checkpoint(path, _like((3, 2)))
     with pytest.raises(KeyError, match="missing leaf"):
         restore_checkpoint(path, {"nope": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        restore_checkpoint(path, _like(), shardings=object())
 
 
 def test_manifest_records_leaf_metadata(tmp_path):

@@ -93,11 +93,11 @@ def test_step_factories_are_greedy_over_model_calls():
     model, params = _f32_model("qwen1.5-0.5b")
     shape = ShapeConfig("tiny", 24, 2, "prefill")
     tokens = torch.from_numpy(np.random.default_rng(4).integers(2, model.cfg.vocab, (2, 12)))
-    nxt, cache = make_prefill_step(model, shape)({"params": params, "tokens": tokens})
+    nxt, cache = make_prefill_step(model, shape)[0]({"params": params, "tokens": tokens})
     logits, _ = model.prefill(params, tokens, shape.seq_len)
     assert nxt.dtype == torch.int32 and torch.equal(nxt, logits.argmax(-1).int())
     assert cache["full"]["k"].shape[3] == shape.seq_len
-    nxt2, cache = make_serve_step(model, shape)(params, cache, nxt.long(), 12)
+    nxt2, cache = make_serve_step(model, shape)[0](params, cache, nxt.long(), 12)
     assert nxt2.shape == (2,) and nxt2.dtype == torch.int32
 
 

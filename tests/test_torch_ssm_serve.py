@@ -88,7 +88,7 @@ def test_prefill_step_returns_greedy_token_and_the_serving_state(arch):
     params = model.init(torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(np.random.default_rng(4).integers(2, model.cfg.vocab, (2, 12)))
     shape = ShapeConfig("tiny", 24, 2, "prefill")
-    nxt, cache = make_prefill_step(model, shape)({"params": params, "tokens": tokens})
+    nxt, cache = make_prefill_step(model, shape)[0]({"params": params, "tokens": tokens})
     logits, fresh = model.prefill(params, tokens, shape.seq_len)
     assert nxt.dtype == torch.int32 and torch.equal(nxt, logits.argmax(-1).int())
     assert sorted(cache) == sorted(model.cache_shapes(2, 24))

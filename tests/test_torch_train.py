@@ -190,16 +190,6 @@ def test_microbatch_i_takes_rows_i_mod_n():
     np.testing.assert_allclose(float(metrics["loss"]), np.mean(losses), rtol=1e-6)
 
 
-def test_train_step_refuses_a_mesh():
-    model = build_model(SMOKE_ARCHS["qwen1.5-0.5b"], device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        make_train_step(model, TrainConfig(), ShapeConfig("t", 8, 2, "train"),
-                        mesh=object())
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        n_microbatches(ShapeConfig("t", 8, 2, "train"), None, TrainConfig(),
-                       multi_pod=True)
-
-
 def test_init_state_keeps_moments_in_opt_dtype():
     model = build_model(SMOKE_ARCHS["qwen1.5-0.5b"], device="cpu")
     state = init_state(model, TrainConfig(opt_dtype="bfloat16"),

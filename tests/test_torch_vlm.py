@@ -152,7 +152,7 @@ def test_prefill_step_caches_the_patches_beside_seq_len():
     n_patches`` slots (repro's rule) and returns the prefill's next tokens."""
     _, _, tm, tp = models("float32")
     _, tb = inputs("float32")
-    step = make_prefill_step(tm, ShapeConfig("p", S + 4, B, "prefill"))
+    step, _, _ = make_prefill_step(tm, ShapeConfig("p", S + 4, B, "prefill"))
     nxt, cache = step({"params": tp, "tokens": tb["tokens"], "patches": tb["patches"]})
     logits, _ = tm.prefill(tp, tb["tokens"], S + 4 + tm.cfg.vision.n_patches,
                            {"patches": tb["patches"]})
