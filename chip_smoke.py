@@ -11,8 +11,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                the JAX test shapes and at the main paths' shapes (RMSNorm
                also at d no multiple of 8 under each row mapping; the
                grouped expert GEMM also at ragged C = 1, 8, 17, 40, 256,
-               320 and a D/F of no tile's width, its launches by variant
-               checked (bf16 C > 16 all on the tensor-core kernel); the SSD
+               320 and a D/F of no tile's width, and at mixtral-8x22b's
+               widths at C = 1, 8, 160, 320, 1280, 1920 (timed at 8, bound
+               by reading w, and 1280, bound by its operations), its
+               launches by variant checked (bf16 C > 16 all on the
+               tensor-core kernel); RMSNorm also at d 4096, 3584 and 6144;
+               the cases for those configs from a generator of their own
+               (WIDE_SEED), so the earlier cases keep their draws; the SSD
                scan, y and final state, also at ragged S = 1, 37, 257,
                300, at the bf16 kernel's chunk edges (S = 1, 127, 128, 129,
                257), G = 2 and 4 with several heads a group, every state
@@ -23,34 +28,51 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                at ragged S, decode kv_len at chunk edges, GQA 1:1 to 8:1,
                windows, every D
                (32, 64, 80, 96, 128, 256), strided q/k/v and cache views,
+               the GQA groups 16, 7 and 6 of chatglm3-6b, qwen2-7b and
+               mixtral-8x22b (FLASH_WIDE_CASES: decode at 28:4, 32:2 and
+               48:8, 32:2 at S = 2 and 3 on either side of the split-KV
+               kernel's 32 rows, ragged prefill at 28:4, a window in both
+               regimes at 48:8),
                every main path's shape (FLASH_PATHS: every family's
                prefill and decode, among them whisper-tiny's 1500-key
                non-causal encoder, its 448-token causal self prefill and
                cross prefill, its self decode at kv_len 1..448 and cross
                decode against 1500 keys with no kv_len, phi-3-vision-4.2b's
                576 patch rows and 1024 tokens at D = 96 and its decode
-               rounds against 1632 and 2048 slots), in f32 and bf16, with
+               rounds against 1632 and 2048 slots; chatglm3-6b's, qwen2-7b's
+               and mixtral-8x22b's prefill step and decode round,
+               mixtral's 6,144-token admission, where its window of 4096
+               cuts every row past 4096, and a round against its full
+               4096-slot ring), in f32 and bf16, with
                the launches by variant checked and a misaligned view
                refused, each main path also timed in bf16; the
                backward's two variants (tensor-core for bf16, FMA for f32)
                at every D with ragged S, windows and GQA up to 8:1, and at
-               eight timed shapes: the train step's, qwen3-moe's 32/4
+               eleven timed shapes: the train step's, qwen3-moe's 32/4
                heads of 128, zamba2's 32 of 80, gemma3's 16/8 of 256 with
                its window, whisper's encoder, its decoder's causal
                self-attention (S = T = 448) and cross-attention
                (non-causal, S = 448 against T = 1500), phi-3-vision's 32
-               heads of 96 over 1600 rows); takes
-               the device time (``torch.profiler``) of the kernel, of the
+               heads of 96 over 1600 rows, chatglm3-6b's 32/2 and
+               qwen2-7b's 28/4 of 128, gemma3's local layer at S = 2048,
+               where its window of 1024 cuts (FLASH_BWD_WIDE_CASES: the
+               group sums of 16, 7 and 6 heads); takes
+               the device time (``torch.profiler``; CUDA events around
+               the call where a profiler session records no device
+               event, counted and printed at the end) of the kernel, of the
                plain version and of one PyTorch library call of the same
                function where there is one (a yardstick only: the port never
-               calls it; no PyTorch call computes an SSD scan), and
+               calls it; a window narrower than S goes to SDPA as a band
+               mask; no PyTorch call computes an SSD scan), and
                the kernel's call time through its wrapper. The backward
                kernels take O and lse from the forward kernel. The
                grouped GEMM's backward (dX = dy·wᵀ, dW = bufᵀ·dy) in f32
-               and bf16 at C = 1, 8, 17, 40, 320, with D or F no multiple
-               of 8 and a misaligned base (the wmma tile), its launches by
-               variant checked, timed at the MoE train microbatch (gate/up
-               and down, C = 320) beside ``torch.bmm``; the SSD backward
+               and bf16 at C = 1, 8, 17, 40, 320, and at mixtral-8x22b's
+               widths (E 8, D 6144, F 16384) at C = 8, 320, 1280, with D
+               or F no multiple of 8 and a misaligned base (the wmma
+               tile), its launches by variant checked, timed at the MoE
+               train microbatches (gate/up and down, C = 320 and 1280)
+               beside ``torch.bmm``; the SSD backward
                (dxh, ddt, da, dB, dC) in f32 (``fma``) and bf16 (``tc``)
                at ragged S (1 to 300, the 64-row tile's and the 128-row
                chunk's edges), G = 1, 2, 4, every state dim, P = 32, 64,
@@ -156,7 +178,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                flash_fwd 12, rmsnorm 22; per cache fill 4, 9; per decode
                round 8, 13; prefills and fill on ``tc_prefill``, rounds on
                ``split_decode``; the decode guard as in phase 10.
- 12. train MoE, SSM, hybrid, VLM, audio — after the earlier phases' memory
+ 12. serve the wide configs — after the earlier phases' memory is given
+               back, phase 4 (with the cross-slot guard) on full-width,
+               full-depth chatglm3-6b (28 layers, GQA 32:2, half-head RoPE,
+               QKV bias: 6.24 B parameters) and qwen2-7b (28 layers, 28:4,
+               QKV bias, θ 1e6: 7.62 B), each also decoding VLM_ROUNDS
+               rounds from its prefill step's cache under the decode guard
+               (its f32 copy, 25.0 and 30.5 GB, fits beside the bf16
+               weights); flash_fwd 28 and rmsnorm 57 launches per prefill
+               and per round. Then mixtral-8x22b at full width and 12 of
+               its 56 layers (30.45 B parameters, 60.9 GB, as much as
+               qwen3-moe's full depth; 8 experts top-2, 48:8, window 4096):
+               flash_fwd 12, rmsnorm 25, moe_gmm 36 per prefill and round,
+               prefills' gmm on ``tc_prefill``, rounds' on ``decode``; no
+               decode guard (past 256 tokens the forward drops tokens at
+               capacity and decode does not: ROADMAP C5); then
+               ``long_admission``: one 6,144-token prefill into an
+               8192-slot cache (4096-slot rings: the window cuts the
+               prefill's attention, the gmm runs at C = 1920, the ring
+               keeps positions 2048..6143 by ``_to_cache_slots``' roll) and
+               32 rounds that wrap the ring, finite logits, layer 0's K
+               ring against K recomputed from the normed embeddings at pos
+               % 4096 within RING_TOL of its largest value, a ring rolled
+               one slot failing that check. Last ``ring_guard_phase``:
+               gemma3-12b at 12 of 48 layers (two 5:1 groups, 4.70 B: the
+               decode guard's f32 copy of all 48 layers, 51 GB, does not
+               fit beside the bf16 weights, 18.8 GB of 12 does) through a
+               one-slot batcher of 2048 slots, a 1,536-token prompt past
+               its 1024-slot local rings and 64 rounds that wrap them,
+               under the decode guard (planted fault included).
+ 13. train MoE, SSM, hybrid, VLM, audio and the wide configs — after the
+               earlier phases' memory
                is given back, phase 5 on qwen3-moe-30b-a3b (full width, 4 of
                48 layers: 3.11 B parameters, ~50 GB of train state at 16
                bytes a parameter; the peak must stay within 72 GB), then
@@ -164,7 +216,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                peak within 75 GB), phi-3-vision-4.2b (16 of 32 layers: 2.01
                B parameters, ~32 GB of state; 576 patches before 1024
                tokens; within 72 GB) and whisper-tiny (full depth, 448
-               tokens against 1500 frames), each through
+               tokens against 1500 frames), chatglm3-6b (14 of 28 layers,
+               3.39 B, ~54 GB of state; within 74 GB), qwen2-7b (10 of 28,
+               3.42 B, ~55 GB; 74), mixtral-8x22b (1 of 56, 2.91 B, ~46.5
+               GB; 68: its dX and dW at C = 1280) and gemma3-12b (6 of 48,
+               one 5:1 group, 3.36 B, ~54 GB; 78; B=4, S=2048 in two
+               microbatches of 2, so its window of 1024 cuts the forward
+               and the backward), each through
                ``profile_train.setup(config=...)``. Per step, from remat
                over L layers and 2 microbatches: MoE moe_gmm 12·L,
                moe_gmm_dx 6·L, moe_gmm_dw 6·L and the flash kernels as the
@@ -180,11 +238,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                peak memory printed. Before each, a gradient guard: one
                microbatch's loss gradients through the kernels against the
                same through the plain versions of the family's kernels on
-               the card (the grouped GEMM's, the SSD scan's, or the flash
-               attention's and RMSNorm's), within GRAD_F32_TOL of their
+               the card (the grouped GEMM's, the SSD scan's, or, for the
+               dense, VLM and audio configs, the flash attention's and
+               RMSNorm's), within GRAD_F32_TOL of their
                norm in f32 and, in bf16, no farther from the f32 result
                than the plain versions' plus GUARD_TOL.
- 13. mesh    — after the earlier phases' memory is given back, the host
+ 14. mesh    — after the earlier phases' memory is given back, the host
                mesh (``launch.mesh.make_host_mesh``: a (1, 1) ("data",
                "model") DeviceMesh over NCCL in a world of one, from an
                in-process store) and phase 5's train step on it, the state
@@ -193,7 +252,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                reached through ``local_map``: 4 steps, then 4 with
                ``mesh=None`` from the same seed; every loss and every leaf
                must be bit-identical, the launches per step phase 5's.
-               Step 2 runs under ``torch.profiler`` for its device time;
+               Step 2 runs under ``torch.profiler`` for its device time
+               (its span between CUDA events if the profiler records none);
                the host ms of both runs are printed. Then int8 compression
                of step 1's f32 gradient tree (error feedback from a zero
                residual: deq + residual within one f32 ulp of each leaf's
@@ -207,7 +267,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                ROOFLINE_MAX); last, ``make_prefill_step`` at B=4, S=1024
                and MESH_DECODE_STEPS ``make_serve_step`` steps on the mesh,
                the same tokens and launches as with ``mesh=None``.
- 14. report  — the card's nvidia-smi line, one JSON line with every kernel's
+ 15. report  — the card's nvidia-smi line, one JSON line with every kernel's
                launches, error, times and bound, then
                ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -266,6 +326,17 @@ FLASH_VARIANT_CASES = [
     (2, 37, 37, 4, 2, 96, True, 0, None), (2, 300, 300, 4, 2, 256, True, 128, None),
     (8, 1, 300, 8, 1, 96, False, 0, DECODE_LENS), (8, 1, 300, 4, 2, 256, False, 0, DECODE_LENS),
     (2, 4, 300, 4, 2, 256, True, 0, [300, 65])]
+# GQA groups no case above has: decode at S = 1 against T = 300 at 28:4,
+# 32:2 and 48:8 (7, 16 and 6 rows a KV head: a dead row, two row groups,
+# two dead rows); 32:2 at S = 2 (32 rows: the split-KV kernel's edge) and S
+# = 3 (48 rows: the tensor-core prefill kernel); ragged prefill at 28:4; a
+# window in both regimes at 48:8
+FLASH_WIDE_CASES = [
+    (8, 1, 300, 28, 4, 128, False, 0, DECODE_LENS), (8, 1, 300, 32, 2, 128, False, 0, DECODE_LENS),
+    (8, 1, 300, 48, 8, 128, False, 0, DECODE_LENS), (2, 2, 300, 32, 2, 128, False, 0, [300, 77]),
+    (2, 3, 300, 32, 2, 128, True, 0, None), (2, 3, 300, 32, 2, 128, False, 0, [300, 129]),
+    (2, 37, 37, 28, 4, 128, True, 0, None), (2, 300, 300, 28, 4, 128, True, 0, None),
+    (2, 4, 300, 48, 8, 128, True, 2, [300, 150]), (2, 300, 300, 48, 8, 128, True, 64, None)]
 # the backward's: the JAX test cases, then every head dim with ragged S,
 # windows and GQA up to 8:1 (gemma3's 2:1 at D = 256 with a window), each in
 # f32 (the FMA kernels) and bf16 (the tensor-core kernels)
@@ -277,6 +348,9 @@ FLASH_BWD_CASES = [(128, 128, 4, 2, 32, True, 0), (128, 128, 4, 4, 64, True, 48)
                    (257, 257, 8, 1, 128, True, 0), (300, 300, 4, 2, 256, True, 128),
                    (65, 130, 8, 1, 256, False, 0), (3, 3, 4, 2, 128, True, 0),
                    (1, 40, 2, 1, 80, False, 0)]
+# and the dk/dv group sums of 7, 16 and 6 heads (a window at 48:8)
+FLASH_BWD_WIDE_CASES = [(300, 300, 28, 4, 128, True, 0), (129, 129, 32, 2, 128, True, 0),
+                        (300, 300, 48, 8, 128, True, 64)]
 # the grouped-GEMM cases of tests/test_kernels.py (E, C, D, F) and their
 # (atol, rtol); then tokens per expert at qwen3-moe-30b-a3b's widths: one
 # slot, a decode round of 8 slots, the least C of the tensor-core prefill
@@ -312,6 +386,15 @@ SSD_CHUNK = 256
 # offset) in bf16 where TMA cannot read, so the wmma tile serves: D, then F
 # no multiple of 8, a base one element past a 16-byte boundary
 GMM_BWD_C = (1, 8, 17, 40, 320)
+# mixtral-8x22b's experts (E, D, F): tokens per expert at one slot, a
+# decode round of 8 slots, a 512-token admission, a 1024-token one, a B=4 x
+# S=1024 prefill step or train microbatch, the 6,144-token admission (C =
+# round(T·2/8·1.25) past 256 tokens); the forward timed at C = 8 and 1280,
+# the backward checked at GMM_BWD_WIDE_C and timed at 1280
+GMM_WIDE = (8, 6144, 16384)
+GMM_WIDE_C = (1, 8, 160, 320, 1280, 1920)
+GMM_WIDE_TIMED = {"mixtral_decode": 8, "mixtral_prefill": 1280}
+GMM_BWD_WIDE_C = (8, 320, 1280)
 GMM_BWD_WMMA_CASES = [(3, 100, 200, 76, 0, 0), (4, 40, 2044, 768, 0, 0),
                       (4, 17, 768, 2048, 1, 0), (4, 40, 2048, 768, 0, 1)]
 # the SSD backward's (B, S, H, P, G, N): S ragged and at its 64-row tile's
@@ -327,7 +410,29 @@ TRAIN_STEPS = 4
 SSM_CONFIGS = ("mamba2-370m", "zamba2-2.7b")
 # trained after the serving phases, each at its profile_train.train_depth
 TRAIN_CONFIGS = ("qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-2.7b", "phi-3-vision-4.2b",
-                 "whisper-tiny")
+                 "whisper-tiny", "chatglm3-6b", "qwen2-7b", "mixtral-8x22b", "gemma3-12b")
+# served in phase 12 at full width, at these depths (None: all layers):
+# mixtral-8x22b's 12 of 56 layers hold 30.45 B parameters, 60.9 GB in bf16
+WIDE_SERVE = {"chatglm3-6b": None, "qwen2-7b": None, "mixtral-8x22b": 12}
+# the dense configs whose decode rounds from the prefill step's cache (as
+# many as a VLM's) go under the decode guard: half-head RoPE, the QKV bias
+# and GQA 16:1 and 7:1 in decode
+DECODE_GUARDED = ("chatglm3-6b", "qwen2-7b")
+# mixtral-8x22b's long admission: a prompt of LONG_PROMPT tokens into a
+# cache of LONG_MAX_LEN slots, so that each layer's ring holds its window of
+# 4096 and the prompt's first 2048 positions fall out of it; then
+# LONG_ROUNDS decode rounds, which write around the ring
+LONG_CONFIG = "mixtral-8x22b"
+LONG_PROMPT, LONG_MAX_LEN, LONG_ROUNDS = 6144, 8192, 32
+# gemma3-12b's ring guard: a cut of 12 of its 48 layers (two 5:1 groups,
+# 4.70 B parameters) through a one-slot batcher of RING_MAX_LEN slots, one
+# request of RING_PROMPT tokens (past the local layers' ring of 1024) and
+# RING_ROUNDS decode rounds
+RING_LAYERS, RING_PROMPT, RING_ROUNDS, RING_MAX_LEN = 12, 1536, 64, 2048
+RING_TOL = 2e-2                                   # a ring's K rows, of their largest
+# the cases added for those configs' shapes draw from a generator of their
+# own, seeded here, so that every case before them keeps its draws
+WIDE_SEED = 3
 MOE_CONFIG = "qwen3-moe-30b-a3b"
 GEMMA3_CONFIG = "gemma3-12b"
 VLM_CONFIG = "phi-3-vision-4.2b"
@@ -366,6 +471,22 @@ FLASH_PATHS = {
     "phi3v_decode": (4, 1, 1632, 32, 32, 96, False, 0, (1601, 1632)),
     "phi3v_burst_decode": (8, 1, 2048, 32, 32, 96, False, 0, (1, 2048)),
 }
+# chatglm3-6b: 32 query and 2 KV heads of 128; qwen2-7b: 28 and 4;
+# mixtral-8x22b: 48 and 8, a window of 4096 (at S = 1024 it cuts nothing;
+# its decode attends a ring as a full cache, with no window), its long
+# admission (S = T = 6144: the window cuts every row past 4096) and a round
+# after it (every one of the ring's 4096 slots valid)
+FLASH_WIDE_PATHS = {
+    "chatglm3_prefill": (4, 1024, 1024, 32, 2, 128, True, 0, None),
+    "chatglm3_decode": (8, 1, 2048, 32, 2, 128, False, 0, (1, 2048)),
+    "qwen2_prefill": (4, 1024, 1024, 28, 4, 128, True, 0, None),
+    "qwen2_decode": (8, 1, 2048, 28, 4, 128, False, 0, (1, 2048)),
+    "mixtral_prefill": (4, 1024, 1024, 48, 8, 128, True, 4096, None),
+    "mixtral_decode": (8, 1, 2048, 48, 8, 128, False, 0, (1, 2048)),
+    "mixtral_long_prefill": (1, 6144, 6144, 48, 8, 128, True, 4096, None),
+    "mixtral_ring_decode": (1, 1, 4096, 48, 8, 128, False, 0, (4096, 4096)),
+}
+FLASH_PATHS.update(FLASH_WIDE_PATHS)
 # the CWS-scheduled train launch: full-width qwen1.5-0.5b in one microbatch
 # of 8 x 1024, a checkpoint task every 4 steps, profile_train's dense peak
 # learning rate (the launch's own 3e-3 is untried at this width)
@@ -387,6 +508,12 @@ BWD_PATHS = {"train": (4, 1024, 1024, 16, 16, 64, True, 0),
              "whisper_self": (4, 448, 448, 6, 6, 64, True, 0),
              "whisper_cross": (4, 448, 1500, 6, 6, 64, False, 0),
              "phi3v": (4, 1600, 1600, 32, 32, 96, True, 0)}
+# chatglm3-6b's and qwen2-7b's train microbatch, and a gemma3-12b local
+# layer at its train shape (S = 2048: the window cuts every row past 1024)
+BWD_WIDE_PATHS = {"chatglm3": (4, 1024, 1024, 32, 2, 128, True, 0),
+                  "qwen2": (4, 1024, 1024, 28, 4, 128, True, 0),
+                  "gemma3_local_2k": (2, 2048, 2048, 16, 8, 256, True, 1024)}
+BWD_PATHS.update(BWD_WIDE_PATHS)
 
 
 def fail(msg: str) -> None:
@@ -415,6 +542,7 @@ def compare_tiles(name, got, want, tile=64) -> float:
     along the sequence, so a late tile gone wrong stands out here."""
     import torch.nn.functional as F
     B, S, H, D = want.shape
+    tile = min(tile, S)    # S under a tile (a gmm's 8 experts): one tile, no padding
     pad = -S % tile        # zero rows add nothing to either norm
     g, w = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(B, -1, tile, H, D)
             for t in (got, want))
@@ -511,10 +639,17 @@ def rmsnorm_phase(gen):
                      "gemma3_prefill": (4 * 1024, 3840), "gemma3_decode": (8, 3840),
                      "whisper_encoder": (4 * 1500, 384), "whisper_decode": (8, 384),
                      "phi3v_prefill": (4 * 1600, 3072), "phi3v_decode": (4, 3072)}
+    # then chatglm3-6b's, qwen2-7b's and mixtral-8x22b's prefill step and
+    # decode round, from their own generator
+    wide = torch.Generator("cuda").manual_seed(WIDE_SEED)
+    wide_by_path = {"chatglm3_prefill": (4 * 1024, 4096), "chatglm3_decode": (8, 4096),
+                    "qwen2_prefill": (4 * 1024, 3584), "qwen2_decode": (8, 3584),
+                    "mixtral_prefill": (4 * 1024, 6144), "mixtral_decode": (8, 6144)}
     timed = {}
-    for path, (rows, d) in shape_by_path.items():
-        x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
-        s = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
+    for path, (rows, d), g in [(p, shape, gen) for p, shape in shape_by_path.items()] + \
+            [(p, shape, wide) for p, shape in wide_by_path.items()]:
+        x = torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)
+        s = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(torch.bfloat16)
         err = compare(f"rmsnorm {path} ({rows}, {d})", rmsnorm_cuda(x, s),
                       rmsnorm_plain(x, s), TOL["bfloat16"])
         worst = max(worst, err)
@@ -568,16 +703,23 @@ def flash_phase(gen):
     worst = 0.0
     ops.reset_launch_counts()
     want = {"tc_prefill": 0, "split_decode": 0, "fma": 0}
+    wide = torch.Generator("cuda").manual_seed(WIDE_SEED)
 
-    def randn(*shape, dt):
-        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    def randn(*shape, dt, g=gen):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
 
     for dt in (torch.float32, torch.bfloat16):
-        cases = [(2, S, T, Hq, Hkv, D, c, w, None) for (S, T, Hq, Hkv, D, c, w) in FLASH_CASES]
-        cases += [(*shape, _spread(shape[0], lens)) for (*shape, lens) in FLASH_PATHS.values()]
-        for (B, S, T, Hq, Hkv, D, causal, window, lens) in cases + FLASH_VARIANT_CASES:
-            q, k, v = randn(B, S, Hq, D, dt=dt), randn(B, T, Hkv, D, dt=dt), \
-                randn(B, T, Hkv, D, dt=dt)
+        cases = [(gen, 2, S, T, Hq, Hkv, D, c, w, None)
+                 for (S, T, Hq, Hkv, D, c, w) in FLASH_CASES]
+        cases += [(gen, *shape, _spread(shape[0], lens))
+                  for path, (*shape, lens) in FLASH_PATHS.items() if path not in FLASH_WIDE_PATHS]
+        cases += [(gen, *case) for case in FLASH_VARIANT_CASES]
+        cases += [(wide, *shape, _spread(shape[0], lens))
+                  for (*shape, lens) in FLASH_WIDE_PATHS.values()]
+        cases += [(wide, *case) for case in FLASH_WIDE_CASES]
+        for (g, B, S, T, Hq, Hkv, D, causal, window, lens) in cases:
+            q, k, v = randn(B, S, Hq, D, dt=dt, g=g), randn(B, T, Hkv, D, dt=dt, g=g), \
+                randn(B, T, Hkv, D, dt=dt, g=g)
             kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                             device="cuda")
             err, variant = _flash_check(f"flash {(B, S, T, Hq, Hkv, D, causal, window)} {dt}",
@@ -617,7 +759,8 @@ def flash_phase(gen):
         fail("flash: a misaligned bf16 view was not refused")
     print(f"flash: checked cases by variant {want}")
 
-    timed = {path: _flash_path(path, gen, *spec) for path, spec in FLASH_PATHS.items()}
+    timed = {path: _flash_path(path, wide if path in FLASH_WIDE_PATHS else gen, *spec)
+             for path, spec in FLASH_PATHS.items()}
     for t in timed.values():
         worst = max(worst, t["max_abs_err"])
     return worst, timed
@@ -640,20 +783,20 @@ def _flash_path(path, gen, B, S, T, Hq, Hkv, D, causal, window, lens):
     """The forward kernel at one FLASH_PATHS shape (bf16): checked against
     the plain version, device times of kernel, plain and SDPA, wrapper time
     and the bound. A causal path is a prefill (a window of at least S
-    changes nothing, so SDPA's causal call computes the same); a
-    non-causal one attends to each row's kv_len keys (``_spread(B, lens)``)
-    or, with none, to all T."""
+    changes nothing, so SDPA's causal call computes the same; a narrower
+    one goes to SDPA as a band mask); a non-causal one attends to each
+    row's kv_len keys (``_spread(B, lens)``) or, with none, to all T."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_plain)
+        _mask, flash_attention_cuda, flash_attention_plain)
     from repro_torch.launch.kernel_times import device_ms, wrapper_ms
     bf16 = torch.bfloat16
     q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").to(bf16)
     k, v = (torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(bf16)
             for _ in range(2))
-    if (causal and lens is not None) or (window and not (causal and window >= S)):
-        fail(f"flash {path}: SDPA takes no window below S, and its causal call no kv_len")
+    if (causal and lens is not None) or (window and not causal):
+        fail(f"flash {path}: a causal path takes no kv_len, a non-causal one no window")
     kv_len = None if lens is None else torch.tensor(_spread(B, lens), dtype=torch.int32,
                                                     device="cuda")
     shape = (f"B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} "
@@ -675,7 +818,12 @@ def _flash_path(path, gen, B, S, T, Hq, Hkv, D, causal, window, lens):
                        4.0 * D * pairs, PEAK_BF16_FLOPS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = {"enable_gqa": True} if Hq != Hkv else {}
-    if kv_len is None:
+    if window and window < S:
+        band = _mask(S, T, causal, window, "cuda")
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, **gqa)
+    elif kv_len is None:
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)
     else:
@@ -702,8 +850,11 @@ def gmm_phase(gen):
     (f32 and bf16, tests/test_kernels.py's tolerances), ragged C at
     qwen3-moe-30b-a3b's widths and a D/F of no tile's width (f32 and bf16),
     the bf16 cases that TMA cannot read (GMM_WMMA_CASES: a misaligned base,
-    D or F no multiple of 8), and the main-path shapes of one MoE layer
-    (bf16, gate/up and down at C = 8, 40, 256, 320), which are also timed.
+    D or F no multiple of 8), the main-path shapes of one MoE layer
+    (bf16, gate/up and down at C = 8, 40, 256, 320), which are also timed,
+    and mixtral-8x22b's (bf16, GMM_WIDE at GMM_WIDE_C, timed at
+    GMM_WIDE_TIMED: the decode round's, bound by reading w, and the prefill
+    step's, bound by its operations).
     Every launch's variant must be the one ``_variant`` names for its shape
     and bases: each bf16 launch with C > 16 on ``tc_prefill``, but those of
     GMM_WMMA_CASES, which must all be on ``wmma``."""
@@ -756,6 +907,19 @@ def gmm_phase(gen):
             err = check(f"moe_gmm {path} {part}", buf, w, TOL["bfloat16"])
             worst = max(worst, err)
             paths[f"{path}_{part}"] = (buf, w, err)
+    # mixtral-8x22b's widths (bf16, their own generator): one w a part for
+    # every C; those of GMM_WIDE_TIMED timed with the rest
+    wide = torch.Generator("cuda").manual_seed(WIDE_SEED)
+    E, D, F = GMM_WIDE
+    for part, (d_in, d_out) in (("gate_up", (D, F)), ("down", (F, D))):
+        w = (d_in ** -0.5 * torch.randn(E, d_in, d_out, generator=wide, device="cuda")).bfloat16()
+        for C in GMM_WIDE_C:
+            buf = torch.randn(E, C, d_in, generator=wide, device="cuda").bfloat16()
+            err = check(f"moe_gmm mixtral {part} {(E, C, d_in, d_out)}", buf, w, TOL["bfloat16"])
+            worst = max(worst, err)
+            paths.update({f"{path}_{part}": (buf, w, err)
+                          for path, c in GMM_WIDE_TIMED.items() if c == C})
+        del w, buf
     got = ops.moe_gmm_variant_counts()
     if got != want or got["wmma"] != len(GMM_WMMA_CASES):
         fail(f"moe_gmm launches by variant {got}, expected {want} with "
@@ -852,10 +1016,11 @@ def ssd_phase(gen):
 
 def gmm_bwd_phase(gen):
     """The grouped GEMM's dX and dW kernels against ``moe_gmm_bwd_plain``,
-    f32 and bf16: GMM_BWD_C at qwen3-moe's widths (gate/up), D/F of no
-    tile's width and a misaligned base (GMM_BWD_WMMA_CASES, bf16), then the
-    train microbatch's gate/up and down at C = 320, also held per 64-row
-    tile and timed (beside ``torch.bmm`` of the same product). Tolerance:
+    f32 and bf16: GMM_BWD_C at qwen3-moe's widths and GMM_BWD_WIDE_C at
+    mixtral-8x22b's (gate/up), D/F of no tile's width and a misaligned base
+    (GMM_BWD_WMMA_CASES, bf16), then each config's train microbatch, gate/up
+    and down (C = 320 and 1280), also held per 64-row tile and timed
+    (beside ``torch.bmm`` of the same product). Tolerance:
     TOL relative and TOL of the largest |value| (the products sum F or C
     terms in another order). Every launch on the variant ``_bwd_variant``
     names: bf16 on ``tc`` but GMM_BWD_WMMA_CASES, on ``wmma``."""
@@ -885,8 +1050,8 @@ def gmm_bwd_phase(gen):
             if tiles is not None:
                 tiles[kern] = compare_tiles(f"{name} {kern}", g[None], p[None])
 
-    def randn(*shape, std=1.0):
-        return std * torch.randn(shape, generator=gen, device="cuda")
+    def randn(*shape, std=1.0, g=gen):
+        return std * torch.randn(shape, generator=g, device="cuda")
 
     ops.reset_launch_counts()
     for C in GMM_BWD_C:
@@ -894,6 +1059,13 @@ def gmm_bwd_phase(gen):
             check(f"moe_gmm bwd C={C} {dt}", randn(MOE_E, C, MOE_D).to(dt),
                   randn(MOE_E, MOE_D, MOE_F, std=MOE_D ** -0.5).to(dt),
                   randn(MOE_E, C, MOE_F).to(dt))
+    # mixtral-8x22b's widths (gate/up), from their own generator
+    wide = torch.Generator("cuda").manual_seed(WIDE_SEED)
+    E, D, F = GMM_WIDE
+    for C in GMM_BWD_WIDE_C:
+        for dt in (torch.float32, torch.bfloat16):
+            check(f"moe_gmm bwd mixtral C={C} {dt}", randn(E, C, D, g=wide).to(dt),
+                  randn(E, D, F, std=D ** -0.5, g=wide).to(dt), randn(E, C, F, g=wide).to(dt))
     for (E, C, D, F, x_off, w_off) in GMM_BWD_WMMA_CASES:
         buf = randn(x_off + E * C * D).bfloat16()[x_off:].view(E, C, D)
         dy = randn(x_off + E * C * F).bfloat16()[x_off:].view(E, C, F)
@@ -901,10 +1073,16 @@ def gmm_bwd_phase(gen):
         check(f"moe_gmm bwd wmma {(E, C, D, F)} offsets {(x_off, w_off)}", buf, w, dy,
               tma=False)
     inputs, tile_rel = {}, {}
-    for part, (D, F) in (("train_gate_up", (MOE_D, MOE_F)), ("train_down", (MOE_F, MOE_D))):
-        E, C = MOE_E, MOE_TRAIN_C
-        inputs[part] = (randn(E, C, D).bfloat16(), randn(E, D, F, std=D ** -0.5).bfloat16(),
-                        randn(E, C, F).bfloat16())
+    # the train microbatch's (C = round(4096·K/E·1.25)): qwen3-moe-30b-a3b's
+    # from the shared generator, then mixtral-8x22b's from its own
+    wE, wD, wF = GMM_WIDE
+    for part, (E, C, D, F, g) in (
+            ("train_gate_up", (MOE_E, MOE_TRAIN_C, MOE_D, MOE_F, gen)),
+            ("train_down", (MOE_E, MOE_TRAIN_C, MOE_F, MOE_D, gen)),
+            ("mixtral_train_gate_up", (wE, GMM_BWD_WIDE_C[-1], wD, wF, wide)),
+            ("mixtral_train_down", (wE, GMM_BWD_WIDE_C[-1], wF, wD, wide))):
+        inputs[part] = (randn(E, C, D, g=g).bfloat16(),
+                        randn(E, D, F, std=D ** -0.5, g=g).bfloat16(), randn(E, C, F, g=g).bfloat16())
         tile_rel[part] = {}
         check(f"moe_gmm bwd {part}", *inputs[part], tiles=tile_rel[part])
     got = ops.moe_gmm_bwd_variant_counts()
@@ -1148,17 +1326,19 @@ def _serving_model(cfg):
     return model, params
 
 
-def vlm_replay(model, params, tokens, patches, fed, shift=0):
-    """A VLM's decode, teacher-forced: the prefill of ``patches`` and
-    ``tokens`` (B, S), then ``fed`` (B, R) by decode steps at positions
-    n_patches + S + r + ``shift`` → their logits (R, B, V). ``shift`` 1
-    plants a fault in the cache offset: each step writes and reads one slot
-    past its position, the slot skipped stays empty, and RoPE turns one
-    position too far."""
+def prefill_replay(model, params, tokens, patches, fed, shift=0):
+    """Decode from a prefill's cache, teacher-forced: the prefill of
+    ``tokens`` (B, S), after a VLM's ``patches`` (None for a text model),
+    then ``fed`` (B, R) by decode steps at positions n_patches + S + r +
+    ``shift`` → their logits (R, B, V). ``shift`` 1 plants a fault in the
+    cache offset: each step writes and reads one slot past its position,
+    the slot skipped stays empty, and RoPE turns one position too far."""
     import torch
     B, S = tokens.shape
-    R, n = fed.shape[1], model.cfg.vision.n_patches
-    _, cache = model.prefill(params, tokens, n + S + R + shift, {"patches": patches})
+    R = fed.shape[1]
+    n = 0 if patches is None else model.cfg.vision.n_patches
+    extra = None if patches is None else {"patches": patches}
+    _, cache = model.prefill(params, tokens, n + S + R + shift, extra)
     logits = []
     for r in range(R):
         out, cache = model.decode_step(params, cache, fed[:, r], n + S + r + shift)
@@ -1166,14 +1346,16 @@ def vlm_replay(model, params, tokens, patches, fed, shift=0):
     return torch.stack(logits)
 
 
-def vlm_forward(model, params, tokens, patches, fed):
-    """The teacher-forced forward over ``patches``, ``tokens`` and ``fed``:
-    its logits at text positions S .. S + R - 1 (R, B, V), those that
-    ``vlm_replay``'s decode steps give."""
+def prefill_forward(model, params, tokens, patches, fed):
+    """The teacher-forced forward over ``patches`` (if any), ``tokens`` and
+    ``fed``: its logits at text positions S .. S + R - 1 (R, B, V), those
+    that ``prefill_replay``'s decode steps give."""
     import torch
     S, R = tokens.shape[1], fed.shape[1]
-    forward, _ = model.logits(params, {"tokens": torch.cat([tokens, fed], dim=1),
-                                       "patches": patches}, remat="none")
+    batch = {"tokens": torch.cat([tokens, fed], dim=1)}
+    if patches is not None:
+        batch["patches"] = patches
+    forward, _ = model.logits(params, batch, remat="none")
     return forward[:, S:S + R].transpose(0, 1)
 
 
@@ -1255,7 +1437,12 @@ def decode_guard(name, model, params, decode_logits, replay, forward):
     return out
 
 
-def serve_phase(config="qwen1.5-0.5b"):
+def serve_phase(config="qwen1.5-0.5b", layers=None):
+    """``config`` served on the card at full width (``layers`` of its layers,
+    or all): the prefill step, a VLM's or a DECODE_GUARDED config's decode
+    rounds from its cache, the burst; launches, variants, the guards; for
+    LONG_CONFIG then ``long_admission``. → (the main path's launches, per
+    prefill, per decode round)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1267,12 +1454,16 @@ def serve_phase(config="qwen1.5-0.5b"):
     from repro_torch.runtime.serve import greedy_decode, make_prefill_step
 
     cfg = get_config(config)
+    if layers is not None:
+        cfg = cfg.scaled(n_layers=layers)
     model, params = _serving_model(cfg)
     B, S = 4, 1024
     # a VLM's prefill step: 576 patch rows (f32 from synthetic_extras, cast
     # by the model) before the 1024 tokens, in a cache with room for
-    # VLM_ROUNDS decode rounds after them
-    rounds_after = VLM_ROUNDS if cfg.family == "vlm" else 0
+    # VLM_ROUNDS decode rounds after them (a DECODE_GUARDED config's: the
+    # tokens alone, then as many rounds)
+    rounds_after = VLM_ROUNDS if cfg.family == "vlm" or config in DECODE_GUARDED else 0
+    n_patches = cfg.vision.n_patches if cfg.family == "vlm" else 0
     step, _, _ = make_prefill_step(model, ShapeConfig("prefill_1k", S + rounds_after, B, "prefill"))
     tokens = torch.randint(2, cfg.vocab, (B, S), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(1))
@@ -1292,10 +1483,10 @@ def serve_phase(config="qwen1.5-0.5b"):
     prefill_ms = (time.perf_counter() - t0) * 1e3
     if rounds_after:
         t0 = time.perf_counter()
-        vlm_logits, vlm_fed = greedy_decode(model, params, cache, nxt[:, None],
-                                            cfg.vision.n_patches + S, rounds_after)
+        guard_logits, guard_fed = greedy_decode(model, params, cache, nxt[:, None],
+                                                n_patches + S, rounds_after)
         torch.cuda.synchronize()
-        vlm_s = time.perf_counter() - t0
+        rounds_s = time.perf_counter() - t0
     served = serve_workload.run(model, params, smoke=False, seed=0)
     launches = ops.launch_counts()
     variants = ops.flash_variant_counts()
@@ -1359,12 +1550,11 @@ def serve_phase(config="qwen1.5-0.5b"):
         fail(f"{cfg.name}: ssd_scan variants {ssd_variants} launched without an SSM")
     tok_s = served["tokens"] / served["seconds"]
     print(f"prefill step B={B} S={S}"
-          f"{f' after {cfg.vision.n_patches} patch rows' if rounds_after else ''}: "
-          f"{prefill_ms:.3f} ms")
+          f"{f' after {n_patches} patch rows' if n_patches else ''}: {prefill_ms:.3f} ms")
     if rounds_after:
         print(f"{rounds_after} greedy decode rounds from the prefill's cache (B={B}, from "
-              f"position {cfg.vision.n_patches + S}): {vlm_s:.3f} s, "
-              f"{B * rounds_after / vlm_s:.1f} tokens/s")
+              f"position {n_patches + S}): {rounds_s:.3f} s, "
+              f"{B * rounds_after / rounds_s:.1f} tokens/s")
     print(f"served {served['served']} requests, {served['tokens']} tokens in "
           f"{served['seconds']:.3f} s: {tok_s:.1f} generated tokens/s "
           f"({served['engine_steps']} engine rounds, prefills included)")
@@ -1378,17 +1568,197 @@ def serve_phase(config="qwen1.5-0.5b"):
     if cfg.family in ("ssm", "hybrid"):
         state_guard(model, params)
     if rounds_after:
-        patches = args["patches"]
-        decode_guard(f"{cfg.name} decode from the prefill's cache", model, params, vlm_logits,
-                     lambda m, p, shift: vlm_replay(m, p, tokens, patches, vlm_fed, shift),
-                     lambda m, p: vlm_forward(m, p, tokens, patches, vlm_fed))
+        patches = args.get("patches")
+        decode_guard(f"{cfg.name} decode from the prefill's cache", model, params, guard_logits,
+                     lambda m, p, shift: prefill_replay(m, p, tokens, patches, guard_fed, shift),
+                     lambda m, p: prefill_forward(m, p, tokens, patches, guard_fed))
 
     print(f"launches: main path {launches} over {prefills} prefills and {rounds} "
           f"decode rounds; per prefill {per_prefill}, per decode round {per_round}")
     launches["flash_fwd_variants"] = variants
     launches["moe_gmm_variants"] = gmm_variants
     launches["ssd_scan_variants"] = ssd_variants
+    if config == LONG_CONFIG:
+        del served, batcher, cache
+        launches["long_admission"] = long_admission(model, params)
     return launches, per_prefill, per_round
+
+
+def long_admission(model, params):
+    """LONG_CONFIG's long admission (phase 12): ``Model.prefill`` of
+    LONG_PROMPT tokens into a cache of LONG_MAX_LEN slots, so that each
+    layer's ring holds its window of 4096 slots: the prefill's attention
+    runs with the window cutting every row past 4096, its grouped GEMM at C
+    = 1920, and the cache keeps the last 4096 positions through
+    ``_to_cache_slots``' roll; then LONG_ROUNDS greedy rounds, each written
+    at pos % 4096. Launches: one prefill and LONG_ROUNDS equal rounds of
+    ``expected_launches``, the prefill's on ``tc_prefill``, the rounds' on
+    ``split_decode`` and the gmm's ``decode``. The logits must be finite,
+    and layer 0's K ring after the prefill must equal K recomputed from the
+    normed embeddings (``_roped_qkv``) at each kept position's slot pos %
+    4096, within RING_TOL of the largest value, where the same ring rolled
+    one slot must not. → the path's launches and readings."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.kernel_times import device_ms
+    from repro_torch.models.transformer import _roped_qkv, embed_inputs, unstack
+    from repro_torch.runtime.serve import greedy_decode
+
+    cfg = model.cfg
+    tokens = torch.randint(2, cfg.vocab, (1, LONG_PROMPT), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(4))
+
+    # ---- the main path: counts from 0, read right after ----
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, tokens, LONG_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    per_prefill = ops.launch_counts()
+    ring = cache["window"]["k"][0, 0, 0].clone()           # layer 0 after the prefill
+    t0 = time.perf_counter()
+    rounds, _ = greedy_decode(model, params, cache, logits.argmax(-1)[:, None], LONG_PROMPT,
+                              LONG_ROUNDS)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    variants = {"flash_fwd": ops.flash_variant_counts(), "moe_gmm": ops.moe_gmm_variant_counts()}
+    # ---- end of the main path ----
+
+    if not (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(rounds).all())):
+        fail(f"{cfg.name} long admission: non-finite logits")
+    want_prefill, want_round = expected_launches(cfg)
+    launches = {k: n for k, n in launches.items() if n}
+    per_prefill = {k: n for k, n in per_prefill.items() if n}
+    per_round = {k: (n - per_prefill.get(k, 0)) // LONG_ROUNDS for k, n in launches.items()}
+    if per_prefill != want_prefill or per_round != want_round or \
+            any((n - per_prefill.get(k, 0)) % LONG_ROUNDS for k, n in launches.items()):
+        fail(f"{cfg.name} long admission: launches {launches}, {per_prefill} in the prefill; "
+             f"expected {want_prefill} and {LONG_ROUNDS} rounds of {want_round}")
+    want_variants = {
+        "flash_fwd": {"tc_prefill": want_prefill["flash_fwd"],
+                      "split_decode": LONG_ROUNDS * want_round["flash_fwd"], "fma": 0},
+        "moe_gmm": {"tc_prefill": want_prefill["moe_gmm"],
+                    "decode": LONG_ROUNDS * want_round["moe_gmm"], "wmma": 0, "fma": 0}}
+    if variants != want_variants:
+        fail(f"{cfg.name} long admission: variants {variants}, expected {want_variants}")
+
+    # layer 0's K over the prompt, recomputed; the ring keeps its last
+    # ``slots`` positions, each at pos % slots
+    p0 = unstack(params["blocks"])[0][0]
+    h = ops.rmsnorm(embed_inputs(cfg, params, tokens), p0["ln1"], cfg.norm_eps)
+    _, k, _ = _roped_qkv(cfg, p0["attn"], h, torch.arange(LONG_PROMPT, device="cuda")[None])
+    slots = ring.shape[0]
+    kept = torch.arange(LONG_PROMPT - slots, LONG_PROMPT, device="cuda")
+    want = torch.zeros_like(ring)
+    want[kept % slots] = k[0, kept]
+    tol = RING_TOL * float(want.float().abs().max())
+    err = compare(f"{cfg.name} long admission: layer 0's K ring", ring, want, tol, 0.0)
+    planted = float((torch.roll(ring, 1, dims=0).float() - want.float()).abs().max())
+    # the same path again, for its device time (the profiler slows the host)
+    busy = {"prefill_ms": device_ms(lambda: model.prefill(params, tokens, LONG_MAX_LEN),
+                                    iters=1, warmup=0),
+            "rounds_ms": device_ms(lambda: greedy_decode(
+                model, params, cache, logits.argmax(-1)[:, None], LONG_PROMPT, LONG_ROUNDS),
+                iters=1, warmup=0)}
+    busy["idle_share"] = 1 - (busy["prefill_ms"] + busy["rounds_ms"]) / (prefill_ms
+                                                                        + decode_s * 1e3)
+    print(f"{cfg.name} long admission ({LONG_PROMPT} tokens, {slots}-slot rings, "
+          f"{LONG_MAX_LEN}-slot cache): prefill {prefill_ms:.3f} ms; {LONG_ROUNDS} rounds "
+          f"{decode_s:.3f} s, {LONG_ROUNDS / decode_s:.2f} tokens/s; device busy "
+          f"{json.dumps(busy)}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+          f"layer 0's K ring max abs err {err:.3g}, rolled one slot {planted:.3g} (tol "
+          f"{tol:.3g}); launches {launches}, per prefill {per_prefill}, variants {variants}")
+    if not planted > tol:
+        fail(f"{cfg.name} long admission: a ring rolled one slot is only {planted:.3g} "
+             f"from the recomputed K rows: within the check's tol {tol:.3g}")
+    return {"launches": launches, "per_prefill": want_prefill, "per_round": want_round,
+            "by_variant": variants, "prefill_ms": prefill_ms, "round_s": decode_s / LONG_ROUNDS,
+            "busy": busy, "ring_max_abs_err": err, "ring_rolled_one_slot_err": planted}
+
+
+def ring_guard_phase():
+    """Phase 12's ring guard: gemma3-12b cut to RING_LAYERS of its 48
+    layers at full width (two 5:1 groups, 4.70 B parameters: the guard's
+    f32 copy takes 18.8 GB beside the 9.4 GB of bf16 weights, where all 48
+    layers' would take 51 GB and do not fit), through a one-slot
+    ``ContinuousBatcher`` of RING_MAX_LEN slots: one request of RING_PROMPT
+    tokens, whose admission overfills the local layers' 1024-slot rings,
+    then RING_ROUNDS decode rounds, which wrap them. Launches: one prefill
+    and RING_ROUNDS equal rounds of ``expected_launches``, on
+    ``tc_prefill`` and ``split_decode``. Then the decode guard over the
+    rounds' logits, as phase 10's. → the path's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.kernel_times import device_ms
+    from repro_torch.runtime.serve import ContinuousBatcher, Request
+
+    cfg = get_config(GEMMA3_CONFIG).scaled(n_layers=RING_LAYERS)
+    model, params = _serving_model(cfg)
+    prompt = torch.randint(2, cfg.vocab, (RING_PROMPT,), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(5)).tolist()
+    batcher = ContinuousBatcher(model, params, batch_slots=1, max_len=RING_MAX_LEN,
+                                eos_token=-1)                  # every round runs
+    req = Request("ring", prompt, max_new_tokens=RING_ROUNDS)
+    rounds = []
+    decode = model.decode_step
+
+    def recording(*args):   # each round's logits, for the guard
+        out, cache = decode(*args)
+        rounds.append(out)
+        return out, cache
+
+    # ---- the main path: counts from 0, read right after ----
+    ops.reset_launch_counts()
+    model.decode_step = recording
+    try:
+        t0 = time.perf_counter()
+        batcher.submit(req)
+        batcher.drain()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        del model.decode_step
+    launches = ops.launch_counts()
+    variants = ops.flash_variant_counts()
+    # ---- end of the main path ----
+
+    logits = torch.stack(rounds)                               # (R, 1, V)
+    if (batcher.prefills, batcher.steps, len(req.tokens_out)) != (1, RING_ROUNDS, RING_ROUNDS) \
+            or not batcher.all_logits_finite():
+        fail(f"{cfg.name} ring: {batcher.prefills} prefills, {batcher.steps} rounds, "
+             f"{len(req.tokens_out)} tokens, finite {batcher.all_logits_finite()}")
+    want_prefill, want_round = expected_launches(cfg)
+    want = {k: want_prefill[k] + RING_ROUNDS * want_round[k] for k in want_prefill}
+    if {k: n for k, n in launches.items() if n} != want:
+        fail(f"{cfg.name} ring: launches {launches}, expected {want}")
+    want_variants = {"tc_prefill": want_prefill["flash_fwd"],
+                     "split_decode": RING_ROUNDS * want_round["flash_fwd"], "fma": 0}
+    if variants != want_variants:
+        fail(f"{cfg.name} ring: flash variants {variants}, expected {want_variants}")
+
+    def again():   # the same path, for its device time (the profiler slows the host)
+        b = ContinuousBatcher(model, params, batch_slots=1, max_len=RING_MAX_LEN, eos_token=-1)
+        b.submit(Request("ring", prompt, max_new_tokens=RING_ROUNDS))
+        b.drain()
+
+    busy_ms = device_ms(again, iters=1, warmup=0)
+    print(f"{cfg.name} ring ({RING_LAYERS} layers): a {RING_PROMPT}-token prompt and "
+          f"{RING_ROUNDS} rounds through a one-slot batcher in {seconds:.3f} s, "
+          f"{RING_ROUNDS / seconds:.2f} tokens/s; device busy {busy_ms:.3f} ms, idle "
+          f"{1 - busy_ms / (seconds * 1e3):.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+          f"{launches}, variants {variants}")
+    tokens = torch.tensor([prompt[:-1]], device="cuda")
+    fed = torch.tensor([[prompt[-1]] + req.tokens_out[:-1]], device="cuda")
+    out = decode_guard(f"{cfg.name} ({RING_LAYERS} layers) ring decode through the batcher",
+                       model, params, logits,
+                       lambda m, p, shift: prefill_replay(m, p, tokens, None, fed, shift),
+                       lambda m, p: prefill_forward(m, p, tokens, None, fed))
+    return {"launches": launches, "per_prefill": want_prefill, "per_round": want_round,
+            "by_variant": variants, "seconds": seconds, "busy_ms": busy_ms,
+            "decode_guard": out}
 
 
 def expected_audio_launches(cfg):
@@ -1510,14 +1880,14 @@ def flash_bwd_phase(gen):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
-        _delta, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        _delta, _mask, flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
     from repro_torch.launch.kernel_times import device_ms, wrapper_ms
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}   # each kernel's own outputs
     tile_rel = {}
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
+    def randn(*shape, g=gen):
+        return torch.randn(shape, generator=g, device="cuda")
 
     def check(name, q, k, v, do, causal, window, tol, tiles=None):
         o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -1532,13 +1902,16 @@ def flash_bwd_phase(gen):
         return o, lse
 
     ops.reset_launch_counts()
-    for (S, T, Hq, Hkv, D, causal, window) in FLASH_BWD_CASES:
+    wide = torch.Generator("cuda").manual_seed(WIDE_SEED)
+    cases = [(gen, case) for case in FLASH_BWD_CASES] + \
+        [(wide, case) for case in FLASH_BWD_WIDE_CASES]
+    for g, (S, T, Hq, Hkv, D, causal, window) in cases:
         for dt in (torch.float32, torch.bfloat16):
-            q, do = randn(2, S, Hq, D).to(dt), randn(2, S, Hq, D).to(dt)
-            k, v = randn(2, T, Hkv, D).to(dt), randn(2, T, Hkv, D).to(dt)
+            q, do = randn(2, S, Hq, D, g=g).to(dt), randn(2, S, Hq, D, g=g).to(dt)
+            k, v = randn(2, T, Hkv, D, g=g).to(dt), randn(2, T, Hkv, D, g=g).to(dt)
             check(f"flash bwd {(S, T, Hq, Hkv, D, causal, window)} {dt}",
                   q, k, v, do, causal, window, TOL[str(dt)[6:]])
-    n = len(FLASH_BWD_CASES)
+    n = len(cases)
     want = {name: {"tc": n, "fma": n} for name in worst}
     if ops.flash_bwd_variant_counts() != want:
         fail(f"flash bwd variants {ops.flash_bwd_variant_counts()}, expected {want} "
@@ -1547,8 +1920,9 @@ def flash_bwd_phase(gen):
 
     timed = {name: {} for name in worst}
     for path, (B, S, T, Hq, Hkv, D, causal, window) in BWD_PATHS.items():
-        q, do = (randn(B, S, Hq, D).to(torch.bfloat16) for _ in range(2))
-        k, v = (randn(B, T, Hkv, D).to(torch.bfloat16) for _ in range(2))
+        g = wide if path in BWD_WIDE_PATHS else gen
+        q, do = (randn(B, S, Hq, D, g=g).to(torch.bfloat16) for _ in range(2))
+        k, v = (randn(B, T, Hkv, D, g=g).to(torch.bfloat16) for _ in range(2))
         tile_rel[path] = {}
         o, lse = check(f"flash bwd {path}", q, k, v, do, causal, window, TOL["bfloat16"],
                        tiles=tile_rel[path])
@@ -1557,12 +1931,15 @@ def flash_bwd_phase(gen):
         q_b, kv_b, stat_b = B * S * Hq * D * 2, B * T * Hkv * D * 2, B * Hq * S * 4
         plain_ms = device_ms(lambda: flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal, window=window), iters=5)
-        # SDPA has no window; gemma3's 1024 at S = 1024 leaves every causal key
-        if window and window < S:
-            fail(f"flash bwd {path}: SDPA takes no window: want one of at least S")
+        # SDPA has no window: one narrower than S goes to it as a band mask
+        # (gemma3's 1024 at S = 1024 leaves every causal key)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                             **({"enable_gqa": True} if Hq != Hkv else {}))
+        gqa = {"enable_gqa": True} if Hq != Hkv else {}
+        if window and window < S:
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=_mask(S, T, causal, window, "cuda"), **gqa)
+        else:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)
         dot = do.transpose(1, 2)
         library_ms = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                            retain_graph=True))
@@ -1622,7 +1999,7 @@ GUARD_SWAPS = {
     "moe": (("moe_gmm", "moe_gmm_dx", "moe_gmm_dw"), ("moe_gmm", "moe_gmm_bwd")),
     "ssm": (("ssd_scan", "ssd_scan_bwd"), ("ssd_scan", "ssd_scan_bwd")),
     "hybrid": (("ssd_scan", "ssd_scan_bwd"), ("ssd_scan", "ssd_scan_bwd")),
-    **dict.fromkeys(("vlm", "audio"), (
+    **dict.fromkeys(("dense", "vlm", "audio"), (
         ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm"),
         ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm"))),
 }
@@ -1717,7 +2094,7 @@ def train_phase(config="qwen1.5-0.5b"):
     from repro_torch.launch import profile_train
 
     cfg, reckoning = profile_train.train_depth(config)
-    guard_rel = grad_guard(config) if cfg.family != "dense" else None
+    guard_rel = grad_guard(config) if config in TRAIN_CONFIGS else None
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, step, state, batch = profile_train.setup(seed=0, config=config)
@@ -1770,9 +2147,9 @@ def train_phase(config="qwen1.5-0.5b"):
         per_step[name] = steps[0]
     if per_step != expected:
         fail(f"train {cfg.name}: launches per step {per_step}, expected {expected}")
-    # bf16 at S = 1024 (C = 320 tokens an expert): every forward on the
-    # tensor-core prefill variants, every backward on its tensor-core
-    # kernel; the others' variants launch nothing
+    # bf16 at S = 1024 or 2048 (C = 320 or 1280 tokens an expert): every
+    # forward on the tensor-core prefill variants, every backward on its
+    # tensor-core kernel; the others' variants launch nothing
     on = {"flash_fwd": "tc_prefill", "flash_bwd_dq": "tc", "flash_bwd_dkv": "tc",
           "moe_gmm": "tc_prefill", "moe_gmm_dx": "tc", "moe_gmm_dw": "tc",
           "ssd_scan": "tc", "ssd_scan_bwd": "tc"}
@@ -1931,7 +2308,7 @@ def cws_train_phase(card):
     return launches, {name: n // CWS_TRAIN["steps"] for name, n in launches.items()}
 
 
-# phase 13: the mesh path (qwen1.5-0.5b at profile_train's train shape, then
+# phase 14: the mesh path (qwen1.5-0.5b at profile_train's train shape, then
 # the serving shapes of phase 4)
 MESH_CONFIG = "qwen1.5-0.5b"
 MESH_DECODE_STEPS = 16
@@ -1967,7 +2344,7 @@ def _cuda_ms(fn):
 
 
 def mesh_phase(card):
-    """Phase 13: the train and serve steps on the host mesh, a (1, 1)
+    """Phase 14: the train and serve steps on the host mesh, a (1, 1)
     ``("data", "model")`` DeviceMesh over NCCL in a world of one, with
     DTensor state placed by ``repro``'s rules, held bit for bit against the
     same steps with ``mesh=None``; int8 compression of a full-width
@@ -1980,7 +2357,7 @@ def mesh_phase(card):
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
-    from repro_torch.launch import analysis, profile_train
+    from repro_torch.launch import analysis, kernel_times, profile_train
     from repro_torch.launch.mesh import make_host_mesh, make_mesh
     from repro_torch.models import build_model
     from repro_torch.models.layers import tree_leaves
@@ -2025,11 +2402,18 @@ def mesh_phase(card):
             if i == 1:          # step 2 under the profiler: its device time
                 acts = [torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
                 with torch.profiler.profile(activities=acts) as prof:
+                    start.record()
                     state, m = step_m(state, batch_d)
+                    end.record()
                     torch.cuda.synchronize()
                 busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                if not busy_ms:   # the profiler recorded nothing: the step's span
+                    busy_ms = start.elapsed_time(end)
+                    kernel_times.event_timed_readings += 1
             else:
                 state, m = step_m(state, batch_d)
                 torch.cuda.synchronize()
@@ -2230,6 +2614,12 @@ def main() -> int:
     vlm_launches, vlm_prefill, vlm_round = serve_phase(VLM_CONFIG)
     release_memory(AUDIO_CONFIG)
     audio_launches, audio_per, audio_round = audio_serve_phase()
+    wide = {}
+    for config, layers in WIDE_SERVE.items():
+        release_memory(config)
+        wide[config] = serve_phase(config, layers)
+    release_memory(f"{GEMMA3_CONFIG}'s ring guard")
+    ring = ring_guard_phase()
     trained = {}
     for config in TRAIN_CONFIGS:
         release_memory(f"training {config}")
@@ -2261,7 +2651,8 @@ def main() -> int:
                 "launches_gemma3_serve": gemma_launches[name],
                 "launches_per_gemma3_prefill": gemma_prefill[name],
                 "launches_per_gemma3_decode_round": gemma_round[name],
-                **{path: t for path, t in timed.items() if path.startswith(("whisper", "phi3v"))},
+                **{path: t for path, t in timed.items()
+                   if path.startswith(("whisper", "phi3v", "chatglm3", "qwen2", "mixtral"))},
                 "launches_phi3v_serve": vlm_launches[name],
                 "launches_per_phi3v_prefill": vlm_prefill[name],
                 "launches_per_phi3v_decode_round": vlm_round[name],
@@ -2269,7 +2660,7 @@ def main() -> int:
                 "launches_per_whisper_prefill": audio_per["prefill"][name],
                 "launches_per_whisper_cache_fill": audio_per["cache_fill"][name],
                 "launches_per_whisper_decode_round": audio_round[name],
-                **ssm_launches(name), **variant_launches(name),
+                **served_launches(name), **variant_launches(name),
                 **train_launch_fields(name), **cws_launch_fields(name),
                 **mesh_launch_fields(name)}
 
@@ -2280,19 +2671,31 @@ def main() -> int:
         paths = {"serve": launches, "moe_serve": moe_launches,
                  "gemma3_serve": gemma_launches, "phi3v_serve": vlm_launches,
                  "whisper_serve": audio_launches,
-                 **{f"{c}_serve": n for c, (n, _, _) in ssm.items()}}
+                 **{f"{c}_serve": n for c, (n, _, _) in {**ssm, **wide}.items()}}
         return {"launches_by_variant": {
             "train": train_launches["by_variant"]["flash_fwd"],
-            **{path: n["flash_fwd_variants"] for path, n in paths.items()}}}
+            **{path: n["flash_fwd_variants"] for path, n in paths.items()},
+            f"{LONG_CONFIG}_long_admission":
+                wide[LONG_CONFIG][0]["long_admission"]["by_variant"]["flash_fwd"],
+            f"{GEMMA3_CONFIG}_ring": ring["by_variant"]}}
 
-    def ssm_launches(name):
-        """The kernel's launches on each SSM serving path it runs in."""
+    def served_launches(name):
+        """The kernel's launches on each SSM and phase-12 serving path it
+        runs in (mixtral-8x22b's long admission and gemma3-12b's ring among
+        them)."""
         out = {}
-        for config, (n, pre, rnd) in ssm.items():
+        for config, (n, pre, rnd) in {**ssm, **wide}.items():
             if name in n:
                 out.update({f"launches_{config}_serve": n[name],
                             f"launches_per_{config}_prefill": pre[name],
                             f"launches_per_{config}_decode_round": rnd[name]})
+        for path, r in ((f"{LONG_CONFIG}_long_admission",
+                         wide[LONG_CONFIG][0]["long_admission"]),
+                        (f"{GEMMA3_CONFIG}_ring", ring)):
+            if name in r["per_round"]:
+                out.update({f"launches_{path}": r["launches"][name],
+                            f"launches_per_{path}_prefill": r["per_prefill"][name],
+                            f"launches_per_{path}_decode_round": r["per_round"][name]})
         return out
 
     def train_launch_fields(name):
@@ -2307,7 +2710,7 @@ def main() -> int:
                                        "per_step": cws_per_step[name]}}
 
     def mesh_launch_fields(name):
-        """The kernel's launches on the mesh train path (phase 13)."""
+        """The kernel's launches on the mesh train path (phase 14)."""
         return {"launches_mesh_train": {"total": mesh_launches[name],
                                         "per_step": mesh_per_step[name]}}
 
@@ -2348,7 +2751,8 @@ def main() -> int:
          "launches": moe_launches["moe_gmm"], "max_abs_err": gmm_err, "paths": gmm_t,
          "launches_by_variant": moe_launches["moe_gmm_variants"],
          "launches_per_prefill": moe_prefill["moe_gmm"],
-         "launches_per_decode_round": moe_round["moe_gmm"], **train_launch_fields("moe_gmm")},
+         "launches_per_decode_round": moe_round["moe_gmm"], **served_launches("moe_gmm"),
+         **train_launch_fields("moe_gmm")},
         # top level: mamba2-370m's prefill step shape; "launches" is the
         # mamba2-370m serving path's
         {**ssd_t["mamba2_prefill"], "name": "ssd_scan", "route": "cuda",
@@ -2356,7 +2760,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssd_scan.py:26",
          "launches": ssm["mamba2-370m"][0]["ssd_scan"], "max_abs_err": ssd_err,
          "library_ms": None, "library": "none: no single PyTorch call computes an SSD scan",
-         "paths": ssd_t, **ssm_launches("ssd_scan"), **train_launch_fields("ssd_scan"),
+         "paths": ssd_t, **served_launches("ssd_scan"), **train_launch_fields("ssd_scan"),
          "launches_by_variant": {f"{c}_serve": n["ssd_scan_variants"]
                                  for c, (n, _, _) in ssm.items()}},
         *(gmm_bwd_entry(name, gmm_bwd_err[name], gmm_bwd_t[name])
@@ -2374,6 +2778,9 @@ def main() -> int:
          "library_ms": None, "library": "none: no single PyTorch call computes an SSD scan",
          "variants": ssd_bwd_t, **train_launch_fields("ssd_scan_bwd")},
     ]
+    from repro_torch.launch import kernel_times
+    print(f"device times taken with CUDA events, the profiler having recorded no "
+          f"device event: {kernel_times.event_timed_readings} readings")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

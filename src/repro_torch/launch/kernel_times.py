@@ -1,7 +1,7 @@
 """Device time of the port's kernels at the serving and training paths' shapes.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_times [--repeats 3] [--only NAME]
-        [--ssd-heads]
+        [--ssd-heads] [--events]
 
 Times each kernel of the serving paths on the card, all bf16. qwen1.5-0.5b:
 flash attention at the prefill shape (B=4, S=T=1024, 16 heads of 64,
@@ -35,14 +35,18 @@ heads a block can take at their shapes (a divisor of H/G up to
 ``ssd_scan._heads_per_block`` and ``_bwd_heads_per_block`` pick one). A
 time is the summed
 duration of what one call runs on the device, traced by
-``torch.profiler``; host time between launches does not count. Prints one JSON line with ``--repeats`` readings per kernel and
-shape. To compare two versions of a kernel, run this from both checkouts in
+``torch.profiler`` (CUDA events around the call where the profiler
+records nothing); host time between launches does not count. ``--events``
+also times every call with ``event_ms``, the fallback, under its name
+and " (CUDA events)". Prints one JSON line with ``--repeats`` readings per
+kernel and shape. To compare two versions of a kernel, run this from both checkouts in
 one call to the card, alternating. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import torch
 
@@ -74,8 +78,18 @@ SSD_BWD_TC_STAGES = {"states": "ssd_scan_bwd_tc_states", "chain": "ssd_scan_bwd_
 
 
 # Now and then a profiler session on the card records no device event at
-# all (seen once in a process's first session on an H100): trace again
+# all: seen in a process's first session on an H100, and in three sessions
+# running just after three that recorded. ``device_ms`` traces again up to
+# ``PROFILER_SESSIONS`` times, then times the call with CUDA events
 PROFILER_SESSIONS = 3
+# how many ``device_ms`` readings in this process were timed with CUDA events
+event_timed_readings = 0
+
+
+# ``event_ms``'s sleeping kernel: an H100's SM clock at most (a slower
+# clock sleeps longer), and the longest it sleeps
+SLEEP_CYCLES_PER_S = 1.98e9
+EVENT_HOLD_S = 0.2
 
 
 # bytes written between the calls of a cold reading: more than an H100's
@@ -83,10 +97,10 @@ PROFILER_SESSIONS = 3
 L2_FLUSH_BYTES = 256 << 20
 
 
-def _device_events(fn, iters: int) -> list:
+def device_events(fn, iters: int = 1):
     """The device events of ``iters`` calls of ``fn``, traced by
-    ``torch.profiler``; traces up to ``PROFILER_SESSIONS`` times and raises
-    if none records a device event."""
+    ``torch.profiler``; traces up to ``PROFILER_SESSIONS`` times, and
+    returns None if no session records a device event."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -97,8 +111,35 @@ def _device_events(fn, iters: int) -> list:
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         if events:
             return events
-    raise RuntimeError(f"torch.profiler recorded no device event in "
-                       f"{PROFILER_SESSIONS} sessions")
+    return None
+
+
+def event_ms(fn, iters: int = 1, before=None) -> float:
+    """Mean time of one call of ``fn`` between CUDA events recorded just
+    before and just after it, with ``before`` (untimed) ahead of each call.
+    The calls queue behind a kernel that sleeps for twice the host's time
+    to queue them (at most ``EVENT_HOLD_S``), so that a span holds the
+    device's time rather than the host's launches; it also holds the gaps
+    between the call's kernels: at least the call's device time."""
+    t0 = time.perf_counter()
+    if before is not None:
+        before()
+    fn()
+    hold_s = min(2 * iters * (time.perf_counter() - t0), EVENT_HOLD_S)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(hold_s * SLEEP_CYCLES_PER_S))
+    spans = []
+    for _ in range(iters):
+        if before is not None:
+            before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in spans) / iters
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str = "",
@@ -108,22 +149,34 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str = "",
     those whose name contains ``kernel``. With ``cold``, each call follows
     a write of ``L2_FLUSH_BYTES``, whose own device events are left out:
     the time of a call whose inputs are not in L2 (back to back, a call
-    whose inputs fit in L2 reads them from there)."""
+    whose inputs fit in L2 reads them from there). Where the profiler
+    records no device event, the reading is ``event_ms`` of the whole call
+    (``kernel`` then selects nothing), and ``event_timed_readings`` counts
+    it."""
+    global event_timed_readings
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    step, flush_names = fn, set()
+    step, flush, flush_names = fn, None, set()
     if cold:
         scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-        flush_names = {e.name for e in _device_events(scratch.zero_, 1)}
-        if flush_names & {e.name for e in _device_events(fn, 1)}:
-            raise RuntimeError(f"device_ms: the L2 flush's kernels {flush_names} "
-                               f"are among the timed call's")
+        flush = scratch.zero_
+        flush_events, fn_events = device_events(flush), device_events(fn)
+        if flush_events is None or fn_events is None:
+            step = None
+        else:
+            flush_names = {e.name for e in flush_events}
+            if flush_names & {e.name for e in fn_events}:
+                raise RuntimeError(f"device_ms: the L2 flush's kernels {flush_names} "
+                                   f"are among the timed call's")
 
-        def step():
-            scratch.zero_()
-            fn()
-    events = _device_events(step, iters)
+            def step():
+                flush()
+                fn()
+    events = device_events(step, iters) if step is not None else None
+    if events is None:
+        event_timed_readings += 1
+        return event_ms(fn, iters, before=flush)
     us = sum(e.time_range.elapsed_us() for e in events
              if kernel in e.name and e.name not in flush_names)
     if us <= 0:
@@ -160,7 +213,8 @@ def _with_heads(fn, heads: int, picker: str = "_heads_per_block"):
     return call
 
 
-def main(repeats: int = 3, only: str = "", ssd_heads: bool = False) -> dict:
+def main(repeats: int = 3, only: str = "", ssd_heads: bool = False,
+         events: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
     gen = torch.Generator("cuda").manual_seed(0)
@@ -271,9 +325,12 @@ def main(repeats: int = 3, only: str = "", ssd_heads: bool = False) -> dict:
             lambda x=x_f: moe_gmm_cuda(x, w_down)
     calls = {name: fn for name, fn in calls.items() if only in name}
     out = {name: [] for name in calls}
+    out.update({f"{name} (CUDA events)": [] for name in calls if events})
     for _ in range(repeats):
         for name, fn in calls.items():
             out[name].append(device_ms(fn, iters=50, kernel=kernels.get(name, "")))
+            if events:
+                out[f"{name} (CUDA events)"].append(event_ms(fn, iters=50))
     report = {"device": torch.cuda.get_device_name(0), "device_ms": out}
     print(json.dumps(report))
     return report
@@ -285,5 +342,7 @@ if __name__ == "__main__":
     ap.add_argument("--only", default="", help="time only the calls whose name contains this")
     ap.add_argument("--ssd-heads", action="store_true",
                     help="also time the bf16 SSD kernels at each heads-per-block choice")
+    ap.add_argument("--events", action="store_true",
+                    help="also time every call with CUDA events (device_ms's fallback)")
     args = ap.parse_args()
-    main(args.repeats, args.only, args.ssd_heads)
+    main(args.repeats, args.only, args.ssd_heads, args.events)

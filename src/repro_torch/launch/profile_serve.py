@@ -1,10 +1,12 @@
 """Where the serving time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--config qwen3-moe-30b-a3b|mamba2-370m|zamba2-2.7b|phi-3-vision-4.2b|whisper-tiny]
+        [--config qwen3-moe-30b-a3b|mamba2-370m|zamba2-2.7b|phi-3-vision-4.2b|whisper-tiny|...]
+        [--layers N]
 
 Serves ``serve_workload``'s full burst (a full-width model, default
-qwen1.5-0.5b, bf16, random weights from seed 0, 8 slots) once to warm up,
+qwen1.5-0.5b, bf16, random weights from seed 0, 8 slots; ``--layers`` cuts
+its depth, e.g. 12 for mixtral-8x22b's 60.9 GB) once to warm up,
 once unprofiled, then again under ``torch.profiler``. Prints the
 unprofiled wall time; for the profiled run the wall time split into
 admission prefills and decode rounds (host clock, each call ending in a
@@ -252,11 +254,13 @@ def audio_main(model, params, seed: int) -> dict:
         **_prefill_step_report(model, step, batch)}
 
 
-def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG) -> dict:
+def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG,
+         layers: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = build_model(get_config(config), "cuda")
+    cfg = get_config(config)
+    model = build_model(cfg.scaled(n_layers=layers) if layers else cfg, "cuda")
     params = model.init(torch.Generator("cuda").manual_seed(seed))
     if model.cfg.family == "audio":
         report = audio_main(model, params, seed)
@@ -293,6 +297,7 @@ def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG) -> dict:
     wall = out["seconds"]
     report = {
         "device": torch.cuda.get_device_name(0), "config": config,
+        "layers": model.cfg.n_layers,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "unprofiled_wall_s": plain["seconds"],
         "unprofiled_tok_per_s": plain["tokens"] / plain["seconds"],
@@ -320,5 +325,6 @@ if __name__ == "__main__":
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--config", default=serve_workload.DEFAULT_CONFIG,
                     help="model config name")
+    ap.add_argument("--layers", type=int, default=0, help="layers to serve (0: all)")
     a = ap.parse_args()
-    main(a.seed, a.config)
+    main(a.seed, a.config, a.layers)

@@ -7,9 +7,10 @@ train step that ``chip_smoke.py`` drives (``train_1k``: B=8, S=1024, two
 microbatches of 4, remat "block", bf16 moments; peak learning rate 1e-3,
 1e-4 for the wider configs): qwen1.5-0.5b (the
 default), qwen3-moe-30b-a3b, mamba2-370m, zamba2-2.7b, phi-3-vision-4.2b
-(576 patch rows before the 1024 tokens) or whisper-tiny (1500 frames, 448
-decoder tokens: ``train_shape``), each at the depth that ``train_depth``
-reckons for one card. Takes one warm-up step,
+(576 patch rows before the 1024 tokens), whisper-tiny (1500 frames, 448
+decoder tokens: ``train_shape``), chatglm3-6b, qwen2-7b, mixtral-8x22b or
+gemma3-12b (B=4, S=2048 in two microbatches of 2), each at the depth that
+``train_depth`` reckons for one card. Takes one warm-up step,
 ``--steps`` steps on the host clock (each ending in a synchronize), then
 one step under ``torch.profiler``. Prints the depth reckoning, host ms per
 step, trained tokens/s, the device's busy time in the profiled step and its
@@ -42,18 +43,34 @@ from ..runtime.train import init_state, make_train_step
 
 SHAPE = ShapeConfig("train_1k", 1024, 8, "train")
 # whisper's decoder takes at most 448 positions (arXiv:2212.04356): it
-# trains on 448 tokens against its 1500 frames
-SHAPES = {"whisper-tiny": ShapeConfig("train_448", 448, 8, "train")}
+# trains on 448 tokens against its 1500 frames. gemma3-12b trains on B=4 x
+# S=2048, the same 8,192 tokens a step as the others, so that its local
+# layers' window of 1024 cuts into the causal rows in the forward and the
+# backward; in two microbatches of 2 (MICROBATCH)
+SHAPES = {"whisper-tiny": ShapeConfig("train_448", 448, 8, "train"),
+          "gemma3-12b": ShapeConfig("train_2k", 2048, 4, "train")}
 TCFG = TrainConfig(remat="block", opt_dtype="bfloat16", microbatch_per_device=4,
                    warmup_steps=2, learning_rate=1e-3)
+# rows a microbatch by config (TCFG's 4 for the others)
+MICROBATCH = {"gemma3-12b": 2}
 CONFIGS = ("qwen1.5-0.5b", "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-2.7b",
-           "phi-3-vision-4.2b", "whisper-tiny")
+           "phi-3-vision-4.2b", "whisper-tiny", "chatglm3-6b", "qwen2-7b",
+           "mixtral-8x22b", "gemma3-12b")
 # train state per parameter: bf16 param 2, f32 master 4, two bf16 moments
 # 4, f32 gradient accumulator 4, the step's bf16 gradient 2
 STATE_BYTES_PER_PARAM = 16
 # the device memory a config's train step may reach at its reckoned depth
-# (of the card's 80 GB), above which it is cut further
-PEAK_LIMIT_GB = {"qwen3-moe-30b-a3b": 72.0, "zamba2-2.7b": 75.0, "phi-3-vision-4.2b": 72.0}
+# (of the card's 80 GB), above which it is cut further. The four 6-12 B
+# configs: the state (below) plus AdamW's f32 temporaries of the largest
+# leaf, about five of them alive at once (g·scale, a moment read as f32,
+# the two products and their sum): chatglm3-6b's 14 stacked w_gate rows of
+# 4096 x 13696 (0.79 G elements, 3.1 GB in f32), 54.2 + 15.7 GB; qwen2-7b's
+# 10 of 3584 x 18944 (0.68 G), 54.7 + 13.6; mixtral-8x22b's one layer of 8
+# experts of 6144 x 16384 (0.81 G), 46.5 + 16.1; gemma3-12b's embedding
+# table of 262144 x 3840 (1.01 G), 53.8 + 20.1
+PEAK_LIMIT_GB = {"qwen3-moe-30b-a3b": 72.0, "zamba2-2.7b": 75.0, "phi-3-vision-4.2b": 72.0,
+                 "chatglm3-6b": 74.0, "qwen2-7b": 74.0, "mixtral-8x22b": 68.0,
+                 "gemma3-12b": 78.0}
 # layers a config trains with on one card: qwen3-moe-30b-a3b's 48 layers
 # hold 623 M parameters each (10 GB of train state): 4 of them and the
 # 622 M of its embedding and head, 3.11 B parameters, ~50 GB of state.
@@ -61,14 +78,31 @@ PEAK_LIMIT_GB = {"qwen3-moe-30b-a3b": 72.0, "zamba2-2.7b": 75.0, "phi-3-vision-4
 # parameters, would take 61 GB of state before an activation or AdamW's
 # f32 temporaries of its largest leaf (0.8 G elements at full depth); 16
 # of them and the 200 M of its embedding, head and patch projection come
-# to 2.01 B, ~32 GB. The others train at full depth.
-TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 4, "phi-3-vision-4.2b": 16}
+# to 2.01 B, ~32 GB. chatglm3-6b's 28 layers hold 204.0 M each and 532.7 M
+# lie outside them (its untied 65,024-row vocab): 14 layers, 3.39 B, ~54
+# GB. qwen2-7b's 28 hold 233.1 M and 1,090.0 M lie outside (152,064 rows):
+# 10 layers, 3.42 B, ~55 GB. mixtral-8x22b's 56 hold 2,504.1 M each (8
+# experts of 6144 x 16384, three matrices) and 402.7 M lie outside: one
+# layer, 2.91 B, ~46.5 GB. gemma3-12b's 48 hold 224.1 M and 2,013.3 M lie
+# outside (its untied 262,144-row vocab): one 5:1 group of 6 layers (its
+# depth must be a multiple of 6), 3.36 B, ~54 GB. The others train at full
+# depth.
+TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 4, "phi-3-vision-4.2b": 16, "chatglm3-6b": 14,
+                "qwen2-7b": 10, "mixtral-8x22b": 1, "gemma3-12b": 6}
 # peak learning rate by config (TCFG's 1e-3 for the others): at 1e-3, two
 # warm-up steps and one repeated batch, the widest configs (d 2048 and
 # 2560) overshoot and their loss climbs from the third step; 1e-4 is the
-# order of published rates at these sizes (GPT-3's 1.6e-4 at 2.7 B)
+# order of published rates at these sizes (GPT-3's 1.6e-4 at 2.7 B). The
+# 6-12 B configs (d 3584 to 6144) overshoot there, and at 3e-5 too: their
+# loss climbs at the second or third step (on the H100, at 1e-4:
+# chatglm3-6b 11.56 -> 15.48, gemma3-12b 12.84 -> 14.55; at 3e-5:
+# chatglm3-6b 9.25 -> 13.23, mixtral-8x22b 9.92 -> 17.50). GPT-3's own
+# rates fall with width (1.2e-4 at 6.7 B, 1.0e-4 at 13 B) after thousands
+# of warm-up steps, where this step warms up in two: 1e-5, at which the
+# four losses fall over the 4 steps
 LEARNING_RATE = {"qwen3-moe-30b-a3b": 1e-4, "mamba2-370m": 1e-4, "zamba2-2.7b": 1e-4,
-                 "phi-3-vision-4.2b": 1e-4}
+                 "phi-3-vision-4.2b": 1e-4, "chatglm3-6b": 1e-5, "qwen2-7b": 1e-5,
+                 "mixtral-8x22b": 1e-5, "gemma3-12b": 1e-5}
 # device kernels by family: the first entry whose substrings all occur in
 # the kernel's name (the grouped GEMM's templates name their operand
 # layouts: <false, true> forward, <false, false> dX, <true, true> dW; the
@@ -111,9 +145,10 @@ def train_depth(config: str) -> Tuple[ModelConfig, Dict[str, Any]]:
     total = build_model(cfg, "meta").n_params()
     if cfg.family == "hybrid":   # the shared block sits outside the layer count
         per_layer = None
-    else:
-        per_layer = (total - build_model(cfg.scaled(n_layers=1), "meta").n_params()) \
-            / max(layers - 1, 1)
+    else:   # from two depths a whole layer pattern apart (gemma3-12b's is 6)
+        unit = cfg.local_global + 1 if cfg.local_global > 0 else 1
+        per_layer = (build_model(cfg.scaled(n_layers=2 * unit), "meta").n_params()
+                     - build_model(cfg.scaled(n_layers=unit), "meta").n_params()) / unit
     return cfg, {
         "config": config, "layers": f"{layers} of {full.n_layers}",
         "params": total, "params_per_layer": per_layer,
@@ -126,8 +161,10 @@ def train_depth(config: str) -> Tuple[ModelConfig, Dict[str, Any]]:
 
 
 def train_config(config: str) -> TrainConfig:
-    """TCFG at ``config``'s learning rate."""
-    return dataclasses.replace(TCFG, learning_rate=LEARNING_RATE.get(config, TCFG.learning_rate))
+    """TCFG at ``config``'s learning rate and microbatch."""
+    return dataclasses.replace(
+        TCFG, learning_rate=LEARNING_RATE.get(config, TCFG.learning_rate),
+        microbatch_per_device=MICROBATCH.get(config, TCFG.microbatch_per_device))
 
 
 def train_shape(config: str) -> ShapeConfig:
