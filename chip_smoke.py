@@ -11,11 +11,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                the JAX test shapes and at the main paths' shapes (RMSNorm
                also at d no multiple of 8 under each row mapping; the
                grouped expert GEMM also at ragged C = 1, 8, 17, 40, 256,
-               320 and a D/F of no tile's width, and at mixtral-8x22b's
-               widths at C = 1, 8, 160, 320, 1280, 1920 (timed at 8, bound
-               by reading w, and 1280, bound by its operations), its
-               launches by variant checked (bf16 C > 16 all on the
-               tensor-core kernel); RMSNorm also at d 4096, 3584 and 6144;
+               320 and a D/F of no tile's width, the decode kernel at C =
+               1, 2, 8, 15, 16 at qwen3-moe-30b-a3b's and mixtral-8x22b's
+               widths, gate/up and down, and at ragged D/F under TMA's
+               rule, each decode call twice and equal bit for bit, an
+               expert of zero rows with a NaN in its w (NaN exactly where
+               the plain version's is), mixtral at C = 160, 320, 1280, 1920
+               (timed at 1 and 8, bound by reading w, cold and warm, and at
+               1280, bound by its operations), its launches by variant
+               checked (bf16 under TMA's rule on the decode kernel up to C
+               = 16 and on the tensor-core kernel above, the rest on the
+               wmma tile); RMSNorm also at d 4096, 3584 and 6144;
                the cases for those configs from a generator of their own
                (WIDE_SEED), so the earlier cases keep their draws; the SSD
                scan, y and final state, also at ragged S = 1, 37, 257,
@@ -365,6 +371,17 @@ GMM_RAGGED_DF = (8, 100, 200, 72)
 # 16-byte boundary, at qwen3-moe's widths; D, then F no multiple of 8
 GMM_WMMA_CASES = [(4, 320, 2048, 768, 1, 0), (4, 40, 768, 2048, 0, 1),
                   (4, 40, 2044, 768, 0, 0), (3, 100, 200, 76, 0, 0)]
+# the decode kernel's cases, drawn from a generator of their own
+# (DECODE_SEED) so that every case before them keeps its draws: the tokens
+# per expert it takes (C <= 16), each at qwen3-moe's and mixtral-8x22b's
+# widths, gate/up and down; (E, C, D, F) under TMA's rule with D and F of no
+# tile's width (128 F columns, 128 D rows a step); and GMM_WMMA_CASES' kinds
+# at C <= 16, which the wmma tile serves too
+GMM_DECODE_C = (1, 2, 8, 15, 16)
+GMM_DECODE_RAGGED = [(3, 5, 200, 72), (4, 16, 136, 264)]
+GMM_DECODE_WMMA_CASES = [(4, 8, 2048, 768, 1, 0), (4, 1, 768, 2048, 0, 1),
+                         (4, 8, 2044, 768, 0, 0), (3, 16, 200, 76, 0, 0)]
+DECODE_SEED = 5
 # the SSD cases of tests/test_kernels.py (B, S, H, P, G, N), then ragged S
 SSD_CASES = [(1, 64, 2, 32, 1, 16), (2, 128, 4, 32, 2, 16), (1, 96, 4, 64, 1, 32),
              (2, 256, 8, 64, 2, 64)]
@@ -386,14 +403,15 @@ SSD_CHUNK = 256
 # offset) in bf16 where TMA cannot read, so the wmma tile serves: D, then F
 # no multiple of 8, a base one element past a 16-byte boundary
 GMM_BWD_C = (1, 8, 17, 40, 320)
-# mixtral-8x22b's experts (E, D, F): tokens per expert at one slot, a
-# decode round of 8 slots, a 512-token admission, a 1024-token one, a B=4 x
-# S=1024 prefill step or train microbatch, the 6,144-token admission (C =
-# round(T·2/8·1.25) past 256 tokens); the forward timed at C = 8 and 1280,
-# the backward checked at GMM_BWD_WIDE_C and timed at 1280
+# mixtral-8x22b's experts (E, D, F): tokens per expert at the decode
+# kernel's GMM_DECODE_C (one slot, a decode round of 8 slots), a 512-token
+# admission, a 1024-token one, a B=4 x S=1024 prefill step or train
+# microbatch, the 6,144-token admission (C = round(T·2/8·1.25) past 256
+# tokens); the forward timed at C = 1 (the long admission's rounds), 8 and
+# 1280, the backward checked at GMM_BWD_WIDE_C and timed at 1280
 GMM_WIDE = (8, 6144, 16384)
 GMM_WIDE_C = (1, 8, 160, 320, 1280, 1920)
-GMM_WIDE_TIMED = {"mixtral_decode": 8, "mixtral_prefill": 1280}
+GMM_WIDE_TIMED = {"mixtral_one_slot": 1, "mixtral_decode": 8, "mixtral_prefill": 1280}
 GMM_BWD_WIDE_C = (8, 320, 1280)
 GMM_BWD_WMMA_CASES = [(3, 100, 200, 76, 0, 0), (4, 40, 2044, 768, 0, 0),
                       (4, 17, 768, 2048, 1, 0), (4, 40, 2048, 768, 0, 1)]
@@ -849,36 +867,56 @@ def gmm_phase(gen):
     """The grouped expert GEMM against its plain version: the JAX test cases
     (f32 and bf16, tests/test_kernels.py's tolerances), ragged C at
     qwen3-moe-30b-a3b's widths and a D/F of no tile's width (f32 and bf16),
-    the bf16 cases that TMA cannot read (GMM_WMMA_CASES: a misaligned base,
-    D or F no multiple of 8), the main-path shapes of one MoE layer
-    (bf16, gate/up and down at C = 8, 40, 256, 320), which are also timed,
-    and mixtral-8x22b's (bf16, GMM_WIDE at GMM_WIDE_C, timed at
-    GMM_WIDE_TIMED: the decode round's, bound by reading w, and the prefill
-    step's, bound by its operations).
-    Every launch's variant must be the one ``_variant`` names for its shape
-    and bases: each bf16 launch with C > 16 on ``tc_prefill``, but those of
-    GMM_WMMA_CASES, which must all be on ``wmma``."""
+    the decode kernel at GMM_DECODE_C (qwen3-moe's widths, gate/up and down)
+    and GMM_DECODE_RAGGED, every decode call made twice and held equal bit
+    for bit, an expert of all-zero rows with a NaN in its w (0 · NaN = NaN,
+    as in the plain version and the Pallas kernel: the output must be NaN
+    exactly where the plain version's is), the bf16 cases that TMA cannot
+    read (GMM_WMMA_CASES: a misaligned base, D or F no multiple of 8; and
+    GMM_DECODE_WMMA_CASES, the same kinds at C <= 16), the main-path shapes
+    of one MoE layer (bf16, gate/up and down at C = 8, 40, 256, 320), which
+    are also timed, and mixtral-8x22b's (bf16, GMM_WIDE at GMM_WIDE_C and
+    GMM_DECODE_C, timed at GMM_WIDE_TIMED: the decode rounds', bound by
+    reading w, and the prefill step's, bound by its operations); each timed
+    decode shape also cold (L2 flushed), beside ``torch.bmm`` likewise.
+    Every launch's variant must be the one TMA's rule names for its shape
+    and bases: bf16 under the rule on ``decode`` up to C = 16 and on
+    ``tc_prefill`` above, the two lists of wmma cases all on ``wmma``. The
+    decode kernel's cases draw from a generator of their own (DECODE_SEED),
+    so the earlier cases keep their draws."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gmm import _variant, moe_gmm_cuda, moe_gmm_plain
+    from repro_torch.kernels.moe_gmm import DECODE_MAX_C, _variant, moe_gmm_cuda, moe_gmm_plain
     from repro_torch.launch.kernel_times import (
         MOE_C, MOE_D, MOE_E, MOE_F, device_ms, wrapper_ms)
 
-    def inputs(E, C, D, F, dt, w_std):
-        buf = torch.randn(E, C, D, generator=gen, device="cuda").to(dt)
-        return buf, (w_std * torch.randn(E, D, F, generator=gen, device="cuda")).to(dt)
+    def inputs(E, C, D, F, dt, w_std, g=gen):
+        buf = torch.randn(E, C, D, generator=g, device="cuda").to(dt)
+        return buf, (w_std * torch.randn(E, D, F, generator=g, device="cuda")).to(dt)
 
     want = dict.fromkeys(ops.moe_gmm_variant_counts(), 0)
 
-    def check(name, buf, w, atol, rtol=None, tma=True):
-        E, C, D = buf.shape
-        variant = _variant(buf.dtype, C, D, w.shape[2],
+    def launch(name, buf, w, tma):
+        """One call on the variant TMA's rule (``tma``: the case meets it)
+        names; a decode call twice, equal bit for bit."""
+        C, D, F = buf.shape[1], buf.shape[2], w.shape[2]
+        variant = _variant(buf.dtype, C, D, F,
                            buf.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-        if buf.dtype == torch.bfloat16 and C > 16 and \
-                variant != ("tc_prefill" if tma else "wmma"):
-            fail(f"{name}: bf16 C = {C} would take {variant}")
+        rule = "wmma" if not tma else "decode" if C <= DECODE_MAX_C else "tc_prefill"
+        if buf.dtype == torch.bfloat16 and variant != rule:
+            fail(f"{name}: bf16 C = {C} would take {variant}, not {rule}")
+        got = moe_gmm_cuda(buf, w)
         want[variant] += 1
-        return compare(name, moe_gmm_cuda(buf, w), moe_gmm_plain(buf, w), atol, rtol)
+        if variant == "decode":
+            again = moe_gmm_cuda(buf, w)
+            want[variant] += 1
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+                fail(f"{name}: two decode calls on the same inputs differ")
+        return got
+
+    def check(name, buf, w, atol, rtol=None, tma=True):
+        return compare(name, launch(name, buf, w, tma), moe_gmm_plain(buf, w), atol, rtol)
 
     ops.reset_launch_counts()
     worst = 0.0
@@ -893,6 +931,36 @@ def gmm_phase(gen):
             buf, w = inputs(E, C, D, F, dt, D ** -0.5)
             worst = max(worst, check(f"moe_gmm ragged {(E, C, D, F)} {dt}", buf, w,
                                      TOL[str(dt)[6:]]))
+    dec = torch.Generator("cuda").manual_seed(DECODE_SEED)
+    for C in GMM_DECODE_C:
+        for part, (D, F) in (("gate_up", (MOE_D, MOE_F)), ("down", (MOE_F, MOE_D))):
+            buf, w = inputs(MOE_E, C, D, F, torch.bfloat16, D ** -0.5, dec)
+            worst = max(worst, check(f"moe_gmm decode {part} {(MOE_E, C, D, F)}", buf, w,
+                                     TOL["bfloat16"]))
+    for (E, C, D, F) in GMM_DECODE_RAGGED:
+        buf, w = inputs(E, C, D, F, torch.bfloat16, D ** -0.5, dec)
+        worst = max(worst, check(f"moe_gmm decode ragged {(E, C, D, F)}", buf, w,
+                                 TOL["bfloat16"]))
+    for (E, C, D, F, b_off, w_off) in GMM_DECODE_WMMA_CASES:
+        flat_buf = torch.randn(b_off + E * C * D, generator=dec, device="cuda")
+        flat_w = D ** -0.5 * torch.randn(w_off + E * D * F, generator=dec, device="cuda")
+        buf = flat_buf.to(torch.bfloat16)[b_off:].view(E, C, D)
+        w = flat_w.to(torch.bfloat16)[w_off:].view(E, D, F)
+        worst = max(worst, check(f"moe_gmm wmma {(E, C, D, F)} offsets {(b_off, w_off)}",
+                                 buf, w, TOL["bfloat16"], tma=False))
+    # expert 3 got no token (all-zero rows) and holds a NaN in its w
+    buf, w = inputs(MOE_E, 8, MOE_D, MOE_F, torch.bfloat16, MOE_D ** -0.5, dec)
+    buf[3] = 0
+    w[3, MOE_D // 3, MOE_F // 2] = float("nan")
+    got, plain = launch("moe_gmm decode NaN", buf, w, True), moe_gmm_plain(buf, w)
+    nan = plain.isnan()
+    if int(nan.sum()) != 8 or not torch.equal(got.isnan(), nan):
+        fail(f"moe_gmm decode: {int(got.isnan().sum())} NaNs where the plain version has "
+             f"{int(nan.sum())} (expert 3's column {MOE_F // 2}: {int(nan[3].sum())})")
+    worst = max(worst, compare("moe_gmm decode beside the NaN", got.masked_fill(nan, 0),
+                               plain.masked_fill(nan, 0), TOL["bfloat16"]))
+    print(f"moe_gmm decode: NaN on the {int(nan.sum())} elements where the plain version "
+          f"has it (an expert of zero rows, one NaN in its w)")
     for (E, C, D, F, b_off, w_off) in GMM_WMMA_CASES:
         flat_buf = torch.randn(b_off + E * C * D, generator=gen, device="cuda")
         flat_w = D ** -0.5 * torch.randn(w_off + E * D * F, generator=gen, device="cuda")
@@ -913,17 +981,18 @@ def gmm_phase(gen):
     E, D, F = GMM_WIDE
     for part, (d_in, d_out) in (("gate_up", (D, F)), ("down", (F, D))):
         w = (d_in ** -0.5 * torch.randn(E, d_in, d_out, generator=wide, device="cuda")).bfloat16()
-        for C in GMM_WIDE_C:
-            buf = torch.randn(E, C, d_in, generator=wide, device="cuda").bfloat16()
+        for C, g in [(C, wide) for C in GMM_WIDE_C] + \
+                [(C, dec) for C in GMM_DECODE_C if C not in GMM_WIDE_C]:
+            buf = torch.randn(E, C, d_in, generator=g, device="cuda").bfloat16()
             err = check(f"moe_gmm mixtral {part} {(E, C, d_in, d_out)}", buf, w, TOL["bfloat16"])
             worst = max(worst, err)
             paths.update({f"{path}_{part}": (buf, w, err)
                           for path, c in GMM_WIDE_TIMED.items() if c == C})
         del w, buf
     got = ops.moe_gmm_variant_counts()
-    if got != want or got["wmma"] != len(GMM_WMMA_CASES):
-        fail(f"moe_gmm launches by variant {got}, expected {want} with "
-             f"{len(GMM_WMMA_CASES)} on wmma")
+    n_wmma = len(GMM_WMMA_CASES) + len(GMM_DECODE_WMMA_CASES)
+    if got != want or got["wmma"] != n_wmma:
+        fail(f"moe_gmm launches by variant {got}, expected {want} with {n_wmma} on wmma")
     print(f"moe_gmm variants: {got}")
     timed = {}
     for name, (buf, w, err) in paths.items():
@@ -932,14 +1001,18 @@ def gmm_phase(gen):
         # each of buf, w and out once; 2 operations per multiply-add
         b_ms, b_by = bound((E * C * D + E * D * F + E * C * F) * 2, 2.0 * E * C * D * F,
                            PEAK_BF16_FLOPS)
+        variant = _variant(buf.dtype, C, D, F, True)
         timed[name] = {
-            "shape": f"buf ({E}, {C}, {D}) x w ({E}, {D}, {F}) bf16",
-            "variant": _variant(buf.dtype, C, D, F, True),
+            "shape": f"buf ({E}, {C}, {D}) x w ({E}, {D}, {F}) bf16", "variant": variant,
             "max_abs_err": err, "ms": device_ms(lambda: moe_gmm_cuda(buf, w)),
             "wrapper_ms": wrapper_ms(lambda: moe_gmm_cuda(buf, w)),
             "plain_ms": device_ms(lambda: moe_gmm_plain(buf, w)),
             "library_ms": device_ms(lambda: torch.bmm(buf, w)),
             "bound_ms": b_ms, "bound_by": b_by}
+        if variant == "decode":   # and with w's bytes out of L2, as a round finds them
+            timed[name].update({
+                "cold_ms": device_ms(lambda: moe_gmm_cuda(buf, w), iters=10, cold=True),
+                "library_cold_ms": device_ms(lambda: torch.bmm(buf, w), iters=10, cold=True)})
         print(f"moe_gmm {name}: {json.dumps(timed[name])}")
     return worst, timed
 

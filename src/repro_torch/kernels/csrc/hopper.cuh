@@ -78,6 +78,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the same with an L2 cache policy (`l2_evict_last`)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4, %5, %6}], [%2], %7;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "l"(policy)
+      : "memory");
+}
+// an L2 policy under which the lines a load brings are evicted last: for
+// small data read again while a large stream passes through L2
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
 // ---- TMA stores: shared memory to a tile of a tensor map ----
 // make this thread's shared-memory writes visible to TMA (the async proxy)
 __device__ __forceinline__ void fence_proxy_async_smem() {
@@ -701,10 +719,11 @@ inline EncodeTiled encode_tiled() {
 // dims 1..3 the (rows, head, batch) dims sorted by stride (a dim of extent 1
 // takes the largest), so the strides grow as TMA expects. The box is
 // box_cols columns x box_rows rows, in the 128-byte swizzle when box_cols
-// is 64. pos[i] says which dim holds rows, head, batch.
+// is 64. pos[i] says which dim holds rows, head, batch. L2 fetches a load's
+// lines in 128-byte units, or 256-byte ones with `l2_256`.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int D,
                             const long long (&ext)[3], const long long (&stride)[3],
-                            int box_cols, int box_rows, int (&pos)[3]) {
+                            int box_cols, int box_rows, int (&pos)[3], bool l2_256 = false) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   long long span = 2LL * D;
@@ -733,7 +752,8 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int D,
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                            : CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            l2_256 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+                                   : CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -745,6 +765,14 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint
                                          int b) {
   auto at = [&](int dim) { return pos[0] == dim ? row : pos[1] == dim ? head : b; };
   tma_load_4d(dst, map, bar, col, at(1), at(2), at(3));
+}
+
+// the same with an L2 cache policy
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         const int (&pos)[3], int col, int row, int head,
+                                         int b, uint64_t policy) {
+  auto at = [&](int dim) { return pos[0] == dim ? row : pos[1] == dim ? head : b; };
+  tma_load_4d(dst, map, bar, col, at(1), at(2), at(3), policy);
 }
 
 // one box at (col, row, head, b) of shared memory into a map made by make_map

@@ -7,7 +7,8 @@
 //
 // The TPU grid carries its accumulator in VMEM across a sequential D axis.
 // Here a block owns whole output tiles and loops over D itself; the f32
-// accumulators stay in registers and there are no atomics. Four kernels,
+// accumulators stay in registers and there are no atomics, so a call is
+// bit-identical to the next. Four kernels,
 // chosen by the wrapper (kernels/moe_gmm.py `_variant`) by dtype and shape,
 // never one in place of another that failed:
 //
@@ -44,16 +45,52 @@
 //    stages freed at once beat 3 stages freed one step late by 6-15 %;
 //    sharing w's tile across a cluster of the C tiles by TMA multicast
 //    was slower than either.
-// 2. bf16 decode, C <= 16 (`moe_gmm_bf16_kernel<16, 64, 64, 16, 16>`,
-//    entry repro_moe_gmm_bf16_decode). Bound by w's bytes (~408 MB a call,
-//    ~0.122 ms). One block per (expert, F tile of 64), one C tile of 16
-//    rows, so every w element is read from device memory once; 4 warps on
-//    nvcuda::wmma (mma.sync 16x16x16), 16-byte loads into registers one
-//    step ahead.
-// 3. bf16, C > 16 with D or F no multiple of 8 or a misaligned base
-//    (`moe_gmm_bf16_kernel<64, 64, 32, 32, 32>`, entry repro_moe_gmm_bf16):
-//    the first port's 64 x 64 wmma tile; ragged edges zero-filled on load
-//    and masked on store, so any shape runs.
+// 2. bf16 decode, C <= 16, D and F multiples of 8, 16-byte-aligned bases
+//    (`moe_gmm_decode_kernel`, entry repro_moe_gmm_bf16_decode). A call
+//    does at most 16 operations a byte of w, against the card's ridge of
+//    ~295, so it is bound by reading w once: mixtral-8x22b's 1.61 GB, 0.481
+//    ms at 3.35 TB/s; qwen3-moe-30b-a3b's 403 MB, 0.122 ms. Only the way w
+//    streams sets the pace, so the kernel is a TMA ring, like (1.): one
+//    producer thread issues, 128 D rows a stage, two boxes of 64 F columns
+//    x 128 D rows of an (F, D, E) map (w's 32 KB, MN-major as in (1.), its
+//    lines promoted to 256 bytes in L2) and two boxes of 64 D columns x 16
+//    rows of a (D, C, E) map (buf, 4 KB: rows past C zero-filled, so C = 1
+//    never reads the next expert's rows; under an L2 evict-last policy, as
+//    buf is re-read once per F tile while w streams past) into a ring of 2
+//    stages with full/empty mbarriers. Every expert's w is read, whatever
+//    buf holds, as `_gmm_kernel` reads it: a zero row times a NaN of w
+//    gives NaN here as there. The product swaps its operands, out^T = w^T .
+//    buf^T, so the wide F dim is wgmma's M and the <= 16 tokens its N: per
+//    stage, 8 x 2 wgmma m64n16k16, w the transposed (MN-major) A read as
+//    stored, buf the K-major B, both from shared memory. wgmma rather than
+//    mma.sync: it reads both operands from the TMA's swizzled tiles with no
+//    ldmatrix and no register copy, and at N = 16 it pads C by at most 16x
+//    (a 64-row A of tokens, padded the other way round, would be 64x at C =
+//    1); compute stays far under a stage's load time either way. One
+//    consumer warpgroup holds 16 f32 accumulators a thread, frees each
+//    stage as soon as its products are done, and stores a tile's bf16
+//    outputs straight from them (the output is <= 0.4 % of the bytes).
+//    The grid: the E x ceil(F/128) tiles t = (expert t / n_tiles, F columns
+//    (t % n_tiles)*128..), walked as t = b, b + G, ... by the fewest blocks
+//    (at most one an SM) that give every block the same number of tiles:
+//    128 blocks of 8, 3, 6 and 16 tiles at mixtral's gate/up and down and
+//    qwen3-moe's gate/up and down on 132 SMs. Each tile's whole D is summed
+//    in one block, in order, so a call is bit-identical to the next with no
+//    atomics. The blocks that run together hold adjacent tiles and walk D
+//    at the same pace, so the card reads whole rows of w at a time. Tried
+//    on an H100 and slower at one decode shape or more: splitting D to even
+//    the blocks' shares (stream-K over (tile, step) units, or 2 or 3 splits
+//    a tile summed in a fixed order: split blocks read scattered rows, and
+//    a split tile's partials cost a fence and a second pass); 64- and
+//    256-column tiles; 64-, 192- and 256-deep stages; more bytes in flight
+//    (more stages, or 2 and 3 blocks an SM); 128-byte promotion; an
+//    evict-first policy on w (fast back to back, but 7 % slower after L2
+//    was filled with dirty lines); grids that leave some blocks a tile more.
+// 3. bf16 that fails the TMA rule: D or F no multiple of 8, or a base
+//    not 16-byte aligned, at any C (`moe_gmm_bf16_kernel<64, 64, 32, 32,
+//    32>`, entry repro_moe_gmm_bf16): the first port's 64 x 64 wmma tile;
+//    ragged edges zero-filled on load and masked on store, so any shape
+//    runs.
 // 4. f32 (tests only; entry repro_moe_gmm_f32): one output per thread from
 //    16 x 16 tiles by FMAs.
 //
@@ -481,6 +518,165 @@ int launch(const void* a, const void* b, void* out, int E, int M, int N, int K,
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// ===========================================================================
+// 2. bf16 decode: w through a TMA ring, out^T = w^T . buf^T on wgmma, one
+//    block an SM walking whole tiles
+// ===========================================================================
+namespace dec {
+
+constexpr int BN = 128;              // F columns a tile: two boxes of 64
+constexpr int BK = 128;              // D rows a stage: two 128-byte swizzled rows of buf
+constexpr int NR = 16;               // buf rows a stage, wgmma's N: C <= 16, zero past C
+constexpr int kStages = 2;
+constexpr int kConsumerWarps = 4;    // one warpgroup
+constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
+constexpr int kW = BK * BN;          // elements of a stage's w tile (32 KB)
+constexpr int kA = NR * BK;          // of its buf tile (4 KB)
+// + 1 KB to align the tiles to the swizzle pattern's 1024 bytes
+constexpr int kBytes = 2 * kStages * (kW + kA) + 8 * 2 * kStages + 1024;
+
+struct Params {
+  __nv_bfloat16* out;   // (E, C, F)
+  int C, F, n_tiles, k_steps, tiles;   // F tiles an expert, D steps a tile, E*n_tiles
+  int a_pos[3], w_pos[3];
+};
+
+// tile t is F columns (t % n_tiles)*BN.. of expert t / n_tiles
+__global__ void __launch_bounds__(kThreads, 1)
+    moe_gmm_decode_kernel(const __grid_constant__ CUtensorMap amap,
+                          const __grid_constant__ CUtensorMap wmap, const Params p) {
+  using namespace hopper;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(aligned_smem(smem_raw, true));
+  __nv_bfloat16* as = ws + kStages * kW;
+  uint64_t* full = reinterpret_cast<uint64_t*>(as + kStages * kA);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // ---- producer: one thread issues every TMA load of the block's tiles ----
+    if (lane == 0) {
+      const uint64_t again = l2_evict_last();   // buf is read once per F tile
+      int it = 0;
+#pragma unroll 1
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        const int e = t / p.n_tiles, n0 = t % p.n_tiles * BN;
+#pragma unroll 1
+        for (int k = 0; k < p.k_steps; ++k, ++it) {
+          const int stage = it % kStages;
+          mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[stage], 2 * (kW + kA));
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            load_box(ws + stage * kW + c * BK * 64, &wmap, &full[stage], p.w_pos, n0 + 64 * c,
+                     k * BK, e, 0);
+#pragma unroll
+          for (int c = 0; c < BK / 64; ++c)
+            load_box(as + stage * kA + c * NR * 64, &amap, &full[stage], p.a_pos,
+                     k * BK + 64 * c, 0, e, 0, again);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: box m's accumulator is the tile's F rows 64m..64m+63
+  // (wgmma's M) x the 16 token columns (N). This thread holds F rows
+  // 16*warp + lane/4 (+ 8) and tokens 8j + 2*(lane%4) + {0, 1}: register
+  // 4j + {0, 1} the first row, 4j + {2, 3} the second ----
+  float acc[BN / 64][8];
+  int it = 0;
+#pragma unroll 1
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+#pragma unroll
+    for (int m = 0; m < BN / 64; ++m)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[m][i] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < p.k_steps; ++k, ++it) {
+      const int stage = it % kStages;
+      mbar_wait(&full[stage], (it / kStages) & 1);
+      const __nv_bfloat16* wt = ws + stage * kW;
+      const __nv_bfloat16* at = as + stage * kA;
+#pragma unroll
+      for (int m = 0; m < BN / 64; ++m) fence_regs(acc[m]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = desc_k_major<64>(at, NR, kk);
+#pragma unroll
+        for (int m = 0; m < BN / 64; ++m)
+          wgmma_ss<16, 1, 0>(acc[m], desc_mn_major<64>(wt + m * BK * 64, BK, kk), db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < BN / 64; ++m) fence_regs(acc[m]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);   // done with the stage: free it at once
+    }
+
+    // out[e][c][f] for the tokens c < C and the columns f < F
+    const int e = t / p.n_tiles, n0 = t % p.n_tiles * BN;
+    __nv_bfloat16* o_e = p.out + static_cast<long long>(e) * p.C * p.F;
+#pragma unroll
+    for (int m = 0; m < BN / 64; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int f = n0 + 64 * m + 16 * warp + lane / 4 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int c = 8 * j + 2 * (lane % 4) + x;
+            if (c < p.C && f < p.F)
+              o_e[static_cast<long long>(c) * p.F + f] = __float2bfloat16(acc[m][4 * j + 2 * h + x]);
+          }
+      }
+  }
+}
+
+// buf (E, C, D), w (E, D, F), out (E, C, F), all contiguous; C <= NR, D and
+// F multiples of 8, buf's and w's bases 16-byte aligned (TMA's rule); at
+// most one block an SM, as few as give each the same number of tiles
+int launch(const void* buf, const void* w, void* out, int E, int C, int D, int F,
+           cudaStream_t stream) {
+  const long long n_tiles = (F + BN - 1LL) / BN, tiles = E * n_tiles;
+  if (E <= 0 || C <= 0 || C > NR || D <= 0 || F <= 0 || D % 8 || F % 8 ||
+      !aligned16(buf) || !aligned16(w) || tiles > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  Params p{static_cast<__nv_bfloat16*>(out), C, F, static_cast<int>(n_tiles),
+           (D + BK - 1) / BK, static_cast<int>(tiles), {}, {}};
+  CUtensorMap am, wm;
+  cudaError_t err;
+  const long long cd = static_cast<long long>(C) * D, df = static_cast<long long>(D) * F;
+  if ((err = hopper::make_map(&am, buf, D, {C, E, 1}, {D, cd, cd * E}, 64, NR, p.a_pos)) ||
+      (err = hopper::make_map(&wm, w, F, {D, E, 1}, {F, df, df * E}, 64, BK, p.w_pos, true)))
+    return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      moe_gmm_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (attr != cudaSuccess) return attr;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+    return err;
+  const long long rounds = (tiles + sms - 1) / sms;
+  const int grid = static_cast<int>((tiles + rounds - 1) / rounds);
+  moe_gmm_decode_kernel<<<grid, kThreads, kBytes, stream>>>(am, wm, p);
+  return cudaGetLastError();
+}
+
+}  // namespace dec
+
 int check_dims(int E, int M, int N, int K, int rows_per_block) {
   if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || E > 65535 ||
       (M + rows_per_block - 1) / rows_per_block > 65535)
@@ -515,17 +711,17 @@ int launch_f32(const void* a, const void* b, void* out, int E, int M, int N, int
 
 }  // namespace
 
-// the tile is the caller's choice (`_variant`): any C runs on either
+// any shape, any C: the caller's choice where TMA's rule fails (`_variant`)
 extern "C" int repro_moe_gmm_bf16(const void* buf, const void* w, void* out, int E, int C,
                                   int D, int F, void* stream) {
   return launch_bf16<64, 64, 32, 32, 32, false, true>(buf, w, out, E, C, F, D,
                                                       static_cast<cudaStream_t>(stream));
 }
 
+// C <= 16 under TMA's rule
 extern "C" int repro_moe_gmm_bf16_decode(const void* buf, const void* w, void* out, int E,
                                          int C, int D, int F, void* stream) {
-  return launch_bf16<16, 64, 64, 16, 16, false, true>(buf, w, out, E, C, F, D,
-                                                      static_cast<cudaStream_t>(stream));
+  return dec::launch(buf, w, out, E, C, D, F, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_moe_gmm_f32(const void* buf, const void* w, void* out, int E, int C,

@@ -11,11 +11,15 @@ f32 and cast once to buf's dtype.
 On the card a call is bound by w's bytes (qwen3-moe-30b-a3b: 403 MB of w
 per call, ~0.12 ms at 3.35 TB/s); at a prefill step's C = 320 about as much
 by its operations. ``_variant`` picks one of four kernels by dtype and
-shape: ``tc_prefill`` (bf16, C > 16, D and F multiples of 8, 16-byte-aligned
-bases: TMA + ``wgmma``, persistent), ``decode`` (bf16, C <= 16: a 16-row
-``wmma`` tile that reads every weight once), ``wmma`` (bf16, C > 16 where
-the TMA rule fails: the first port's 64 x 64 tile) and ``fma`` (f32). The
-kernels' design notes are in their source.
+shape. bf16 under TMA's rule (D and F multiples of 8, buf's and w's bases
+16-byte aligned) takes ``decode`` up to C = 16 tokens per expert (w
+streamed through a TMA ring, ``wgmma`` with w as the wide operand, at most
+one block an SM walking whole 128-column tiles: every expert's weights
+read once, in order, so a call is bit-identical to the next) and
+``tc_prefill`` above (TMA + ``wgmma``, persistent). bf16 that fails the
+rule takes ``wmma`` (the first port's 64 x 64 tile, any shape) and f32
+``fma``. The rule is by shape, chosen before the launch; a
+kernel that fails raises. The kernels' design notes are in their source.
 
 The backward (the TPU kernel has none: JAX differentiates the einsum with
 XLA) runs through the same three kernels templated on their operands'
@@ -37,7 +41,7 @@ from . import build
 DTYPES = (torch.float32, torch.bfloat16)
 VARIANTS = ("tc_prefill", "decode", "wmma", "fma")
 BWD_VARIANTS = ("tc", "wmma", "fma")
-# tokens per expert up to which the 16-row decode tile serves a call
+# tokens per expert up to which the decode kernel serves a call
 DECODE_MAX_C = 16
 
 
@@ -66,11 +70,9 @@ def _variant(dtype: torch.dtype, C: int, D: int, F: int, aligned: bool) -> str:
     (TMA reads rows of D and F at 16-byte strides from such bases)."""
     if dtype == torch.float32:
         return "fma"
-    if C <= DECODE_MAX_C:
-        return "decode"
-    if D % 8 == 0 and F % 8 == 0 and aligned:
-        return "tc_prefill"
-    return "wmma"
+    if not (D % 8 == 0 and F % 8 == 0 and aligned):
+        return "wmma"
+    return "decode" if C <= DECODE_MAX_C else "tc_prefill"
 
 
 def _bwd_variant(dtype: torch.dtype, D: int, F: int, aligned: bool) -> str:

@@ -11,9 +11,12 @@ same two shapes with 32 query and 4 KV heads of 128, RMSNorm at d = 2048,
 and the grouped expert GEMM of one MoE layer (128 experts, d 2048, ff 768)
 at a decode round of 8 slots (C = 8), a 511-token and a 256-token
 admission (C = 40, 256) and the prefill step (C = 320), gate/up
-(2048 -> 768) and down (768 -> 2048). The SSD scan at mamba2-370m's
-prefill step (B=4, S=1024, 32 heads of 64, N=128), at zamba2-2.7b's (80
-heads, N=64) and at one 511-token mamba2-370m admission; flash attention at
+(2048 -> 768) and down (768 -> 2048); mixtral-8x22b's experts (8, d 6144,
+ff 16384) at its decode rounds' C = 1 (one slot) and 8, gate/up and down;
+each decode shape beside ``torch.bmm`` of the same product. The SSD scan
+at mamba2-370m's prefill step (B=4, S=1024, 32 heads of 64, N=128), at
+zamba2-2.7b's (80 heads, N=64) and at one 511-token mamba2-370m
+admission; flash attention at
 zamba2-2.7b's 32 heads of 80 (prefill and decode shapes as above), RMSNorm
 at 4096 and 8 rows of its d_inner 5120. gemma3-12b: flash attention at 16
 query and 8 KV heads of 256 at the prefill shape (window 1024) and the
@@ -32,8 +35,9 @@ contains it (``--only flash_bwd`` runs on a checkout whose forward lacks
 D = 256). ``--ssd-heads`` also times the bf16 SSD kernels at each number of
 heads a block can take at their shapes (a divisor of H/G up to
 ``ssd_scan.TC_MAX_HEADS``, ``TC_BWD_MAX_HEADS`` for the backward;
-``ssd_scan._heads_per_block`` and ``_bwd_heads_per_block`` pick one). A
-time is the summed
+``ssd_scan._heads_per_block`` and ``_bwd_heads_per_block`` pick one).
+``--cold`` also times every call with L2 flushed before it, under its name
+and " (L2 flushed)". A time is the summed
 duration of what one call runs on the device, traced by
 ``torch.profiler`` (CUDA events around the call where the profiler
 records nothing); host time between launches does not count. ``--events``
@@ -62,6 +66,10 @@ from ..kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 # admission and in a B=4 x S=1024 prefill step
 MOE_E, MOE_D, MOE_F = 128, 2048, 768
 MOE_C = {"decode": 8, "admit511": 40, "admit256": 256, "prefill": 320}
+# mixtral-8x22b's experts, d_model, d_ff; tokens per expert in its decode
+# rounds at one slot and at 8
+MIXTRAL_E, MIXTRAL_D, MIXTRAL_F = 8, 6144, 16384
+MIXTRAL_DECODE_C = (1, 8)
 # tokens per expert in a train microbatch of 4 x 1024 tokens:
 # round(4096 · 8 / 128 · 1.25)
 MOE_TRAIN_C = 320
@@ -184,6 +192,23 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, kernel: str = "",
     return us / iters / 1e3
 
 
+def profiled_or_events(busy_us: float, fn, what: str, **wall_s: float):
+    """``busy_us``, the device time that a profiled run of ``fn`` recorded;
+    or, where ``torch.profiler`` recorded no device event (as ``device_ms``
+    meets now and then), the time of ``fn`` run once more between CUDA
+    events (``event_ms``: its device span, gaps between kernels included),
+    with a line that says so. Each ``wall_s`` (name=seconds) gives an idle
+    share, 1 - busy / wall; None where the time is a span, which holds the
+    host's gaps and so reads no idle share. → (µs, "torch.profiler" or
+    "CUDA events", {name: idle share or None})."""
+    if busy_us > 0:
+        return busy_us, "torch.profiler", {k: 1.0 - busy_us / 1e6 / s for k, s in wall_s.items()}
+    print(f"{what}: torch.profiler recorded no device event; timed with CUDA events "
+          f"instead (the span holds the gaps between kernels: no idle share, no breakdown)",
+          flush=True)
+    return event_ms(fn) * 1e3, "CUDA events", dict.fromkeys(wall_s)
+
+
 def wrapper_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean time of one call of ``fn`` back to back, CUDA events around the
     run: where a launch is shorter than the call, this is the host's time."""
@@ -214,7 +239,7 @@ def _with_heads(fn, heads: int, picker: str = "_heads_per_block"):
 
 
 def main(repeats: int = 3, only: str = "", ssd_heads: bool = False,
-         events: bool = False) -> dict:
+         events: bool = False, cold: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
     gen = torch.Generator("cuda").manual_seed(0)
@@ -323,14 +348,35 @@ def main(repeats: int = 3, only: str = "", ssd_heads: bool = False,
             lambda x=x_d: moe_gmm_cuda(x, w_up)
         calls[f"moe_gmm {path} down C={MOE_C[path]}"] = \
             lambda x=x_f: moe_gmm_cuda(x, w_down)
+    calls["moe_gmm decode gate/up C=8 torch.bmm"] = lambda: torch.bmm(bufs["decode"][0], w_up)
+    calls["moe_gmm decode down C=8 torch.bmm"] = lambda: torch.bmm(bufs["decode"][1], w_down)
+    mixtral = {}   # its w (1.61 GB a part) and bufs, made at first use
+
+    def mixtral_inputs(part, c):
+        if (part, c) not in mixtral:
+            d_in, d_out = (MIXTRAL_D, MIXTRAL_F) if part == "gate/up" else (MIXTRAL_F, MIXTRAL_D)
+            if part not in mixtral:
+                mixtral[part] = randn(MIXTRAL_E, d_in, d_out)
+            mixtral[(part, c)] = randn(MIXTRAL_E, c, d_in)
+        return mixtral[(part, c)], mixtral[part]
+    for c in MIXTRAL_DECODE_C:
+        for part in ("gate/up", "down"):
+            calls[f"moe_gmm mixtral decode {part} C={c}"] = \
+                lambda part=part, c=c: moe_gmm_cuda(*mixtral_inputs(part, c))
+            calls[f"moe_gmm mixtral decode {part} C={c} torch.bmm"] = \
+                lambda part=part, c=c: torch.bmm(*mixtral_inputs(part, c))
     calls = {name: fn for name, fn in calls.items() if only in name}
     out = {name: [] for name in calls}
     out.update({f"{name} (CUDA events)": [] for name in calls if events})
+    out.update({f"{name} (L2 flushed)": [] for name in calls if cold})
     for _ in range(repeats):
         for name, fn in calls.items():
             out[name].append(device_ms(fn, iters=50, kernel=kernels.get(name, "")))
             if events:
                 out[f"{name} (CUDA events)"].append(event_ms(fn, iters=50))
+            if cold:
+                out[f"{name} (L2 flushed)"].append(
+                    device_ms(fn, iters=20, kernel=kernels.get(name, ""), cold=True))
     report = {"device": torch.cuda.get_device_name(0), "device_ms": out}
     print(json.dumps(report))
     return report
@@ -344,5 +390,7 @@ if __name__ == "__main__":
                     help="also time the bf16 SSD kernels at each heads-per-block choice")
     ap.add_argument("--events", action="store_true",
                     help="also time every call with CUDA events (device_ms's fallback)")
+    ap.add_argument("--cold", action="store_true",
+                    help="also time every call with L2 flushed before it")
     args = ap.parse_args()
-    main(args.repeats, args.only, args.ssd_heads, args.events)
+    main(args.repeats, args.only, args.ssd_heads, args.events, args.cold)

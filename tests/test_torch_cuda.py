@@ -89,6 +89,15 @@ GMM_TC_CASES = [
     (2, 129, 128, 264), (8, 256, 512, 256), (4, 320, 2048, 768), (4, 320, 768, 2048),
     (2, 64, 136, 40), (2, 500, 64, 256), (2, 600, 64, 256), (2, 700, 128, 264),
 ]
+# (E, C, D, F) of the decode kernel (bf16, C <= 16, D and F multiples of 8;
+# 128-column F tiles, 128-deep K steps): C = 1, 2, 8, 15, 16; F of two
+# tiles, four, below one 64-column box (40), no multiple of it (72, 264); D
+# below one step (64), no multiple of it (136, 200); qwen3-moe's widths; a
+# long D (128 steps)
+GMM_DECODE_CASES = [
+    (4, 1, 256, 256), (4, 2, 128, 512), (3, 8, 200, 72), (2, 15, 136, 264),
+    (2, 16, 64, 40), (16, 8, 2048, 768), (16, 1, 768, 2048), (2, 16, 16384, 512),
+]
 # (rows, d) of RMSNorm: each row mapping (a warp a row up to d = 2048 in
 # bf16, 2 and 4 warps a row above, 8 for fewer rows than SMs, the wide
 # kernel past 2048 vectors of 16 bytes), 4096 rows and 8, d no multiple of
@@ -377,9 +386,38 @@ def test_cuda_moe_gmm_tc_prefill_matches_plain_version_at_ragged_c():
                                             "wmma": 0, "fma": 0}
 
 
+def test_cuda_moe_gmm_decode_matches_plain_version_and_repeats_bit_for_bit():
+    """The decode kernel at C = 1..16, ragged D and F, and more tiles than
+    blocks (a block walks several); an expert of all-zero rows with a NaN in
+    its w gives NaN where the plain version does; a second call on the same
+    inputs is equal bit for bit; every launch on ``decode``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(6)
+    ops.reset_launch_counts()
+    for E, C, D, F in GMM_DECODE_CASES:
+        buf = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (D ** -0.5 * torch.randn(E, D, F, generator=gen, device="cuda")).to(torch.bfloat16)
+        got, again = moe_gmm_cuda(buf, w), moe_gmm_cuda(buf, w)
+        want = moe_gmm_plain(buf, w)
+        torch.cuda.synchronize()
+        assert got.shape == (E, C, F) and torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+        buf[1] = 0
+        w[1, D // 2, F // 3] = float("nan")
+        got, want = moe_gmm_cuda(buf, w), moe_gmm_plain(buf, w)
+        torch.cuda.synchronize()
+        assert int(want.isnan().sum()) == C
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2,
+                                   equal_nan=True)
+    assert ops.moe_gmm_variant_counts() == {"tc_prefill": 0, "decode": 3 * len(GMM_DECODE_CASES),
+                                            "wmma": 0, "fma": 0}
+
+
 def test_cuda_moe_gmm_takes_the_wmma_tile_where_tma_cannot_read():
-    """A base 2 bytes past a 16-byte boundary, or a D no multiple of 8: the
-    64 x 64 wmma tile, by the picker's rule; the decode tile up to C = 16."""
+    """A base 2 bytes past a 16-byte boundary, or a D or F no multiple of 8:
+    the 64 x 64 wmma tile at any C, by the picker's rule; the decode kernel
+    at C <= 16 where the rule holds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator("cuda").manual_seed(4)
@@ -389,13 +427,15 @@ def test_cuda_moe_gmm_takes_the_wmma_tile_where_tma_cannot_read():
 
     flat = randn(1 + 2 * 40 * 64)
     cases = [(flat[1:].view(2, 40, 64), randn(2, 64, 32)),
-             (randn(2, 40, 60), randn(2, 60, 32)), (randn(2, 16, 64), randn(2, 64, 32))]
+             (randn(2, 40, 60), randn(2, 60, 32)), (randn(2, 16, 64), randn(2, 64, 32)),
+             (flat[1:1 + 2 * 8 * 64].view(2, 8, 64), randn(2, 64, 32)),
+             (randn(2, 1, 60), randn(2, 60, 32)), (randn(2, 16, 64), randn(2, 64, 36))]
     ops.reset_launch_counts()
     for buf, w in cases:
         assert buf.is_contiguous()
         torch.testing.assert_close(moe_gmm_cuda(buf, w).float(),
                                    moe_gmm_plain(buf, w).float(), rtol=2e-2, atol=2e-2)
-    assert ops.moe_gmm_variant_counts() == {"tc_prefill": 0, "decode": 1, "wmma": 2,
+    assert ops.moe_gmm_variant_counts() == {"tc_prefill": 0, "decode": 1, "wmma": 5,
                                             "fma": 0}
 
 

@@ -59,10 +59,13 @@ FLASH_BWD_CASES = [
 # 40 tokens per expert (one slot, a decode round of 8 slots, a 511-token
 # admission of qwen3-moe-30b-a3b); then the qwen3-moe smoke layer's widths
 # (8 experts, d 128, ff 64), gate/up and down, at C = 40, 82 (264 tokens)
-# and 100: no multiple of the 64-row tile
+# and 100: no multiple of the 64-row tile; then decode shapes: C = 16, the
+# most the decode kernel takes, and a D and F that meet TMA's rule but no
+# tile's width
 GMM_CASES = [(2, 64, 128, 96), (8, 128, 64, 256), (3, 96, 160, 32),
              (4, 1, 128, 64), (4, 8, 128, 64), (4, 40, 128, 64),
-             (8, 40, 128, 64), (8, 40, 64, 128), (8, 82, 128, 64), (8, 100, 64, 128)]
+             (8, 40, 128, 64), (8, 40, 64, 128), (8, 82, 128, 64), (8, 100, 64, 128),
+             (4, 16, 128, 64), (3, 8, 200, 72)]
 NO_LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                "moe_gmm": 0, "moe_gmm_dx": 0, "moe_gmm_dw": 0, "ssd_scan": 0,
                "ssd_scan_bwd": 0}
@@ -453,12 +456,40 @@ def test_moe_gmm_plain_matches_pallas(E, C, D, F, name):
         np.testing.assert_allclose(_np(got), _np(want), **tol)
 
 
+@pytest.mark.parametrize("C", [1, 8, 16])
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_moe_gmm_plain_matches_pallas_with_an_expert_of_zero_rows(C, nan, name):
+    """Decode shapes where one expert got no token (its rows all zero), with
+    and without a NaN in that expert's w: zero times NaN is NaN, so that
+    expert's column is NaN in every row in the Pallas kernel, in
+    ``ref.moe_gmm_ref`` and in the plain version alike (the NaNs must fall
+    on the same elements), and the rest agrees within the tolerances of
+    ``test_moe_gmm_plain_matches_pallas``."""
+    E, D, F = 4, 128, 64
+    b = RNG.normal(0, 1, (E, C, D))
+    b[2] = 0.0
+    w = RNG.normal(0, 0.5, (E, D, F))
+    if nan:
+        w[2, 37, 11] = np.nan
+    (bj, bt), (wj, wt) = _pair(b, name), _pair(w, name)
+    got = moe_gmm_plain(bt, wt)
+    assert bool(got.isnan().any()) == nan
+    if nan:
+        assert bool(got[2, :, 11].isnan().all()) and int(got.isnan().sum()) == C
+    else:
+        assert not bool(got[2].any())
+    tol = dict(rtol=5e-2, atol=5e-1) if name == "bfloat16" else dict(rtol=1e-3, atol=1e-3)
+    for want in (moe_gmm_pallas(bj, wj, interpret=True), ref.moe_gmm_ref(bj, wj)):
+        np.testing.assert_allclose(_np(got), _np(want), equal_nan=True, **tol)
+
+
 @pytest.mark.parametrize("dtype,C,D,F,aligned,want", [
     (torch.float32, 320, 2048, 768, True, "fma"),
     (torch.float32, 8, 2048, 768, True, "fma"),
     (torch.bfloat16, 1, 2048, 768, True, "decode"),
     (torch.bfloat16, 16, 2048, 768, True, "decode"),
-    (torch.bfloat16, 16, 100, 36, False, "decode"),
+    (torch.bfloat16, 16, 100, 36, False, "wmma"),
     (torch.bfloat16, 17, 2048, 768, True, "tc_prefill"),
     (torch.bfloat16, 40, 2048, 768, True, "tc_prefill"),
     (torch.bfloat16, 320, 768, 2048, True, "tc_prefill"),
@@ -466,12 +497,24 @@ def test_moe_gmm_plain_matches_pallas(E, C, D, F, name):
     (torch.bfloat16, 40, 100, 64, True, "wmma"),
     (torch.bfloat16, 40, 128, 36, True, "wmma"),
     (torch.bfloat16, 320, 2048, 768, False, "wmma"),
+    # decode under TMA's rule: mixtral-8x22b's gate/up and down at one slot
+    # and a round of 8, qwen3-moe's down, a D and F of no tile's width
+    (torch.bfloat16, 1, 6144, 16384, True, "decode"),
+    (torch.bfloat16, 8, 16384, 6144, True, "decode"),
+    (torch.bfloat16, 8, 768, 2048, True, "decode"),
+    (torch.bfloat16, 5, 200, 72, True, "decode"),
+    # C <= 16 where the rule fails: a misaligned base, D or F no multiple of 8
+    (torch.bfloat16, 1, 2048, 768, False, "wmma"),
+    (torch.bfloat16, 8, 768, 2048, False, "wmma"),
+    (torch.bfloat16, 8, 2044, 768, True, "wmma"),
+    (torch.bfloat16, 1, 100, 64, True, "wmma"),
+    (torch.bfloat16, 16, 128, 36, True, "wmma"),
 ])
 def test_moe_gmm_variant_picker(dtype, C, D, F, aligned, want):
-    """bf16 takes the TMA + wgmma kernel for C > 16 tokens per expert where
-    D and F are multiples of 8 and the bases 16-byte aligned (TMA's rule),
-    the 16-row decode tile up to C = 16 whatever the widths, and the 64 x 64
-    wmma tile where the TMA rule fails; f32 its FMA kernel."""
+    """bf16 under TMA's rule (D and F multiples of 8, the bases 16-byte
+    aligned) takes the decode kernel up to C = 16 tokens per expert and the
+    TMA + wgmma prefill kernel above; bf16 that fails the rule takes the 64
+    x 64 wmma tile at any C; f32 its FMA kernel."""
     assert moe_gmm._variant(dtype, C, D, F, aligned) == want
     assert want in moe_gmm.VARIANTS
 
