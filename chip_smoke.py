@@ -76,9 +76,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                and bf16 at C = 1, 8, 17, 40, 320, and at mixtral-8x22b's
                widths (E 8, D 6144, F 16384) at C = 8, 320, 1280, with D
                or F no multiple of 8 and a misaligned base (the wmma
-               tile), its launches by variant checked, timed at the MoE
-               train microbatches (gate/up and down, C = 320 and 1280)
-               beside ``torch.bmm``; the SSD backward
+               tile), at the tc kernels' edges (GMM_BWD_EDGE: one K step
+               with N one tile, C = 40, 64, 65, 127, 128, 320, D and F of
+               64, 256 and 264), every bf16 call twice and equal bit for
+               bit, its launches by variant checked, timed warm and with
+               L2 flushed at the MoE train microbatches (gate/up and down,
+               C = 320 and 1280) beside ``torch.bmm``; the SSD backward
                (dxh, ddt, da, dB, dC) in f32 (``fma``) and bf16 (``tc``)
                at ragged S (1 to 300, the 64-row tile's and the 128-row
                chunk's edges), G = 1, 2, 4, every state dim, P = 32, 64,
@@ -415,6 +418,13 @@ GMM_WIDE_TIMED = {"mixtral_one_slot": 1, "mixtral_decode": 8, "mixtral_prefill":
 GMM_BWD_WIDE_C = (8, 320, 1280)
 GMM_BWD_WMMA_CASES = [(3, 100, 200, 76, 0, 0), (4, 40, 2044, 768, 0, 0),
                       (4, 17, 768, 2048, 1, 0), (4, 40, 2048, 768, 0, 1)]
+# the tc backward kernel's edges (E, C, D, F), from a generator of their
+# own (EDGE_SEED): one 64-deep K step with N one 256-column tile (dX at C =
+# 40 and 64, dW at C = 64), C = 64, 65, 127, 128 and 320 around dW's
+# 64-deep steps and within dX's 320-token tile, D and F of 64, 256 and 264
+GMM_BWD_EDGE = [(4, 40, 256, 64), (2, 64, 256, 64), (2, 64, 64, 256), (2, 65, 64, 256),
+                (2, 127, 264, 256), (2, 128, 256, 264), (2, 320, 64, 264), (3, 320, 264, 64)]
+EDGE_SEED = 11
 # the SSD backward's (B, S, H, P, G, N): S ragged and at its 64-row tile's
 # edges (1, 37, 127, 128, 129, 257, 300), G = 1, 2, 4 with several heads a
 # group, every state dim, P = 32, 64, 128; each in f32 and bf16, strided
@@ -1091,16 +1101,18 @@ def gmm_bwd_phase(gen):
     """The grouped GEMM's dX and dW kernels against ``moe_gmm_bwd_plain``,
     f32 and bf16: GMM_BWD_C at qwen3-moe's widths and GMM_BWD_WIDE_C at
     mixtral-8x22b's (gate/up), D/F of no tile's width and a misaligned base
-    (GMM_BWD_WMMA_CASES, bf16), then each config's train microbatch, gate/up
-    and down (C = 320 and 1280), also held per 64-row tile and timed
-    (beside ``torch.bmm`` of the same product). Tolerance:
-    TOL relative and TOL of the largest |value| (the products sum F or C
-    terms in another order). Every launch on the variant ``_bwd_variant``
-    names: bf16 on ``tc`` but GMM_BWD_WMMA_CASES, on ``wmma``."""
+    (GMM_BWD_WMMA_CASES, bf16), the tc kernel's edges (GMM_BWD_EDGE), then
+    each config's train microbatch, gate/up and down (C = 320 and 1280),
+    also held per 64-row tile and timed warm and with L2 flushed (beside
+    ``torch.bmm`` of the same product, likewise). Tolerance: TOL relative
+    and TOL of the largest |value| (the products sum F or C terms in
+    another order). Every bf16 call runs twice and must equal its repeat
+    bit for bit. Every launch on the variant ``_bwd_variant`` names: bf16
+    on ``tc`` but GMM_BWD_WMMA_CASES, on ``wmma``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.moe_gmm import (
-        _bwd_variant, moe_gmm_bwd_plain, moe_gmm_dw_cuda, moe_gmm_dx_cuda)
+        _bwd_plan, _bwd_variant, moe_gmm_bwd_plain, moe_gmm_dw_cuda, moe_gmm_dx_cuda)
     from repro_torch.launch.kernel_times import (
         MOE_D, MOE_E, MOE_F, MOE_TRAIN_C, device_ms, wrapper_ms)
     worst = {"moe_gmm_dx": 0.0, "moe_gmm_dw": 0.0}
@@ -1108,15 +1120,23 @@ def gmm_bwd_phase(gen):
 
     def check(name, buf, w, dy, tma=True, tiles=None):
         """dX reads dy and w, dW buf and dy: each product's variant goes by
-        its own operands' bases (a misaligned w leaves dW on ``tc``)."""
+        its own operands' bases (a misaligned w leaves dW on ``tc``). A bf16
+        product runs twice: the kernels sum each output in one block in a
+        fixed order, so the repeat must be equal bit for bit."""
         dt = str(buf.dtype)[6:]
+        calls = 2 if buf.dtype == torch.bfloat16 else 1
         for kern, operands in (("moe_gmm_dx", (dy, w)), ("moe_gmm_dw", (buf, dy))):
             variant = _bwd_variant(buf.dtype, buf.shape[2], w.shape[2],
                                    all(t.data_ptr() % 16 == 0 for t in operands))
             if buf.dtype == torch.bfloat16 and tma and variant != "tc":
                 fail(f"{name}: bf16 {kern} would take {variant}")
-            want[kern][variant] += 1
+            want[kern][variant] += calls
         got = (moe_gmm_dx_cuda(dy, w), moe_gmm_dw_cuda(buf, dy))
+        if calls == 2:
+            again = (moe_gmm_dx_cuda(dy, w), moe_gmm_dw_cuda(buf, dy))
+            for kern, g, a in zip(worst, got, again):
+                if not torch.equal(g, a):
+                    fail(f"{name} {kern}: a repeated bf16 call differs from the first")
         for kern, g, p in zip(worst, got, moe_gmm_bwd_plain(buf, w, dy)):
             tol = TOL[dt] * float(p.float().abs().max())
             worst[kern] = max(worst[kern], compare(f"{name} {kern}", g, p, tol, TOL[dt]))
@@ -1145,6 +1165,11 @@ def gmm_bwd_phase(gen):
         w = randn(w_off + E * D * F, std=D ** -0.5).bfloat16()[w_off:].view(E, D, F)
         check(f"moe_gmm bwd wmma {(E, C, D, F)} offsets {(x_off, w_off)}", buf, w, dy,
               tma=False)
+    edge = torch.Generator("cuda").manual_seed(EDGE_SEED)
+    for (E, C, D, F) in GMM_BWD_EDGE:
+        for dt in (torch.float32, torch.bfloat16):
+            check(f"moe_gmm bwd edge {(E, C, D, F)} {dt}", randn(E, C, D, g=edge).to(dt),
+                  randn(E, D, F, std=D ** -0.5, g=edge).to(dt), randn(E, C, F, g=edge).to(dt))
     inputs, tile_rel = {}, {}
     # the train microbatch's (C = round(4096·K/E·1.25)): qwen3-moe-30b-a3b's
     # from the shared generator, then mixtral-8x22b's from its own
@@ -1160,9 +1185,9 @@ def gmm_bwd_phase(gen):
         check(f"moe_gmm bwd {part}", *inputs[part], tiles=tile_rel[part])
     got = ops.moe_gmm_bwd_variant_counts()
     # every GMM_BWD_WMMA_CASES case puts dX on wmma; dW all but the one
-    # whose only misaligned operand is w
+    # whose only misaligned operand is w; each bf16 product twice
     if got != want or (want["moe_gmm_dx"]["wmma"], want["moe_gmm_dw"]["wmma"]) != \
-            (len(GMM_BWD_WMMA_CASES), len(GMM_BWD_WMMA_CASES) - 1):
+            (2 * len(GMM_BWD_WMMA_CASES), 2 * (len(GMM_BWD_WMMA_CASES) - 1)):
         fail(f"moe_gmm backward launches by variant {got}, expected {want}")
     print(f"moe_gmm backward: checked cases by variant {want}")
     timed = {"moe_gmm_dx": {}, "moe_gmm_dw": {}}
@@ -1185,9 +1210,12 @@ def gmm_bwd_phase(gen):
             timed[name][part] = {
                 "shape": shape, "variant": "tc", "max_abs_err": worst[name],
                 "max_tile_rel_err": tile_rel[part][name], "ms": device_ms(call),
+                "ms_l2_flushed": device_ms(call, iters=10, cold=True),
                 "wrapper_ms": wrapper_ms(call), "plain_ms": plain_ms,
                 "plain_covers": "dX and dW together", "library_ms": device_ms(library),
-                "library": "torch.bmm", "bound_ms": b_ms, "bound_by": b_by}
+                "library_ms_l2_flushed": device_ms(library, iters=10, cold=True),
+                "library": "torch.bmm", "bound_ms": b_ms, "bound_by": b_by,
+                "n_fast": _bwd_plan(C, D, F, int(name == "moe_gmm_dw"))}
             print(f"{name} {part}: {json.dumps(timed[name][part])}")
     return worst, timed
 

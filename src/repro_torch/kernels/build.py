@@ -44,7 +44,7 @@ SIGNATURES = {
     "repro_moe_gmm_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_moe_gmm_bf16_tc": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_moe_gmm_bf16_decode": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_moe_gmm_bwd_bf16_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_moe_gmm_bwd_bf16_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_moe_gmm_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_moe_gmm_bwd_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_P],
@@ -135,12 +135,18 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            lib.repro_last_error_note.argtypes = []
+            lib.repro_last_error_note.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 
 
 def check(err: int, kernel: str) -> None:
-    """Raise if a C entry point reported a launch error (cudaGetLastError)."""
+    """Raise if a C entry point returned an error, with the note it left on
+    this thread: the check, tensor map (and libcuda's CUresult) or launch
+    that failed, or an earlier call's error found pending before the launch."""
     if err != 0:
-        msg = library().repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
+        lib = library()
+        msg = lib.repro_cuda_error_string(err).decode()
+        note = lib.repro_last_error_note().decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})" + (f": {note}" if note else ""))

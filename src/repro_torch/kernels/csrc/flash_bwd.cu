@@ -339,13 +339,12 @@ cudaError_t launch_dq_fma(const BwdParams& p, cudaStream_t stream) {
   constexpr int R = fma_rows<D>();
   constexpr int smem = static_cast<int>(sizeof(float)) * (4 * R * (D + 1) + R * (R + 1));
   auto kernel = flash_bwd_dq_kernel<D, R, kLanes, R>;
+  if (cudaError_t err = hopper::begin("flash_bwd_dq_kernel")) return err;
   // above 48 KB a block needs dynamic shared memory, opted into once
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
+  static const cudaError_t opted = hopper::opt_in(kernel, smem);
   const dim3 grid(p.B * p.Hq, (p.S + R - 1) / R);
-  kernel<<<grid, R * kLanes, smem, stream>>>(p);
-  return cudaGetLastError();
+  return hopper::launch("flash_bwd_dq_kernel", kernel, opted, grid, R * kLanes, smem, stream,
+                        p);
 }
 
 template <int D>
@@ -354,12 +353,11 @@ cudaError_t launch_dkv_fma(const BwdParams& p, cudaStream_t stream) {
   constexpr int smem =
       static_cast<int>(sizeof(float)) * (4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R);
   auto kernel = flash_bwd_dkv_kernel<D, R, kLanes, R>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
+  if (cudaError_t err = hopper::begin("flash_bwd_dkv_kernel")) return err;
+  static const cudaError_t opted = hopper::opt_in(kernel, smem);
   const dim3 grid(p.B * p.Hkv, (p.T + R - 1) / R);
-  kernel<<<grid, R * kLanes, smem, stream>>>(p);
-  return cudaGetLastError();
+  return hopper::launch("flash_bwd_dkv_kernel", kernel, opted, grid, R * kLanes, smem, stream,
+                        p);
 }
 
 // ===========================================================================
@@ -762,10 +760,10 @@ cudaError_t make_maps(const BwdParams& a, Params& p, CUtensorMap (&m)[4], int q_
   const long long qst[3] = {1LL * a.Hq * D, D, 1LL * a.S * a.Hq * D};
   const long long kst[3] = {1LL * a.Hkv * D, D, 1LL * a.T * a.Hkv * D};
   cudaError_t err;
-  if ((err = hopper::make_map(&m[0], a.q, D, qx, qst, W, q_rows, p.q_pos)) ||
-      (err = hopper::make_map(&m[1], a.k, D, kx, kst, W, k_rows, p.k_pos)) ||
-      (err = hopper::make_map(&m[2], a.v, D, kx, kst, W, k_rows, p.v_pos)) ||
-      (err = hopper::make_map(&m[3], a.dout, D, qx, qst, W, q_rows, p.do_pos)))
+  if ((err = hopper::make_map(&m[0], "q", a.q, D, qx, qst, W, q_rows, p.q_pos)) ||
+      (err = hopper::make_map(&m[1], "k", a.k, D, kx, kst, W, k_rows, p.k_pos)) ||
+      (err = hopper::make_map(&m[2], "v", a.v, D, kx, kst, W, k_rows, p.v_pos)) ||
+      (err = hopper::make_map(&m[3], "dO", a.dout, D, qx, qst, W, q_rows, p.do_pos)))
     return err;
   return cudaSuccess;
 }
@@ -781,14 +779,14 @@ cudaError_t launch_dq(const BwdParams& a, cudaStream_t stream) {
   using C = DqCfg<D>;
   Params p = params(a, a.dq, nullptr);
   CUtensorMap m[4];
-  cudaError_t err = make_maps<D>(a, p, m, C::BQ, BT);
-  if (err) return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
-  if (attr != cudaSuccess) return attr;
+  cudaError_t err;
+  if ((err = hopper::begin("flash_bwd_dq_tc_kernel")) ||
+      (err = make_maps<D>(a, p, m, C::BQ, BT)))
+    return err;
+  static const cudaError_t opted = hopper::opt_in(flash_bwd_dq_tc_kernel<D>, C::kBytes);
   const dim3 grid(a.B * a.Hq, (a.S + C::BQ - 1) / C::BQ);
-  flash_bwd_dq_tc_kernel<D><<<grid, C::kThreads, C::kBytes, stream>>>(m[0], m[1], m[2], m[3], p);
-  return cudaGetLastError();
+  return hopper::launch("flash_bwd_dq_tc_kernel", flash_bwd_dq_tc_kernel<D>, opted, grid,
+                        C::kThreads, C::kBytes, stream, m[0], m[1], m[2], m[3], p);
 }
 
 template <int D>
@@ -796,15 +794,14 @@ cudaError_t launch_dkv(const BwdParams& a, cudaStream_t stream) {
   using C = DkvCfg<D>;
   Params p = params(a, a.dk, a.dv);
   CUtensorMap m[4];
-  cudaError_t err = make_maps<D>(a, p, m, BT, C::BK);
-  if (err) return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
-  if (attr != cudaSuccess) return attr;
+  cudaError_t err;
+  if ((err = hopper::begin("flash_bwd_dkv_tc_kernel")) ||
+      (err = make_maps<D>(a, p, m, BT, C::BK)))
+    return err;
+  static const cudaError_t opted = hopper::opt_in(flash_bwd_dkv_tc_kernel<D>, C::kBytes);
   const dim3 grid(a.B * a.Hkv, (a.T + C::BK - 1) / C::BK, D / C::DC);
-  flash_bwd_dkv_tc_kernel<D><<<grid, C::kThreads, C::kBytes, stream>>>(m[0], m[1], m[2], m[3],
-                                                                        p);
-  return cudaGetLastError();
+  return hopper::launch("flash_bwd_dkv_tc_kernel", flash_bwd_dkv_tc_kernel<D>, opted, grid,
+                        C::kThreads, C::kBytes, stream, m[0], m[1], m[2], m[3], p);
 }
 
 }  // namespace tc

@@ -218,13 +218,12 @@ template <int D, int BQ, int TPR, int BK>
 cudaError_t launch_fma(const FlashParams& p, cudaStream_t stream) {
   constexpr int smem = static_cast<int>(sizeof(float)) *
                        (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+  if (cudaError_t err = hopper::begin("flash_fwd_kernel")) return err;
   // above 48 KB a block needs dynamic shared memory, opted into once
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, BQ, TPR, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
+  static const cudaError_t opted = hopper::opt_in(flash_fwd_kernel<D, BQ, TPR, BK>, smem);
   const dim3 grid(p.B * p.Hq, (p.S + BQ - 1) / BQ);
-  flash_fwd_kernel<D, BQ, TPR, BK><<<grid, BQ * TPR, smem, stream>>>(p);
-  return cudaGetLastError();
+  return hopper::launch("flash_fwd_kernel", flash_fwd_kernel<D, BQ, TPR, BK>, opted, grid,
+                        BQ * TPR, smem, stream, p);
 }
 
 template <int D>
@@ -468,19 +467,18 @@ cudaError_t launch(const FlashParams& a, cudaStream_t stream) {
   cudaError_t err;
   constexpr int W = Smem<D>::kBoxCols;
   using hopper::make_map;
-  if ((err = make_map(&qm, a.q, D, {a.S, a.Hq, a.B}, {a.q_ss, a.q_sh, a.q_sb}, W, BQ,
+  if ((err = hopper::begin("flash_fwd_tc_kernel")) ||
+      (err = make_map(&qm, "q", a.q, D, {a.S, a.Hq, a.B}, {a.q_ss, a.q_sh, a.q_sb}, W, BQ,
                       p.q_pos)) ||
-      (err = make_map(&km, a.k, D, {a.T, a.Hkv, a.B}, {a.k_ss, a.k_sh, a.k_sb}, W, BK,
+      (err = make_map(&km, "k", a.k, D, {a.T, a.Hkv, a.B}, {a.k_ss, a.k_sh, a.k_sb}, W, BK,
                       p.k_pos)) ||
-      (err = make_map(&vm, a.v, D, {a.T, a.Hkv, a.B}, {a.v_ss, a.v_sh, a.v_sb}, W, BK,
+      (err = make_map(&vm, "v", a.v, D, {a.T, a.Hkv, a.B}, {a.v_ss, a.v_sh, a.v_sb}, W, BK,
                       p.v_pos)))
     return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
-  if (attr != cudaSuccess) return attr;
+  static const cudaError_t opted = hopper::opt_in(flash_fwd_tc_kernel<D>, Smem<D>::kBytes);
   const dim3 grid(a.B * a.Hq, (a.S + BQ - 1) / BQ);
-  flash_fwd_tc_kernel<D><<<grid, Smem<D>::kThreads, Smem<D>::kBytes, stream>>>(qm, km, vm, p);
-  return cudaGetLastError();
+  return hopper::launch("flash_fwd_tc_kernel", flash_fwd_tc_kernel<D>, opted, grid,
+                        Smem<D>::kThreads, Smem<D>::kBytes, stream, qm, km, vm, p);
 }
 
 }  // namespace tc
@@ -821,14 +819,13 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Params p) 
 
 template <int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  if (cudaError_t err = hopper::begin("flash_decode_kernel")) return err;
   // dynamic shared memory: the V stage passes 48 KB at D = 256 (66 KB)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
-  if (attr != cudaSuccess) return attr;
+  static const cudaError_t opted = hopper::opt_in(flash_decode_kernel<D>, Smem<D>::kBytes);
   const int R = (p.Hq / p.Hkv) * p.S;
   const dim3 grid(B * p.Hkv, p.splits, (R + RB - 1) / RB);
-  flash_decode_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(p);
-  return cudaGetLastError();
+  return hopper::launch("flash_decode_kernel", flash_decode_kernel<D>, opted, grid, kThreads,
+                        Smem<D>::kBytes, stream, p);
 }
 
 }  // namespace dec

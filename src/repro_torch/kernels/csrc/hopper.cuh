@@ -28,6 +28,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace hopper {
 
@@ -346,6 +347,44 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a
 }
 
 template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n160(float (&d)[80], uint64_t desc_a,
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}"
+      ", %80, %81, p, 1, 1, %83, %84;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB)
+      : "memory");
+}
+
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_m64n256(float (&d)[128], uint64_t desc_a,
                                                 uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -610,8 +649,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
   else if constexpr (N == 32) wgmma_ss_m64n32<TA, TB>(d, desc_a, desc_b, accumulate);
   else if constexpr (N == 64) wgmma_ss_m64n64<TA, TB>(d, desc_a, desc_b, accumulate);
   else if constexpr (N == 128) wgmma_ss_m64n128<TA, TB>(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 160) wgmma_ss_m64n160<TA, TB>(d, desc_a, desc_b, accumulate);
   else {
-    static_assert(N == 256, "wgmma_ss: N is one of 16, 32, 64, 128, 256");
+    static_assert(N == 256, "wgmma_ss: N is one of 16, 32, 64, 128, 160, 256");
     wgmma_ss_m64n256<TA, TB>(d, desc_a, desc_b, accumulate);
   }
 }
@@ -639,6 +679,17 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+// four 8x8 b16 matrices into shared memory, transposed: r[i] is this lane's
+// fragment of matrix i (row lane/4, columns 2(lane%4), +1: the mma.sync and
+// wgmma accumulator layout); lanes 8i..8i+7 give the addresses (16 bytes
+// each) of matrix i's destination rows, its columns 0..7
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // four 8x8 b16 matrices from shared memory, as stored: lanes 8i..8i+7 give
@@ -689,6 +740,100 @@ __device__ __forceinline__ uint64_t desc_mn_major(const __nv_bfloat16* base, int
     return wgmma_desc(base + kk * 16 * 8, 128, rows * 16);
 }
 
+// ---- errors the C entry points report (host) ----
+// This thread's note on the error an entry point last returned: which
+// check, tensor map or launch failed, and libcuda's or the runtime's reason.
+// errors.cu's repro_last_error_note hands it to the Python wrapper
+// (build.check), which adds it to the error it raises.
+inline char* error_note() {
+  static thread_local char note[640];
+  return note;
+}
+template <typename... Args>
+inline void note(const char* fmt, Args... args) {
+  snprintf(error_note(), 640, fmt, args...);
+}
+// a refused call: cudaErrorInvalidValue, with `why` noted
+inline cudaError_t refuse(const char* why) {
+  note("%s", why);
+  return cudaErrorInvalidValue;
+}
+
+// Ready the calling thread for `kernel`'s launch. On a thread's first
+// launch the current device's primary context is made current:
+// cuTensorMapEncodeTiled refuses every map on a thread with no current
+// context, which is what a thread that has made no CUDA call yet has
+// (autograd's device thread running a backward whose first CUDA work is
+// this launch: its outputs come from the caching allocator, which makes no
+// call). Once a context is current, a change of device goes through
+// cudaSetDevice, which makes that device's current, so once a thread is
+// enough. Then, at every launch, an error that an earlier runtime call
+// left pending on this thread is returned as such, so that the launch's
+// own check does not report it as the launch's.
+inline cudaError_t begin(const char* kernel) {
+  static thread_local bool has_context = false;
+  cudaError_t err;
+  if (!has_context) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) || (err = cudaSetDevice(dev))) {
+      note("%s: no CUDA device for the calling thread (%s)", kernel, cudaGetErrorString(err));
+      return err;
+    }
+    has_context = true;
+  }
+  if ((err = cudaGetLastError()))
+    note("%s: an earlier CUDA call on this thread had failed (%s); the kernel was not launched",
+         kernel, cudaGetErrorString(err));
+  return err;
+}
+
+// the number of SMs of the current device
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) ||
+      (err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)))
+    note("cudaDeviceGetAttribute(SM count): %s", cudaGetErrorString(err));
+  return err;
+}
+
+template <typename T>
+struct same { using type = T; };
+
+// opt `kernel` into `smem` bytes of dynamic shared memory where that is
+// more than 48 KB; a launch site keeps the result in a static, so that a
+// kernel is opted in once a process
+template <typename Kernel>
+inline cudaError_t opt_in(Kernel kernel, int smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+             : cudaSuccess;
+}
+
+// Launch `kernel` (named `name` in the error note) on `stream` with `smem`
+// bytes of dynamic shared memory, `opted` its opt_in's result; the
+// arguments are converted to the kernel's own parameter types. The caller
+// has called begin() (before making its tensor maps). → the opt-in's or
+// the launch's error.
+template <typename... Params>
+cudaError_t launch(const char* name, void (*kernel)(Params...), cudaError_t opted, dim3 grid,
+                   dim3 block, int smem, cudaStream_t stream,
+                   typename same<Params>::type... args) {
+  if (opted) {
+    note("%s: cudaFuncSetAttribute(%d bytes of dynamic shared memory): %s", name, smem,
+         cudaGetErrorString(opted));
+    return opted;
+  }
+  void* argv[] = {static_cast<void*>(&args)..., nullptr};
+  const cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), grid, block,
+                                           argv, static_cast<size_t>(smem), stream);
+  if (err)
+    note("%s: launch of (%u, %u, %u) blocks of (%u, %u, %u) threads with %d bytes of shared "
+         "memory refused: %s", name, grid.x, grid.y, grid.z, block.x, block.y, block.z, smem,
+         cudaGetErrorString(err));
+  return err;
+}
+
 // ---- TMA tensor maps (host) ----
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -720,12 +865,16 @@ inline EncodeTiled encode_tiled() {
 // takes the largest), so the strides grow as TMA expects. The box is
 // box_cols columns x box_rows rows, in the 128-byte swizzle when box_cols
 // is 64. pos[i] says which dim holds rows, head, batch. L2 fetches a load's
-// lines in 128-byte units, or 256-byte ones with `l2_256`.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int D,
+// lines in 128-byte units, or 256-byte ones with `l2_256`. A refusal is
+// noted with `what` (the operand), libcuda's CUresult and the map.
+inline cudaError_t make_map(CUtensorMap* map, const char* what, const void* base, int D,
                             const long long (&ext)[3], const long long (&stride)[3],
                             int box_cols, int box_rows, int (&pos)[3], bool l2_256 = false) {
   const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
+  if (!encode) {
+    note("tensor map of %s: cuTensorMapEncodeTiled not found in libcuda", what);
+    return cudaErrorNotSupported;
+  }
   long long span = 2LL * D;
   for (int i = 0; i < 3; ++i)
     if (ext[i] > 1) span = span > 2 * stride[i] * ext[i] ? span : 2 * stride[i] * ext[i];
@@ -755,7 +904,15 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int D,
                             l2_256 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
                                    : CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  if (r == CUDA_SUCCESS) return cudaSuccess;
+  note("tensor map of %s refused by cuTensorMapEncodeTiled: CUresult %d; base %p, dims "
+       "(%llu, %llu, %llu, %llu), strides (%llu, %llu, %llu) bytes, box (%u, %u, %u, %u)",
+       what, static_cast<int>(r), base, static_cast<unsigned long long>(dims[0]),
+       static_cast<unsigned long long>(dims[1]), static_cast<unsigned long long>(dims[2]),
+       static_cast<unsigned long long>(dims[3]), static_cast<unsigned long long>(strides[0]),
+       static_cast<unsigned long long>(strides[1]), static_cast<unsigned long long>(strides[2]),
+       box[0], box[1], box[2], box[3]);
+  return cudaErrorInvalidValue;
 }
 
 // one box (box columns x box rows) at (col, row, head, b) of a map made by

@@ -95,25 +95,63 @@
 //    16 x 16 tiles by FMAs.
 //
 // The backward (entry repro_moe_gmm_bwd_*, `dw` = 0 for dX, 1 for dW). The
-// TPU kernel has none (JAX differentiates the expert einsum with XLA); the
-// port's training runs both products through the same three kernels,
-// templated on the operands' layouts (kAT: A stored K x M, MN-major; kBT:
-// B stored K x N, MN-major), so that no operand is copied transposed:
-//  - dX: dbuf[e] (C x D) = dy[e] (C x F) . w[e]^T, contracting over F. dy
-//    is the K-major A operand, as buf is in the forward; w, read as stored
-//    (D rows of F), the K-major B operand, the layout of K in flash's
-//    Q.K^T (TMA: one box of 64 F columns x 256 D rows a stage). <0, 0>.
-//  - dW: dw[e] (D x F) = buf[e]^T (D x C) . dy[e] (C x F), contracting over
-//    the tokens C. buf^T is an MN-major A operand (wgmma reads bf16 A
-//    transposed from shared memory: two boxes of 64 D columns x 64 C rows),
-//    dy an MN-major B operand as w is in the forward. C is ragged (1, 17,
-//    40, 320): TMA zero-fills the contraction's tail past C. <1, 1>.
-// Each moves ~633 MB at qwen3-moe's train shape (E 128, C 320, D/F
-// 2048/768): 0.189 ms at 3.35 TB/s against 0.130 ms for its 128.8 GFLOP at
-// 989 TFLOP/s, bound by bytes as the forward. Variants by dtype and
-// shape (kernels/moe_gmm.py `_bwd_variant`): bf16 with D and F multiples of
-// 8 and 16-byte-aligned bases on the persistent TMA + wgmma kernel (1.),
-// other bf16 on the wmma tile (3.), f32 on FMAs (4.).
+// TPU kernel has none (JAX differentiates the expert einsum with XLA). No
+// operand is copied transposed. At qwen3-moe's train microbatch (E 128, C
+// 320, D/F 2048/768) each product moves ~633 MB: 0.189 ms at 3.35 TB/s
+// against 0.130 ms for its 128.8 GFLOP at 989 TFLOP/s, bound by bytes; at
+// mixtral-8x22b's (E 8, C 1280, D/F 6144/16384) 2.085 ms of operations.
+// bf16 under TMA's rule (D and F multiples of 8, 16-byte-aligned bases) takes
+// 5. (dX) and 6. (dW), kernels/moe_gmm.py `_bwd_plan` picking dW's tile
+// order; other bf16 the wmma tile (3.) on transposed layouts, f32 the FMA
+// kernel (4.).
+// 5. dX, dbuf[e] (C x D) = dy[e] (C x F) . w[e]^T (`moe_gmm_dx_kernel`):
+//    computed transposed, dbuf^T = w . dy^T, so that one tile holds 320
+//    tokens, all of an expert's at qwen3-moe (more tokens take several
+//    tiles, which run side by side and read w's tile from L2; fewer are
+//    zero-filled by TMA and dropped by the store), and 128 D rows. The
+//    forward's layout (M = C) cut C = 320 into 128 + 128 + 64 rows, and
+//    the 64-row tail loaded a full tile's w for half its products, so each
+//    w tile was read three times from L2; here each is read once (w, 403
+//    MB at qwen3-moe, streams from device memory once) and dy, 63 MB, is
+//    re-read from L2 by the D tiles. w is the K-major A (one box of 64 F
+//    columns x 128 D rows a stage), dy the K-major B (two boxes of 64 F
+//    columns x 160 tokens); each warpgroup runs two wgmma m64n160k16 a
+//    k-step, 3 stages of ring. The accumulator is out^T; stmatrix.trans
+//    writes it into TMA's swizzled layout as rows of D, and a TMA store
+//    puts 64 D columns x 160 tokens a warpgroup into (E, C, D), dropping
+//    rows past C and columns past D. A tile's second part (its second
+//    wgmma's 160 tokens) waits as bf16 pairs in 40 registers and goes out
+//    under the next tile's first products; its first part goes out at
+//    once, with the warpgroup's tensor pipe idle: holding it too would
+//    take 40 more registers a thread than the consumers' 232 leave. So
+//    half of dX's epilogue is overlapped.
+// 6. dW, dw[e] (D x F) = buf[e]^T (D x C) . dy[e] (C x F), contracting over
+//    the tokens C (`moe_gmm_dw_kernel`): the forward's persistent 128 x 256
+//    tiles, buf^T an MN-major A (wgmma reads bf16 A transposed from shared
+//    memory: two boxes of 64 D columns x 64 C rows) and dy an MN-major B
+//    as w is in the forward; TMA zero-fills the contraction's tail past C.
+//    At qwen3-moe dW contracts only 5 steps of 64 and writes a 403 MB
+//    output, so the epilogue sets the pace: a tile's outputs wait as bf16
+//    pairs in 64 registers and go out, 128 columns a step, during the next
+//    tile's second and third k-steps, under its products. The tiles walk D
+//    or F fastest (`_bwd_plan`): F where the blocks that run together then
+//    write whole rows of dw (qwen3-moe's down), or where buf[e]^T outweighs
+//    dy[e] and would not stay in L2 between F tiles (mixtral's down: 42 MB
+//    an expert).
+// Neither uses atomics: each output is summed in one block in a fixed
+// order, so a call is bit-identical to the next. As at every launch here,
+// a thread's first makes the device's context current before it makes
+// tensor maps (hopper::begin): cuTensorMapEncodeTiled refuses every map,
+// with CUDA_ERROR_INVALID_CONTEXT, on a thread that has none, which
+// autograd's backward thread can be. Tried on an H100 and not kept (PERF.md §6):
+// keeping one stage's products in flight (wgmma_wait<1>, each stage freed
+// a step late), faster only for qwen3-moe's dX on the M = C layout, which
+// the transposed kernel beat; splitting C = 320's 64-row tail tile by
+// columns between the warpgroups, which left its loads as they were; an
+// L2 evict-last policy on A and 256-byte L2 lines for B, no gain that held
+// from one call to the next; storing a tile's outputs at once, or from the
+// next tile's first or third step; dX past 320 tokens on 6.'s layout (M =
+// C, 128 x 256 tiles), 1-3 % slower than 5. at mixtral's C = 1280.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -320,18 +358,11 @@ struct TileIdx {
         e(t / (p.m_tiles * p.n_tiles)) {}
 };
 
-// out[e] (M x N) = A[e] (M x K) . B[e] (K x N). The forward (<0, 1>): A =
-// buf, B = w. dX (<0, 0>): A = dy, B = w^T (w read as stored, K-major).
-// dW (<1, 1>): A = buf^T (buf read as stored, MN-major), B = dy.
-//  - A K-major (kAT = 0): one box of 64 K columns (a 128-byte swizzled row)
-//    x 128 M rows of a (K, M, E) map; warpgroup wg's rows start 64 rows in.
-//  - A MN-major (kAT = 1): two boxes of 64 M columns x 64 K rows of an
-//    (M, K, E) map; warpgroup wg's 64 M columns are box wg.
-//  - B MN-major (kBT = 1): four boxes of 64 N columns x 64 K rows of an
-//    (N, K, E) map, as V in flash's P.V.
-//  - B K-major (kBT = 0): one box of 64 K columns x 256 N rows of a
-//    (K, N, E) map, as K in flash's Q.K^T.
-template <bool kAT, bool kBT>
+// out[e] (M x N) = A[e] (M x K) . B[e] (K x N): A = buf, B = w.
+//  - A K-major: one box of 64 K columns (a 128-byte swizzled row) x 128 M
+//    rows of a (K, M, E) map; warpgroup wg's rows start 64 rows in.
+//  - B MN-major: four boxes of 64 N columns x 64 K rows of an (N, K, E)
+//    map, as V in flash's P.V.
 __global__ void __launch_bounds__(kThreads, 1)
     moe_gmm_tc_kernel(const __grid_constant__ CUtensorMap amap,
                       const __grid_constant__ CUtensorMap bmap,
@@ -367,24 +398,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int stage = it % kStages;
           mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
           mbar_arrive_expect_tx(&full[stage], 2 * (kA + kB));
-          __nv_bfloat16* at = as + stage * kA;
-          if constexpr (kAT) {
-#pragma unroll
-            for (int c = 0; c < BM / 64; ++c)
-              load_box(at + c * BK * 64, &amap, &full[stage], p.a_pos, ti.m0 + 64 * c, k * BK,
-                       ti.e, 0);
-          } else {
-            load_box(at, &amap, &full[stage], p.a_pos, k * BK, ti.m0, ti.e, 0);
-          }
+          load_box(as + stage * kA, &amap, &full[stage], p.a_pos, k * BK, ti.m0, ti.e, 0);
           __nv_bfloat16* bt = bs + stage * kB;
-          if constexpr (kBT) {
 #pragma unroll
-            for (int c = 0; c < BN / 64; ++c)
-              load_box(bt + c * BK * 64, &bmap, &full[stage], p.b_pos, ti.n0 + 64 * c, k * BK,
-                       ti.e, 0);
-          } else {
-            load_box(bt, &bmap, &full[stage], p.b_pos, k * BK, ti.n0, ti.e, 0);
-          }
+          for (int c = 0; c < BN / 64; ++c)
+            load_box(bt + c * BK * 64, &bmap, &full[stage], p.b_pos, ti.n0 + 64 * c, k * BK,
+                     ti.e, 0);
         }
       }
     }
@@ -414,18 +433,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int stage = it % kStages;
       mbar_wait(&full[stage], (it / kStages) & 1);
       if (active) {
-        // this warpgroup's 64 rows: 64 rows on in A's K-major tile, or the
-        // second of its MN-major boxes (both 64 x 64 elements on)
+        // this warpgroup's 64 rows: 64 rows on in A's K-major tile
         const __nv_bfloat16* at = as + stage * kA + wg * 64 * 64;
         const __nv_bfloat16* bt = bs + stage * kB;
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint64_t da = kAT ? desc_mn_major<64>(at, BK, kk) : desc_k_major<64>(at, BM, kk);
-          const uint64_t db = kBT ? desc_mn_major<BN>(bt, BK, kk) : desc_k_major<64>(bt, BN, kk);
-          wgmma_ss<256, kAT, kBT>(acc, da, db, 1);
-        }
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_ss<256, 0, 1>(acc, desc_k_major<64>(at, BM, kk), desc_mn_major<BN>(bt, BK, kk), 1);
         wgmma_commit();
         // done with the stage: free it at once, so that 3 stages' loads can
         // be in flight (the other warpgroup's products fill this wait)
@@ -475,46 +490,469 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (leader) bulk_wait();
 }
 
-// A stored (E, M, K), or (E, K, M) when kAT; B stored (E, K, N) when kBT,
-// else (E, N, K); out (E, M, N); all contiguous. TMA reads rows at 16-byte
-// strides from 16-byte-aligned bases: M (when kAT), K and N multiples of 8.
-template <bool kAT, bool kBT>
+// buf (E, C, D), w (E, D, F), out (E, C, F), all contiguous: M = C, N =
+// F, K = D. TMA reads rows at 16-byte strides from 16-byte-aligned bases:
+// D and F multiples of 8.
 int launch(const void* a, const void* b, void* out, int E, int M, int N, int K,
            cudaStream_t stream) {
   const long long m = (M + BM - 1) / BM, n = (N + BN - 1) / BN;
-  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || N % 8 || (kAT ? M % 8 : K % 8) ||
-      (!kBT && K % 8) || reinterpret_cast<uintptr_t>(a) % 16 ||
-      reinterpret_cast<uintptr_t>(b) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
-      E * m * n > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 || E * m * n > 0x7fffffffLL)
+    return hopper::refuse("moe_gmm_tc_kernel: shape or alignment outside TMA's rule");
   Params p{M, static_cast<int>(m), static_cast<int>(n), (K + BK - 1) / BK,
            static_cast<int>(E * m * n), {}, {}, {}};
   CUtensorMap am, bm, om;
   cudaError_t err;
   const long long mk = static_cast<long long>(M) * K, kn = static_cast<long long>(K) * N,
                   mn = static_cast<long long>(M) * N;
-  if (kAT) err = hopper::make_map(&am, a, M, {K, E, 1}, {M, mk, mk * E}, 64, BK, p.a_pos);
-  else err = hopper::make_map(&am, a, K, {M, E, 1}, {K, mk, mk * E}, 64, BM, p.a_pos);
-  if (err) return err;
-  if (kBT) err = hopper::make_map(&bm, b, N, {K, E, 1}, {N, kn, kn * E}, 64, BK, p.b_pos);
-  else err = hopper::make_map(&bm, b, K, {N, E, 1}, {K, kn, kn * E}, 64, BN, p.b_pos);
-  if (err) return err;
-  if ((err = hopper::make_map(&om, out, N, {M, E, 1}, {N, mn, mn * E}, 64, 64, p.o_pos)))
+  using hopper::make_map;
+  int sms = 0;
+  if ((err = hopper::begin("moe_gmm_tc_kernel")) ||
+      (err = make_map(&am, "buf", a, K, {M, E, 1}, {K, mk, mk * E}, 64, BM, p.a_pos)) ||
+      (err = make_map(&bm, "w", b, N, {K, E, 1}, {N, kn, kn * E}, 64, BK, p.b_pos)) ||
+      (err = make_map(&om, "out", out, N, {M, E, 1}, {N, mn, mn * E}, 64, 64, p.o_pos)) ||
+      (err = hopper::sm_count(&sms)))
     return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      moe_gmm_tc_kernel<kAT, kBT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  if (attr != cudaSuccess) return attr;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
-    return err;
+  static const cudaError_t opted = hopper::opt_in(moe_gmm_tc_kernel, kBytes);
   // persistent: one block an SM (its shared memory allows no second)
   const int grid = p.tiles < sms ? p.tiles : sms;
-  moe_gmm_tc_kernel<kAT, kBT><<<grid, kThreads, kBytes, stream>>>(am, bm, om, p);
-  return cudaGetLastError();
+  return hopper::launch("moe_gmm_tc_kernel", moe_gmm_tc_kernel, opted, grid, kThreads, kBytes,
+                        stream, am, bm, om, p);
 }
 
 }  // namespace tc
+
+// ===========================================================================
+// 6. the bf16 dW: TMA + wgmma, persistent, each tile's outputs stored under
+//    the next tile's products
+// ===========================================================================
+namespace wgrad {
+
+constexpr int BM = 128;              // M rows a tile: two consumer warpgroups of 64
+constexpr int BN = 256;              // N columns a tile: one m64n256k16 a warpgroup
+constexpr int BK = 64;               // K a stage: one 128-byte swizzled row
+constexpr int kStages = 4;
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 32 * kConsumerWarps + 128;   // + the producer warpgroup
+constexpr int kA = BM * BK;          // elements of a stage's A tile (16 KB)
+constexpr int kB = BK * BN;          // of its B tile (32 KB)
+constexpr int kPart = 64 * BN / 2;   // an output part: 64 rows x 128 columns (16 KB)
+// the k-step of the next tile at which a tile's first part goes out (its
+// second a step later): after that tile's first products and loads are
+// under way (steps 0, 1 and 2 measured; 1 the fastest at qwen3-moe's dW)
+constexpr int kStoreFrom = 1;
+// + 1 KB to align the operands to the swizzle pattern's 1024 bytes
+constexpr int kBytes = 2 * (kStages * (kA + kB) + 2 * kPart) + 8 * 2 * kStages + 1024;
+
+struct Params {
+  int m_tiles, n_tiles, k_steps, tiles, n_fast;
+  // which tensor-map dim (1..3) holds the rows, the expert and the unit dim
+  int a_pos[3], b_pos[3], o_pos[3];
+};
+
+// output tile t: M tile fastest, then N tile, then expert; with n_fast the
+// N tile fastest
+struct TileIdx {
+  int m0, n0, e;
+  __device__ TileIdx(const Params& p, int t)
+      : m0((p.n_fast ? t / p.n_tiles % p.m_tiles : t % p.m_tiles) * BM),
+        n0((p.n_fast ? t % p.n_tiles : t / p.m_tiles % p.n_tiles) * BN),
+        e(t / (p.m_tiles * p.n_tiles)) {}
+};
+
+// dw[e] (M = D x N = F) = A[e] (M x K) . B[e] (K x N), K = C: A = buf^T,
+// buf read as stored, MN-major (two boxes of 64 M columns x 64 K rows of
+// an (M, K, E) map); B = dy, MN-major (four boxes of 64 N columns x 64 K
+// rows of an (N, K, E) map, as w in the forward). Warpgroup wg owns rows
+// m0 + 64 wg.. and runs one wgmma m64n256k16 a k-step.
+__global__ void __launch_bounds__(kThreads, 1)
+    moe_gmm_dw_kernel(const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap bmap,
+                      const __grid_constant__ CUtensorMap omap, const Params p) {
+  using namespace hopper;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(aligned_smem(smem_raw, true));
+  __nv_bfloat16* bs = as + kStages * kA;
+  __nv_bfloat16* os = bs + kStages * kB;   // the two warpgroups' output parts
+  uint64_t* full = reinterpret_cast<uint64_t*>(os + 2 * kPart);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // ---- producer: one thread issues every TMA load, tile after tile ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
+      int it = 0;
+#pragma unroll 1
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        const TileIdx ti(p, t);
+#pragma unroll 1
+        for (int k = 0; k < p.k_steps; ++k, ++it) {
+          const int stage = it % kStages;
+          mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[stage], 2 * (kA + kB));
+#pragma unroll
+          for (int c = 0; c < BM / 64; ++c)
+            load_box(as + stage * kA + c * BK * 64, &amap, &full[stage], p.a_pos, ti.m0 + 64 * c,
+                     k * BK, ti.e, 0);
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            load_box(bs + stage * kB + c * BK * 64, &bmap, &full[stage], p.b_pos, ti.n0 + 64 * c,
+                     k * BK, ti.e, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp / 4, quad = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;   // issues the warpgroup's stores
+  const int r = (warp % 4) * 16 + lane / 4;     // this thread's rows r, r + 8 of 64
+  __nv_bfloat16* ot = os + wg * kPart;
+  // The accumulator: this thread holds rows r and r + 8 of the warpgroup's
+  // 64, columns 8j + 2 quad + {0, 1} (registers 4j + {0, 1} row r, 4j + {2,
+  // 3} row r + 8). A tile's outputs wait in `held` as bf16 pairs (held[2j +
+  // h]: row r + 8h, columns 8j + 2 quad..) until the next tile's products
+  // run, then go out in parts of 128 columns (part q: held[32q..32q + 31])
+  // at row held_row, column held_col + 128 q of expert held_e.
+  float acc[BN / 2];
+  uint32_t held[BN / 4];
+  int held_parts = 0, stored = 0, held_row = 0, held_col = 0, held_e = 0;
+  // part q of `held` into this warpgroup's 16 KB of shared memory, laid out
+  // as TMA's 128-byte swizzle lays out two boxes of 64 columns (16-byte
+  // chunk c of row x at chunk c ^ (x % 8): no bank conflicts), then out by
+  // TMA stores, which drop rows past M and columns past N and run on
+  // while the products do
+  auto store_part = [&](int q) {
+    if (leader) bulk_wait_read();   // the last part's stores have read ot
+    named_barrier(1 + wg, 128);
+#pragma unroll
+    for (int qq = 0; qq < 2; ++qq) {
+      if (qq != q) continue;        // registers by constant index only
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = r + 8 * h;
+        unsigned char* orow = reinterpret_cast<unsigned char*>(ot) + rr * 128 + 4 * quad;
+#pragma unroll
+        for (int jj = 0; jj < BN / 16; ++jj)
+          *reinterpret_cast<uint32_t*>(orow + (jj / 8) * 64 * 128 +
+                                       (((jj % 8) ^ (rr % 8)) * 16)) =
+              held[2 * (qq * (BN / 16) + jj) + h];
+      }
+    }
+    fence_proxy_async_smem();
+    named_barrier(1 + wg, 128);
+    if (leader) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        store_box(&omap, ot + c * 64 * 64, p.o_pos, held_col + 128 * q + 64 * c, held_row,
+                  held_e, 0);
+      bulk_commit();
+    }
+  };
+
+  int it = 0;
+#pragma unroll 1
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const TileIdx ti(p, t);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < p.k_steps; ++k, ++it) {
+      const int stage = it % kStages;
+      mbar_wait(&full[stage], (it / kStages) & 1);
+      // this warpgroup's 64 rows: the second of A's boxes for wg 1. Rows
+      // past M are zero-filled and their outputs dropped by the stores:
+      // every warpgroup runs the same products, so that no branch divides
+      // the wgmma pipeline (ptxas would serialize it)
+      const __nv_bfloat16* at = as + stage * kA + wg * 64 * 64;
+      const __nv_bfloat16* bt = bs + stage * kB;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss<BN, 1, 1>(acc, desc_mn_major<64>(at, BK, kk), desc_mn_major<BN>(bt, BK, kk), 1);
+      wgmma_commit();
+      // the last tile's outputs, a part a step, under these products
+      if (k >= kStoreFrom && stored < held_parts) store_part(stored++);
+      // done with the stage: free it at once, so that 3 stages' loads can
+      // be in flight (the other warpgroup's products fill the wait)
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
+    while (stored < held_parts) store_part(stored++);   // a tile of few K steps
+    // this tile's outputs, held until the next tile's products run
+    stored = 0;
+    held_parts = 2;
+    held_row = ti.m0 + wg * 64;
+    held_col = ti.n0;
+    held_e = ti.e;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        held[2 * j + h] = pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  while (stored < held_parts) store_part(stored++);
+  if (leader) bulk_wait();
+}
+
+// buf (E, C, D), dy (E, C, F), dw (E, D, F), all contiguous: M = D, N = F,
+// K = C. TMA reads rows at 16-byte strides from 16-byte-aligned bases: D
+// and F multiples of 8.
+cudaError_t launch(const void* a, const void* b, void* out, int E, int M, int N, int K,
+                   int n_fast, cudaStream_t stream) {
+  const long long m = (M + BM - 1) / BM, n = (N + BN - 1) / BN;
+  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || N % 8 || M % 8 ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 || E * m * n > 0x7fffffffLL)
+    return hopper::refuse("moe_gmm_dw_kernel: shape or alignment outside TMA's rule");
+  Params p{static_cast<int>(m), static_cast<int>(n), (K + BK - 1) / BK,
+           static_cast<int>(E * m * n), n_fast, {}, {}, {}};
+  CUtensorMap am, bm, om;
+  cudaError_t err;
+  const long long mk = static_cast<long long>(M) * K, kn = static_cast<long long>(K) * N,
+                  mn = static_cast<long long>(M) * N;
+  using hopper::make_map;
+  int sms = 0;
+  if ((err = hopper::begin("moe_gmm_dw_kernel")) ||
+      (err = make_map(&am, "buf (E, C, D)", a, M, {K, E, 1}, {M, mk, mk * E}, 64, BK,
+                      p.a_pos)) ||
+      (err = make_map(&bm, "dy (E, C, F)", b, N, {K, E, 1}, {N, kn, kn * E}, 64, BK,
+                      p.b_pos)) ||
+      (err = make_map(&om, "dw (E, D, F)", out, N, {M, E, 1}, {N, mn, mn * E}, 64, 64,
+                      p.o_pos)) ||
+      (err = hopper::sm_count(&sms)))
+    return err;
+  static const cudaError_t opted = hopper::opt_in(moe_gmm_dw_kernel, kBytes);
+  // persistent: one block an SM (its shared memory allows no second)
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  return hopper::launch("moe_gmm_dw_kernel", moe_gmm_dw_kernel, opted, grid, kThreads, kBytes,
+                        stream, am, bm, om, p);
+}
+
+}  // namespace wgrad
+
+// ===========================================================================
+// 5. the bf16 dX, transposed: dbuf[e]^T (D x C) = w[e] (D x F) . dy[e]^T,
+//    so that a tile holds 320 tokens and w is read once
+// ===========================================================================
+namespace dxt {
+
+constexpr int BM = 128;              // D rows a tile: two consumer warpgroups of 64
+constexpr int BK = 64;               // F a stage: one 128-byte swizzled row
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 32 * kConsumerWarps + 128;   // + the producer warpgroup
+
+// a tile: 320 tokens (C), as two wgmma of 160 columns a k-step
+constexpr int kNC = 320;
+constexpr int kSplit = 2;
+constexpr int NI = kNC / kSplit;
+constexpr int kA = BM * BK, kB = kNC * BK;   // elements of a stage's w and dy tiles
+constexpr int kPart = 64 * NI;               // a warpgroup's output part
+constexpr int kStageBytes = 2 * (kA + kB);
+constexpr int kFree = 232448 - 2 * 2 * kPart - 1024 - 256;
+constexpr int kStages = kFree / kStageBytes > 6 ? 6 : kFree / kStageBytes;
+constexpr int kBytes = kStages * kStageBytes + 2 * 2 * kPart + 16 * kStages + 1024;
+static_assert(kStages >= 2, "dX tile");
+
+struct Params {
+  int c_tiles, d_tiles, k_steps, tiles;
+  int a_pos[3], b_pos[3], o_pos[3];
+};
+
+// tile t: C tile fastest (they share w's tile), then D tile, then expert.
+// A = w, K-major: one box of 64 F columns x 128 D rows of an (F, D, E) map;
+// B = dy, K-major (as K in flash's Q.K^T): two boxes of 64 F columns x
+// NI C rows of an (F, C, E) map. The accumulator is out^T: this thread's D
+// rows r, r + 8 of its warpgroup's 64, C columns 8j + 2 quad + {0, 1}; the
+// epilogue writes it to out (C rows of D) by stmatrix.trans into TMA's
+// swizzled layout, a box of 64 D columns x NI C rows a warpgroup and part.
+__global__ void __launch_bounds__(kThreads, 1)
+    moe_gmm_dx_kernel(const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap bmap,
+                      const __grid_constant__ CUtensorMap omap, const Params p) {
+  using namespace hopper;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(aligned_smem(smem_raw, true));
+  __nv_bfloat16* bs = as + kStages * kA;
+  __nv_bfloat16* os = bs + kStages * kB;   // the two warpgroups' output parts
+  uint64_t* full = reinterpret_cast<uint64_t*>(os + 2 * kPart);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // ---- producer: one thread issues every TMA load, tile after tile ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
+      int it = 0;
+#pragma unroll 1
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        const int c0 = t % p.c_tiles * kNC, d0 = t / p.c_tiles % p.d_tiles * BM,
+                  e = t / (p.c_tiles * p.d_tiles);
+#pragma unroll 1
+        for (int k = 0; k < p.k_steps; ++k, ++it) {
+          const int stage = it % kStages;
+          mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[stage], kStageBytes);
+          load_box(as + stage * kA, &amap, &full[stage], p.a_pos, k * BK, d0, e, 0);
+#pragma unroll
+          for (int h = 0; h < kSplit; ++h)
+            load_box(bs + stage * kB + h * NI * BK, &bmap, &full[stage], p.b_pos, k * BK,
+                     c0 + h * NI, e, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns D rows d0 + 64 wg .. + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp / 4;
+  const bool leader = threadIdx.x % 128 == 0;   // issues the warpgroup's stores
+  __nv_bfloat16* ot = os + wg * kPart;
+  // stmatrix: this lane addresses row lane % 8 of matrix lane / 8, whose D
+  // columns start at d_blk (of the warpgroup's 64) and whose C rows are
+  // column group j + (lane / 8) / 2 of the accumulator
+  const int d_blk = 16 * (warp % 4) + 8 * ((lane / 8) % 2), c_in = 8 * (lane / 16) + lane % 8;
+  float acc[kSplit][NI / 2];
+  // part h (C columns c0 + h NI..) of a tile from bf16 pairs v (v[2j + x]:
+  // accumulator registers 4j + 2x, + 1) into this warpgroup's shared memory
+  // by stmatrix.trans, in TMA's 128-byte swizzle (16-byte chunk x of C row
+  // c at chunk x ^ (c % 8): no bank conflicts), then out by a TMA store
+  // that drops rows past C and columns past D
+  auto store = [&](const uint32_t (&v)[NI / 4], int h, int c0, int d0, int e) {
+    if (leader) bulk_wait_read();   // the last part's store has read ot
+    named_barrier(1 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < NI / 8; j += 2) {
+      const int c = 8 * j + c_in;   // this lane's destination row: a C of the part
+      stmatrix_x4_trans(smem_u32(ot) + c * 128 + (((d_blk / 8) ^ (c % 8)) * 16), v[2 * j],
+                        v[2 * j + 1], v[2 * j + 2], v[2 * j + 3]);
+    }
+    fence_proxy_async_smem();
+    named_barrier(1 + wg, 128);
+    if (leader) {
+      store_box(&omap, ot, p.o_pos, d0 + 64 * wg, c0 + h * NI, e, 0);
+      bulk_commit();
+    }
+  };
+  auto pack = [&](uint32_t (&v)[NI / 4], const float (&a)[NI / 2]) {
+#pragma unroll
+    for (int i = 0; i < NI / 4; ++i) v[i] = pack_bf16(a[2 * i], a[2 * i + 1]);
+  };
+  // a tile's second part waits as bf16 pairs in `held` and goes out under
+  // the next tile's first products; its first part goes out at once, with
+  // this warpgroup's tensor pipe idle (holding it too would take another 40
+  // registers a thread, past the 232 the consumers have)
+  uint32_t held[NI / 4];
+  bool pending = false;
+  int pc0 = 0, pd0 = 0, pe = 0;
+  int it = 0;
+#pragma unroll 1
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int c0 = t % p.c_tiles * kNC, d0 = t / p.c_tiles % p.d_tiles * BM,
+              e = t / (p.c_tiles * p.d_tiles);
+#pragma unroll
+    for (int h = 0; h < kSplit; ++h)
+#pragma unroll
+      for (int i = 0; i < NI / 2; ++i) acc[h][i] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < p.k_steps; ++k, ++it) {
+      const int stage = it % kStages;
+      mbar_wait(&full[stage], (it / kStages) & 1);
+      const __nv_bfloat16* at = as + stage * kA + wg * 64 * 64;
+      const __nv_bfloat16* bt = bs + stage * kB;
+#pragma unroll
+      for (int h = 0; h < kSplit; ++h) fence_regs(acc[h]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < kSplit; ++h)
+          wgmma_ss<NI, 0, 0>(acc[h], desc_k_major<64>(at, BM, kk),
+                             desc_k_major<64>(bt + h * NI * BK, NI, kk), 1);
+      wgmma_commit();
+      if (pending) {   // the last tile's second part, under these products
+        store(held, 1, pc0, pd0, pe);
+        pending = false;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < kSplit; ++h) fence_regs(acc[h]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);   // done with the stage: free it at once
+    }
+    uint32_t first[NI / 4];
+    pack(first, acc[0]);
+    store(first, 0, c0, d0, e);
+    pack(held, acc[1]);
+    pending = true;
+    pc0 = c0;
+    pd0 = d0;
+    pe = e;
+  }
+  if (pending) store(held, 1, pc0, pd0, pe);
+  if (leader) bulk_wait();
+}
+
+// dy (E, C, F), w (E, D, F), out (E, C, D), all contiguous, D and F
+// multiples of 8, 16-byte-aligned bases
+cudaError_t launch(const void* dy, const void* w, void* out, int E, int C, int D, int F,
+                   cudaStream_t stream) {
+  const long long c_tiles = (C + kNC - 1) / kNC, d_tiles = (D + BM - 1) / BM;
+  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8 ||
+      reinterpret_cast<uintptr_t>(dy) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 || E * c_tiles * d_tiles > 0x7fffffffLL)
+    return hopper::refuse("moe_gmm_dx_kernel: shape or alignment outside TMA's rule");
+  Params p{static_cast<int>(c_tiles), static_cast<int>(d_tiles), (F + BK - 1) / BK,
+           static_cast<int>(E * c_tiles * d_tiles), {}, {}, {}};
+  CUtensorMap am, bm, om;
+  cudaError_t err;
+  const long long df = static_cast<long long>(D) * F, cf = static_cast<long long>(C) * F,
+                  cd = static_cast<long long>(C) * D;
+  using hopper::make_map;
+  int sms = 0;
+  if ((err = hopper::begin("moe_gmm_dx_kernel")) ||
+      (err = make_map(&am, "w (E, D, F)", w, F, {D, E, 1}, {F, df, df * E}, 64, BM, p.a_pos)) ||
+      (err = make_map(&bm, "dy (E, C, F)", dy, F, {C, E, 1}, {F, cf, cf * E}, 64, NI,
+                      p.b_pos)) ||
+      (err = make_map(&om, "dbuf (E, C, D)", out, D, {C, E, 1}, {D, cd, cd * E}, 64, NI,
+                      p.o_pos)) ||
+      (err = hopper::sm_count(&sms)))
+    return err;
+  auto kernel = moe_gmm_dx_kernel;
+  static const cudaError_t opted = hopper::opt_in(kernel, kBytes);
+  // persistent: one block an SM (its shared memory allows no second)
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  return hopper::launch("moe_gmm_dx_kernel", kernel, opted, grid, kThreads, kBytes, stream,
+                        am, bm, om, p);
+}
+
+}  // namespace dxt
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -653,60 +1091,60 @@ int launch(const void* buf, const void* w, void* out, int E, int C, int D, int F
   const long long n_tiles = (F + BN - 1LL) / BN, tiles = E * n_tiles;
   if (E <= 0 || C <= 0 || C > NR || D <= 0 || F <= 0 || D % 8 || F % 8 ||
       !aligned16(buf) || !aligned16(w) || tiles > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+    return hopper::refuse("moe_gmm_decode_kernel: shape or alignment outside TMA's rule");
   Params p{static_cast<__nv_bfloat16*>(out), C, F, static_cast<int>(n_tiles),
            (D + BK - 1) / BK, static_cast<int>(tiles), {}, {}};
   CUtensorMap am, wm;
   cudaError_t err;
   const long long cd = static_cast<long long>(C) * D, df = static_cast<long long>(D) * F;
-  if ((err = hopper::make_map(&am, buf, D, {C, E, 1}, {D, cd, cd * E}, 64, NR, p.a_pos)) ||
-      (err = hopper::make_map(&wm, w, F, {D, E, 1}, {F, df, df * E}, 64, BK, p.w_pos, true)))
+  int sms = 0;
+  if ((err = hopper::begin("moe_gmm_decode_kernel")) ||
+      (err = hopper::make_map(&am, "buf", buf, D, {C, E, 1}, {D, cd, cd * E}, 64, NR,
+                              p.a_pos)) ||
+      (err = hopper::make_map(&wm, "w", w, F, {D, E, 1}, {F, df, df * E}, 64, BK, p.w_pos,
+                              true)) ||
+      (err = hopper::sm_count(&sms)))
     return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      moe_gmm_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  if (attr != cudaSuccess) return attr;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
-    return err;
+  static const cudaError_t opted = hopper::opt_in(moe_gmm_decode_kernel, kBytes);
   const long long rounds = (tiles + sms - 1) / sms;
   const int grid = static_cast<int>((tiles + rounds - 1) / rounds);
-  moe_gmm_decode_kernel<<<grid, kThreads, kBytes, stream>>>(am, wm, p);
-  return cudaGetLastError();
+  return hopper::launch("moe_gmm_decode_kernel", moe_gmm_decode_kernel, opted, grid, kThreads,
+                        kBytes, stream, am, wm, p);
 }
 
 }  // namespace dec
 
-int check_dims(int E, int M, int N, int K, int rows_per_block) {
+int check_dims(const char* kernel, int E, int M, int N, int K, int rows_per_block) {
   if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || E > 65535 ||
-      (M + rows_per_block - 1) / rows_per_block > 65535)
+      (M + rows_per_block - 1) / rows_per_block > 65535) {
+    hopper::note("%s: a dim is not positive or its grid exceeds 65535 blocks", kernel);
     return cudaErrorInvalidValue;
-  return cudaSuccess;
+  }
+  return hopper::begin(kernel);
 }
 
-// layouts as in moe_gmm_tc_kernel: A (E, M, K) or (E, K, M) when kAT, B
+// layouts as in moe_gmm_bf16_kernel: A (E, M, K), or (E, K, M) when kAT; B
 // (E, K, N) when kBT, else (E, N, K)
 template <int BM, int BN, int BK, int WM, int WN, bool kAT, bool kBT>
 int launch_bf16(const void* a, const void* b, void* out, int E, int M, int N, int K,
                 cudaStream_t stream) {
-  if (int err = check_dims(E, M, N, K, BM)) return err;
+  if (int err = check_dims("moe_gmm_bf16_kernel", E, M, N, K, BM)) return err;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
-  moe_gmm_bf16_kernel<BM, BN, BK, WM, WN, kAT, kBT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const unsigned short*>(a), static_cast<const unsigned short*>(b),
-      static_cast<__nv_bfloat16*>(out), M, K, N,
+  return hopper::launch(
+      "moe_gmm_bf16_kernel", moe_gmm_bf16_kernel<BM, BN, BK, WM, WN, kAT, kBT>, cudaSuccess,
+      grid, kThreads, 0, stream, static_cast<const unsigned short*>(a),
+      static_cast<const unsigned short*>(b), static_cast<__nv_bfloat16*>(out), M, K, N,
       int((kAT ? M : K) % 8 == 0 && aligned16(a)), int((kBT ? N : K) % 8 == 0 && aligned16(b)));
-  return cudaGetLastError();
 }
 
 template <bool kAT, bool kBT>
 int launch_f32(const void* a, const void* b, void* out, int E, int M, int N, int K,
                cudaStream_t stream) {
-  if (int err = check_dims(E, M, N, K, kT)) return err;
+  if (int err = check_dims("moe_gmm_f32_kernel", E, M, N, K, kT)) return err;
   const dim3 grid((N + kT - 1) / kT, (M + kT - 1) / kT, E);
-  moe_gmm_f32_kernel<kAT, kBT><<<grid, dim3(kT, kT), 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out),
-      M, K, N);
-  return cudaGetLastError();
+  return hopper::launch("moe_gmm_f32_kernel", moe_gmm_f32_kernel<kAT, kBT>, cudaSuccess, grid,
+                        dim3(kT, kT), 0, stream, static_cast<const float*>(a),
+                        static_cast<const float*>(b), static_cast<float*>(out), M, K, N);
 }
 
 }  // namespace
@@ -731,17 +1169,18 @@ extern "C" int repro_moe_gmm_f32(const void* buf, const void* w, void* out, int 
 
 extern "C" int repro_moe_gmm_bf16_tc(const void* buf, const void* w, void* out, int E, int C,
                                      int D, int F, void* stream) {
-  return tc::launch<false, true>(buf, w, out, E, C, F, D, static_cast<cudaStream_t>(stream));
+  return tc::launch(buf, w, out, E, C, F, D, static_cast<cudaStream_t>(stream));
 }
 
 // the backward: dw = 0 computes dbuf (E, C, D) = dy . w^T from (x, y) =
-// (dy, w): M = C, N = D, K = F, both K-major; dw = 1 computes dw (E, D, F)
-// = buf^T . dy from (x, y) = (buf, dy): M = D, N = F, K = C, both MN-major
+// (dy, w) on the transposed kernel; dw = 1 computes dw (E, D, F) = buf^T .
+// dy from (x, y) = (buf, dy), N tiles fastest with n_fast
+// (kernels/moe_gmm.py `_bwd_plan` picks it)
 extern "C" int repro_moe_gmm_bwd_bf16_tc(const void* x, const void* y, void* out, int E, int C,
-                                         int D, int F, int dw, void* stream) {
+                                         int D, int F, int dw, int n_fast, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dw ? tc::launch<true, true>(x, y, out, E, D, F, C, s)
-            : tc::launch<false, false>(x, y, out, E, C, D, F, s);
+  return dw ? wgrad::launch(x, y, out, E, D, F, C, n_fast, s)
+            : dxt::launch(x, y, out, E, C, D, F, s);
 }
 
 extern "C" int repro_moe_gmm_bwd_bf16(const void* x, const void* y, void* out, int E, int C,

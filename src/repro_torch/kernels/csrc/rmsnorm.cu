@@ -27,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -195,11 +197,10 @@ int launch_rows(const void* x, const void* scale, void* out, long long rows, int
   const bool vec = d % Elem<T>::N == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  rmsnorm_rows_kernel<T, WPR, VPT><<<static_cast<unsigned>(blocks),
-                                     static_cast<unsigned>(rpb * 32 * WPR), 0, stream>>>(
-      static_cast<const S*>(x), static_cast<const S*>(scale), static_cast<S*>(out), rows, d,
-      eps, int(vec));
-  return cudaGetLastError();
+  return hopper::launch("rmsnorm_rows_kernel", rmsnorm_rows_kernel<T, WPR, VPT>, cudaSuccess,
+                        static_cast<unsigned>(blocks), static_cast<unsigned>(rpb * 32 * WPR), 0,
+                        stream, static_cast<const S*>(x), static_cast<const S*>(scale),
+                        static_cast<S*>(out), rows, d, eps, int(vec));
 }
 
 template <typename T>
@@ -208,10 +209,9 @@ int rmsnorm(const void* x, const void* scale, void* out, long long rows, int d, 
   using S = typename Elem<T>::S;
   if (rows <= 0 || d <= 0 || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
-  if (cudaError_t err = cudaGetDevice(&dev)) return err;
-  if (cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
-    return err;
+  int sms = 0;
+  if (cudaError_t err = hopper::begin("rmsnorm")) return err;
+  if (cudaError_t err = hopper::sm_count(&sms)) return err;
   const long long nvec = (d + Elem<T>::N - 1) / Elem<T>::N;
   if (rows < sms && nvec > 32 && nvec <= 2048) {
     // fewer rows than SMs (decode): 8 warps a row, so that each thread
@@ -228,9 +228,9 @@ int rmsnorm(const void* x, const void* scale, void* out, long long rows, int d, 
   if (nvec <= 512) return launch_rows<T, 2, kMaxVpt>(x, scale, out, rows, d, eps, sms, s);
   if (nvec <= 1024) return launch_rows<T, 4, kMaxVpt>(x, scale, out, rows, d, eps, sms, s);
   if (nvec <= 2048) return launch_rows<T, 8, kMaxVpt>(x, scale, out, rows, d, eps, sms, s);
-  rmsnorm_wide_kernel<T><<<static_cast<unsigned>(rows), kThreads, 0, s>>>(
-      static_cast<const S*>(x), static_cast<const S*>(scale), static_cast<S*>(out), d, eps);
-  return cudaGetLastError();
+  return hopper::launch("rmsnorm_wide_kernel", rmsnorm_wide_kernel<T>, cudaSuccess,
+                        static_cast<unsigned>(rows), kThreads, 0, s, static_cast<const S*>(x),
+                        static_cast<const S*>(scale), static_cast<S*>(out), d, eps);
 }
 
 }  // namespace

@@ -303,13 +303,12 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const SsdParams p) {
 template <typename T, int N, int PT>
 cudaError_t launch(const SsdParams& p, cudaStream_t stream) {
   constexpr int smem = static_cast<int>(sizeof(float)) * smem_floats<N, PT>();
+  if (cudaError_t err = hopper::begin("ssd_scan_kernel")) return err;
   // above 48 KB a block needs dynamic shared memory, opted into once
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ssd_scan_kernel<T, N, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
+  static const cudaError_t opted = hopper::opt_in(ssd_scan_kernel<T, N, PT>, smem);
   const dim3 grid(p.B * p.H, p.P / PT);
-  ssd_scan_kernel<T, N, PT><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return hopper::launch("ssd_scan_kernel", ssd_scan_kernel<T, N, PT>, opted, grid, kThreads,
+                        smem, stream, p);
 }
 
 template <typename T, int N>
@@ -751,22 +750,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long y_ss = static_cast<long long>(a.H) * a.P;
   using hopper::make_map;
   using hopper::Tile;
-  if ((err = make_map(&xm, a.x, a.P, {a.S, a.H, a.B}, {a.x_ss, a.x_sh, a.x_sb},
+  if ((err = hopper::begin("ssd_scan_tc_kernel")) ||
+      (err = make_map(&xm, "x", a.x, a.P, {a.S, a.H, a.B}, {a.x_ss, a.x_sh, a.x_sb},
                       Tile<PT>::kBoxCols, Q, p.x_pos)) ||
-      (err = make_map(&bm, a.b, N, {a.S, a.G, a.B}, {a.b_ss, a.b_sg, a.b_sb},
+      (err = make_map(&bm, "B", a.b, N, {a.S, a.G, a.B}, {a.b_ss, a.b_sg, a.b_sb},
                       Tile<N>::kBoxCols, Q, p.b_pos)) ||
-      (err = make_map(&cm, a.c, N, {a.S, a.G, a.B}, {a.c_ss, a.c_sg, a.c_sb},
+      (err = make_map(&cm, "C", a.c, N, {a.S, a.G, a.B}, {a.c_ss, a.c_sg, a.c_sb},
                       Tile<N>::kBoxCols, Q, p.c_pos)) ||
-      (err = make_map(&ym, a.y, a.P, {a.S, a.H, a.B}, {y_ss, a.P, a.S * y_ss},
+      (err = make_map(&ym, "y", a.y, a.P, {a.S, a.H, a.B}, {y_ss, a.P, a.S * y_ss},
                       Tile<PT>::kBoxCols, Q, p.y_pos)))
     return err;
   constexpr int smem = Smem<N, PT>::kBytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ssd_scan_tc_kernel<N, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
+  static const cudaError_t opted = hopper::opt_in(ssd_scan_tc_kernel<N, PT>, smem);
   const int grid = p.nc * a.B * (a.H / a.heads) * p.ptiles;
-  ssd_scan_tc_kernel<N, PT><<<grid, kThreads, smem, stream>>>(xm, bm, cm, ym, p);
-  return cudaGetLastError();
+  return hopper::launch("ssd_scan_tc_kernel", ssd_scan_tc_kernel<N, PT>, opted, grid, kThreads,
+                        smem, stream, xm, bm, cm, ym, p);
 }
 
 template <int N>

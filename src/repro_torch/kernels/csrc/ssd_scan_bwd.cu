@@ -470,12 +470,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const BwdPara
 template <typename T, int N, int PT>
 cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   constexpr int bytes = smem_floats<N, PT>() * 4;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ssd_scan_bwd_kernel<T, N, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return attr;
+  if (cudaError_t err = hopper::begin("ssd_scan_bwd_kernel")) return err;
+  static const cudaError_t opted = hopper::opt_in(ssd_scan_bwd_kernel<T, N, PT>, bytes);
   const dim3 grid(p.B * p.H, p.P / PT);
-  ssd_scan_bwd_kernel<T, N, PT><<<grid, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
+  return hopper::launch("ssd_scan_bwd_kernel", ssd_scan_bwd_kernel<T, N, PT>, opted, grid,
+                        kThreads, bytes, stream, p);
 }
 
 template <typename T, int N>
@@ -1328,19 +1327,20 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long pn = static_cast<long long>(a.P) * N;
   int unused[3];
   cudaError_t err;
-  if ((err = make_map(&xm, a.x, a.P, {a.S, a.H, a.B}, {a.x_ss, a.x_sh, a.x_sb},
+  if ((err = hopper::begin("ssd_scan_bwd_tc")) ||
+      (err = make_map(&xm, "x", a.x, a.P, {a.S, a.H, a.B}, {a.x_ss, a.x_sh, a.x_sb},
                       Tile<PT>::kBoxCols, Q, p.x_pos)) ||
-      (err = make_map(&dym, a.dy, a.P, {a.S, a.H, a.B}, {a.dy_ss, a.dy_sh, a.dy_sb},
+      (err = make_map(&dym, "dy", a.dy, a.P, {a.S, a.H, a.B}, {a.dy_ss, a.dy_sh, a.dy_sb},
                       Tile<PT>::kBoxCols, Q, p.dy_pos)) ||
-      (err = make_map(&bm, a.b, N, {a.S, a.G, a.B}, {a.b_ss, a.b_sg, a.b_sb},
+      (err = make_map(&bm, "B", a.b, N, {a.S, a.G, a.B}, {a.b_ss, a.b_sg, a.b_sb},
                       Tile<N>::kBoxCols, Q, p.b_pos)) ||
-      (err = make_map(&cm, a.c, N, {a.S, a.G, a.B}, {a.c_ss, a.c_sg, a.c_sb},
+      (err = make_map(&cm, "C", a.c, N, {a.S, a.G, a.B}, {a.c_ss, a.c_sg, a.c_sb},
                       Tile<N>::kBoxCols, Q, p.c_pos)) ||
-      (err = make_map(&dxm, a.dx, a.P, {a.S, a.H, a.B}, {dx_ss, a.P, a.S * dx_ss},
+      (err = make_map(&dxm, "dx", a.dx, a.P, {a.S, a.H, a.B}, {dx_ss, a.P, a.S * dx_ss},
                       Tile<PT>::kBoxCols, Q, p.dx_pos)) ||
-      (err = make_map(&hm, a.hb, N, {a.P, nc, static_cast<long long>(a.B) * a.H},
+      (err = make_map(&hm, "h_in", a.hb, N, {a.P, nc, static_cast<long long>(a.B) * a.H},
                       {N, pn, nc * pn}, Tile<N>::kBoxCols, PT, p.s_pos)) ||
-      (err = make_map(&gm, a.gb, N, {a.P, nc, static_cast<long long>(a.B) * a.H},
+      (err = make_map(&gm, "g", a.gb, N, {a.P, nc, static_cast<long long>(a.B) * a.H},
                       {N, pn, nc * pn}, Tile<N>::kBoxCols, PT, unused)))
     return err;
   // the chunk states take one head a block (two blocks an SM, each loads B
@@ -1348,22 +1348,19 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   Params ps = p;
   ps.heads = 1;
   constexpr int s_smem = StatesSmem<N, PT>::kBytes, m_smem = MainSmem<N, PT>::kBytes;
-  static const cudaError_t attr1 = cudaFuncSetAttribute(
-      ssd_scan_bwd_tc_states_kernel<N, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize, s_smem);
-  static const cudaError_t attr2 = cudaFuncSetAttribute(
-      ssd_scan_bwd_tc_kernel<N, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize, m_smem);
-  if (attr1 != cudaSuccess) return attr1;
-  if (attr2 != cudaSuccess) return attr2;
-  ssd_scan_bwd_tc_states_kernel<N, PT><<<nc * a.B * a.H * p.ptiles, kThreads, s_smem, stream>>>(
-      xm, dym, bm, cm, ps);
-  if ((err = cudaGetLastError())) return err;
+  static const cudaError_t opted1 = hopper::opt_in(ssd_scan_bwd_tc_states_kernel<N, PT>, s_smem);
+  static const cudaError_t opted2 = hopper::opt_in(ssd_scan_bwd_tc_kernel<N, PT>, m_smem);
+  if ((err = hopper::launch("ssd_scan_bwd_tc_states_kernel", ssd_scan_bwd_tc_states_kernel<N, PT>,
+                            opted1, nc * a.B * a.H * p.ptiles, kThreads, s_smem, stream, xm, dym,
+                            bm, cm, ps)))
+    return err;
   const dim3 chain_grid(a.B * a.H, static_cast<unsigned>((pn / 4 + kThreads - 1) / kThreads));
-  ssd_scan_bwd_tc_chain_kernel<<<chain_grid, kThreads, 0, stream>>>(p);
-  if ((err = cudaGetLastError())) return err;
+  if ((err = hopper::launch("ssd_scan_bwd_tc_chain_kernel", ssd_scan_bwd_tc_chain_kernel,
+                            cudaSuccess, chain_grid, kThreads, 0, stream, p)))
+    return err;
   const int grid = nc * a.B * (a.H / a.heads) * p.ptiles;
-  ssd_scan_bwd_tc_kernel<N, PT><<<grid, kThreads, m_smem, stream>>>(xm, dym, bm, cm, hm, gm,
-                                                                     dxm, p);
-  return cudaGetLastError();
+  return hopper::launch("ssd_scan_bwd_tc_kernel", ssd_scan_bwd_tc_kernel<N, PT>, opted2, grid,
+                        kThreads, m_smem, stream, xm, dym, bm, cm, hm, gm, dxm, p);
 }
 
 template <int N>

@@ -22,13 +22,14 @@ rule takes ``wmma`` (the first port's 64 x 64 tile, any shape) and f32
 kernel that fails raises. The kernels' design notes are in their source.
 
 The backward (the TPU kernel has none: JAX differentiates the einsum with
-XLA) runs through the same three kernels templated on their operands'
-layouts, no operand copied transposed: ``moe_gmm_dx_cuda`` computes
+XLA), no operand copied transposed: ``moe_gmm_dx_cuda`` computes
 ``dbuf[e] = dy[e]·w[e]ᵀ`` and ``moe_gmm_dw_cuda`` ``dw[e] = buf[e]ᵀ·dy[e]``
 (contracting over the C tokens), each in f32 with one cast, by
 ``_bwd_variant``: ``tc`` (bf16, D and F multiples of 8, 16-byte-aligned
-bases: TMA + ``wgmma``), ``wmma`` (other bf16) or ``fma`` (f32).
-``moe_gmm_bwd_plain`` is both products in PyTorch.
+bases: TMA + ``wgmma`` kernels of their own, dX computed transposed in
+tiles of 320 tokens, ``_bwd_plan`` picking dW's tile order), ``wmma`` (other bf16: the forward's
+wmma tile on transposed layouts) or ``fma`` (f32). ``moe_gmm_bwd_plain``
+is both products in PyTorch.
 """
 from __future__ import annotations
 
@@ -43,6 +44,8 @@ VARIANTS = ("tc_prefill", "decode", "wmma", "fma")
 BWD_VARIANTS = ("tc", "wmma", "fma")
 # tokens per expert up to which the decode kernel serves a call
 DECODE_MAX_C = 16
+# an H100's L2 cache, bytes
+L2_BYTES = 50 << 20
 
 
 def moe_gmm_plain(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -73,6 +76,22 @@ def _variant(dtype: torch.dtype, C: int, D: int, F: int, aligned: bool) -> str:
     if not (D % 8 == 0 and F % 8 == 0 and aligned):
         return "wmma"
     return "decode" if C <= DECODE_MAX_C else "tc_prefill"
+
+
+def _bwd_plan(C: int, D: int, F: int, dw: int) -> int:
+    """The tile order of the ``tc`` backward, n_fast for its C entry: 0 for
+    dX (``dw`` = 0, one order). dW (M = D, N = F, K = C) walks its tiles M
+    fastest, or N with n_fast = 1: where an expert's operands are small
+    against L2 (both under ``L2_BYTES`` / 4), N runs fastest when N > M,
+    so that the blocks that run together write whole rows of dw; otherwise
+    the operand re-read once per tile of the other dim is the smaller one:
+    N fastest when bufᵀ[e] (M x K) outweighs dy[e] (K x N)."""
+    if not dw:
+        return 0
+    a_bytes, b_bytes = 2 * D * C, 2 * C * F
+    if max(a_bytes, b_bytes) <= L2_BYTES // 4:
+        return int(F > D)
+    return int(a_bytes > b_bytes)
 
 
 def _bwd_variant(dtype: torch.dtype, D: int, F: int, aligned: bool) -> str:
@@ -137,11 +156,13 @@ def _bwd_launch(wrapper, caller: str, dw: int, x: torch.Tensor, y: torch.Tensor,
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, y))
     variant = _bwd_variant(x.dtype, D, F, aligned)
     lib = build.library()
+    args = [x.data_ptr(), y.data_ptr(), out.data_ptr(), E, C, D, F, dw]
+    if variant == "tc":
+        args.append(_bwd_plan(C, D, F, dw))
     fn = {"tc": lib.repro_moe_gmm_bwd_bf16_tc, "wmma": lib.repro_moe_gmm_bwd_bf16,
           "fma": lib.repro_moe_gmm_bwd_f32}[variant]
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), E, C, D, F, dw, stream)
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     build.check(err, f"{caller} ({variant})")
     wrapper.launches += 1
     wrapper.variant_launches[variant] += 1

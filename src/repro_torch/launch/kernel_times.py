@@ -26,7 +26,9 @@ step's shape (B=4, S=T=1024, 16 heads of 64, causal) and with qwen3-moe's
 32 query and 4 KV heads of 128. The training backward of the MoE and SSM
 families: the grouped GEMM's dX (dy·wᵀ) and dW (bufᵀ·dy) at qwen3-moe's
 train microbatch (4 x 1024 tokens: C = 320 a expert), gate/up and down,
-each beside ``torch.bmm`` of the same product, and the SSD backward at
+each beside ``torch.bmm`` of the same product (mixtral-8x22b's at its
+train microbatch too: C = 1280, ``MIXTRAL_TRAIN_C``; ``--only moe_gmm_d``
+times the eight backward products), and the SSD backward at
 mamba2-370m's and zamba2-2.7b's train microbatch (B=4, S=1024; 32 heads,
 N=128 and 80 heads, N=64), by variant: ``tc`` on bf16 inputs, whole and
 each of its three kernels (``SSD_BWD_TC_STAGES``), and ``fma`` on the same
@@ -71,8 +73,9 @@ MOE_C = {"decode": 8, "admit511": 40, "admit256": 256, "prefill": 320}
 MIXTRAL_E, MIXTRAL_D, MIXTRAL_F = 8, 6144, 16384
 MIXTRAL_DECODE_C = (1, 8)
 # tokens per expert in a train microbatch of 4 x 1024 tokens:
-# round(4096 · 8 / 128 · 1.25)
+# round(4096 · 8 / 128 · 1.25); mixtral-8x22b's: round(4096 · 2 / 8 · 1.25)
 MOE_TRAIN_C = 320
+MIXTRAL_TRAIN_C = 1280
 # the SSD scan's main-path shapes (B, S, H, P, G, N)
 SSD_PATHS = {"mamba2_prefill": (4, 1024, 32, 64, 1, 128),
              "zamba2_prefill": (4, 1024, 80, 64, 1, 64),
@@ -238,6 +241,18 @@ def _with_heads(fn, heads: int, picker: str = "_heads_per_block"):
     return call
 
 
+def _bwd_calls(calls: dict, label: str, *inputs) -> None:
+    """The grouped GEMM's dX (dy·wᵀ) and dW (bufᵀ·dy) on (buf, w, dy), and
+    ``torch.bmm`` of each product, under names that hold "moe_gmm_dx" or
+    "moe_gmm_dw" and ``label``; ``inputs`` is (buf, w, dy) or a function
+    that makes them."""
+    get = inputs[0] if len(inputs) == 1 else lambda: inputs
+    calls[f"moe_gmm_dx {label}"] = lambda: moe_gmm_dx_cuda(get()[2], get()[1])
+    calls[f"moe_gmm_dw {label}"] = lambda: moe_gmm_dw_cuda(get()[0], get()[2])
+    calls[f"moe_gmm_dx {label} torch.bmm"] = lambda: torch.bmm(get()[2], get()[1].transpose(1, 2))
+    calls[f"moe_gmm_dw {label} torch.bmm"] = lambda: torch.bmm(get()[0].transpose(1, 2), get()[2])
+
+
 def main(repeats: int = 3, only: str = "", ssd_heads: bool = False,
          events: bool = False, cold: bool = False) -> dict:
     if not torch.cuda.is_available():
@@ -328,14 +343,20 @@ def main(repeats: int = 3, only: str = "", ssd_heads: bool = False,
                     lambda ins=ins: ssd_scan_bwd_cuda(*ins), heads, "_bwd_heads_per_block")
     for part, (w, d_in) in (("gate/up", (w_up, MOE_D)), ("down", (w_down, MOE_F))):
         buf, dy = randn(MOE_E, MOE_TRAIN_C, d_in), randn(MOE_E, MOE_TRAIN_C, w.shape[2])
-        calls[f"moe_gmm_dx train {part} C={MOE_TRAIN_C}"] = \
-            lambda dy=dy, w=w: moe_gmm_dx_cuda(dy, w)
-        calls[f"moe_gmm_dw train {part} C={MOE_TRAIN_C}"] = \
-            lambda buf=buf, dy=dy: moe_gmm_dw_cuda(buf, dy)
-        calls[f"torch.bmm dy·wT train {part} C={MOE_TRAIN_C}"] = \
-            lambda dy=dy, w=w: torch.bmm(dy, w.transpose(1, 2))
-        calls[f"torch.bmm bufT·dy train {part} C={MOE_TRAIN_C}"] = \
-            lambda buf=buf, dy=dy: torch.bmm(buf.transpose(1, 2), dy)
+        _bwd_calls(calls, f"train {part} C={MOE_TRAIN_C}", buf, w, dy)
+    mixtral_train = {}   # its w (1.61 GB a part), buf and dy, made at first use
+
+    def mixtral_train_inputs(part):
+        if part not in mixtral_train:
+            mixtral_train.clear()   # one part's inputs at a time
+            d_in, d_out = (MIXTRAL_D, MIXTRAL_F) if part == "gate/up" else (MIXTRAL_F, MIXTRAL_D)
+            mixtral_train[part] = (randn(MIXTRAL_E, MIXTRAL_TRAIN_C, d_in),
+                                   randn(MIXTRAL_E, d_in, d_out),
+                                   randn(MIXTRAL_E, MIXTRAL_TRAIN_C, d_out))
+        return mixtral_train[part]
+    for part in ("gate/up", "down"):
+        _bwd_calls(calls, f"mixtral train {part} C={MIXTRAL_TRAIN_C}",
+                   lambda part=part: mixtral_train_inputs(part))
     for path, ins in ssd.items():
         calls[f"ssd_scan {path}"] = lambda ins=ins: ssd_scan_cuda(*ins)
         _, _, Hs, _, G, _ = SSD_PATHS[path]

@@ -108,11 +108,14 @@ LEARNING_RATE = {"qwen3-moe-30b-a3b": 1e-4, "mamba2-370m": 1e-4, "zamba2-2.7b": 
                  "phi-3-vision-4.2b": 1e-4, "chatglm3-6b": 1e-5, "qwen2-7b": 1e-5,
                  "mixtral-8x22b": 1e-5, "gemma3-12b": 1e-5}
 # device kernels by family: the first entry whose substrings all occur in
-# the kernel's name (the grouped GEMM's templates name their operand
-# layouts: <false, true> forward, <false, false> dX, <true, true> dW; the
-# bf16 SSD backward's three kernels are "ssd_scan bwd states", "... chains"
-# and "ssd_scan bwd", the last also the f32 kernel)
-FAMILIES = (("moe_gmm dX", ("moe_gmm", "false, false>")),
+# the kernel's name (the grouped GEMM's backward: the bf16 dX and dW
+# kernels by name, the wmma and f32 kernels' templates naming their
+# operand layouts, <false, false> dX, <true, true> dW; the bf16 SSD
+# backward's three kernels are "ssd_scan bwd states", "... chains" and
+# "ssd_scan bwd", the last also the f32 kernel)
+FAMILIES = (("moe_gmm dX", ("moe_gmm_dx_kernel",)),
+            ("moe_gmm dW", ("moe_gmm_dw_kernel",)),
+            ("moe_gmm dX", ("moe_gmm", "false, false>")),
             ("moe_gmm dW", ("moe_gmm", "true, true>")),
             ("moe_gmm fwd", ("moe_gmm",)),
             ("ssd_scan bwd states", ("ssd_scan_bwd_tc_states",)),

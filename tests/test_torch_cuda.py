@@ -479,9 +479,14 @@ def test_cuda_moe_gmm_wrapper_refuses_bad_inputs_and_counts_launches():
 
 # (E, C, D, F) of the backward: C = 1, 8, 17, 40, 320 tokens per expert
 # (the contraction of dW; 320 is qwen3-moe's train microbatch), D and F of
-# one tile and partial ones, then D or F no multiple of 8 (the wmma tile)
+# one tile and partial ones, then D or F no multiple of 8 (the wmma tile),
+# then the tc kernel's edges: one 64-deep K step with N one tile (dX at C
+# = 40 and 64, dW at C = 64), C = 64, 65, 127, 128 and 320 around dW's
+# 64-deep steps and within dX's 320-token tile, D and F of 64, 256 and 264
 GMM_BWD_CASES = [(4, 1, 256, 64), (4, 8, 256, 64), (3, 17, 136, 264), (4, 40, 200, 72),
-                 (2, 320, 512, 256), (3, 17, 100, 36), (2, 70, 33, 129)]
+                 (2, 320, 512, 256), (3, 17, 100, 36), (2, 70, 33, 129),
+                 (4, 40, 256, 64), (2, 64, 256, 64), (2, 64, 64, 256), (2, 65, 64, 256),
+                 (2, 127, 264, 256), (2, 128, 256, 264), (2, 320, 64, 264), (3, 320, 264, 64)]
 
 
 def _gmm_bwd_tol(dt, want):
@@ -515,7 +520,24 @@ def test_cuda_moe_gmm_backward_kernels_match_plain_version():
             torch.testing.assert_close(dw.float(), pw.float(), **_gmm_bwd_tol(dt, pw))
             want[_bwd_variant(dt, D, F, True)] += 1
     assert ops.moe_gmm_bwd_variant_counts() == {"moe_gmm_dx": want, "moe_gmm_dw": want}
-    assert want["tc"] == 5 and want["wmma"] == 2
+    assert want["tc"] == 13 and want["wmma"] == 2
+
+
+def test_cuda_moe_gmm_backward_tc_is_bit_identical_call_to_call():
+    """Every bf16 case on ``tc``: dX and dW twice each, equal bit for bit
+    (each output summed in one block in a fixed order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.moe_gmm import _bwd_variant, moe_gmm_dw_cuda, moe_gmm_dx_cuda
+    gen = torch.Generator("cuda").manual_seed(10)
+    for (E, C, D, F) in GMM_BWD_CASES:
+        if _bwd_variant(torch.bfloat16, D, F, True) != "tc":
+            continue
+        buf = torch.randn(E, C, D, generator=gen, device="cuda").bfloat16()
+        w = (D ** -0.5 * torch.randn(E, D, F, generator=gen, device="cuda")).bfloat16()
+        dy = torch.randn(E, C, F, generator=gen, device="cuda").bfloat16()
+        assert torch.equal(moe_gmm_dx_cuda(dy, w), moe_gmm_dx_cuda(dy, w)), (E, C, D, F)
+        assert torch.equal(moe_gmm_dw_cuda(buf, dy), moe_gmm_dw_cuda(buf, dy)), (E, C, D, F)
 
 
 def test_cuda_moe_gmm_gradients_come_from_the_backward_kernels(monkeypatch):

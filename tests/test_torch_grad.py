@@ -58,8 +58,14 @@ def _close(got, want, name, err=""):
 # grouped expert GEMM
 # ---------------------------------------------------------------------------
 # (E, C, D, F): ragged C (1, 17, 40 tokens per expert), D and F no multiple
-# of 8, and tests/test_kernels.py's first case
-GMM_CASES = [(2, 64, 128, 96), (4, 1, 24, 16), (3, 17, 20, 12), (4, 40, 33, 24)]
+# of 8, tests/test_kernels.py's first case; then the card kernel's edges:
+# dX of one 64-deep K step with N one 256-column tile at C = 40, and C = 65
+# (a 128-row tile holding one row past 64) with dW's N one tile
+GMM_CASES = [(2, 64, 128, 96), (4, 1, 24, 16), (3, 17, 20, 12), (4, 40, 33, 24),
+             (4, 40, 256, 64), (2, 65, 64, 256)]
+# the cases after the first four draw from generators of their own, so
+# that the first four and the later tests keep their data from RNG
+GMM_OWN_SEED = {case: 100 + i for i, case in enumerate(GMM_CASES[4:])}
 
 
 @pytest.mark.parametrize("E,C,D,F", GMM_CASES)
@@ -67,9 +73,11 @@ GMM_CASES = [(2, 64, 128, 96), (4, 1, 24, 16), (3, 17, 20, 12), (4, 40, 33, 24)]
 def test_moe_gmm_bwd_plain_matches_jax_vjp_and_autograd(E, C, D, F, name):
     """(dbuf, dw) against ``jax.vjp`` of the expert einsum and against torch
     autograd of ``moe_gmm_plain``, in the working dtype."""
+    seed = GMM_OWN_SEED.get((E, C, D, F))
+    rng = RNG if seed is None else np.random.default_rng(seed)
     (jb, tb), (jw, tw), (jdy, tdy) = (_pair(a, name) for a in (
-        RNG.normal(0, 1, (E, C, D)), RNG.normal(0, D ** -0.5, (E, D, F)),
-        RNG.normal(0, 1, (E, C, F))))
+        rng.normal(0, 1, (E, C, D)), rng.normal(0, D ** -0.5, (E, D, F)),
+        rng.normal(0, 1, (E, C, F))))
     got = moe_gmm_bwd_plain(tb, tw, tdy)
     _, vjp = jax.vjp(ref.moe_gmm_ref, jb, jw)
     for g, w, part in zip(got, vjp(jdy), ("dbuf", "dw")):

@@ -519,6 +519,31 @@ def test_moe_gmm_variant_picker(dtype, C, D, F, aligned, want):
     assert want in moe_gmm.VARIANTS
 
 
+# (C, D, F, dw, n_fast): qwen3-moe-30b-a3b's train microbatch (C = 320, d
+# 2048, ff 768) and mixtral-8x22b's (C = 1280, d 6144, ff 16384), dX and dW
+# of gate/up and down; the card tests' edges (C = 1, 40, 64, 65, 127, 128,
+# 200, 321)
+BWD_PLANS = [
+    (320, 2048, 768, 0, 0), (320, 768, 2048, 0, 0),
+    (320, 2048, 768, 1, 0), (320, 768, 2048, 1, 1),
+    (1280, 6144, 16384, 0, 0), (1280, 16384, 6144, 0, 0),
+    (1280, 6144, 16384, 1, 0), (1280, 16384, 6144, 1, 1),
+    (1, 256, 64, 0, 0), (40, 256, 64, 0, 0), (64, 64, 256, 0, 0),
+    (65, 256, 64, 0, 0), (127, 264, 256, 0, 0), (128, 256, 264, 0, 0),
+    (200, 72, 72, 0, 0), (321, 512, 256, 0, 0), (40, 256, 64, 1, 0),
+    (64, 64, 256, 1, 1),
+]
+
+
+@pytest.mark.parametrize("C,D,F,dw,n_fast", BWD_PLANS)
+def test_moe_gmm_bwd_plan(C, D, F, dw, n_fast):
+    """``_bwd_plan``: dX has one tile order (0); dW walks its F tiles
+    fastest where F > D while both operands of an expert are under a
+    quarter of L2 (qwen3-moe), else where bufᵀ outweighs dy (mixtral's
+    down, whose bufᵀ is 42 MB an expert)."""
+    assert moe_gmm._bwd_plan(C, D, F, dw) == n_fast
+
+
 def test_moe_gmm_on_cpu_is_differentiable():
     """On the CPU ``ops.moe_gmm`` is the plain product, gradients included
     (dX = dY·Wᵀ, dW = Xᵀ·dY, through ``moe_gmm_bwd_plain``); on the card
