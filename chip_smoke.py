@@ -2510,8 +2510,8 @@ def mesh_phase(card):
                     state, m = step_m(state, batch_d)
                     end.record()
                     torch.cuda.synchronize()
-                busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                busy_ms = sum(e.time_range.elapsed_us()
+                              for e in kernel_times.kernel_events(prof)) / 1e3
                 if not busy_ms:   # the profiler recorded nothing: the step's span
                     busy_ms = start.elapsed_time(end)
                     kernel_times.event_timed_readings += 1

@@ -53,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from collections import defaultdict
 
 import torch
 
@@ -108,6 +109,29 @@ EVENT_HOLD_S = 0.2
 L2_FLUSH_BYTES = 256 << 20
 
 
+def kernel_events(prof, device=torch.autograd.DeviceType.CUDA) -> list:
+    """The events of a ``torch.profiler`` trace that ran on ``device``
+    (kernels, copies, memsets): not the device-side copies of
+    ``record_function`` ranges (user annotations), each of which spans the
+    kernels launched inside it. The program opens one for every span
+    (``repro_torch.spans``) while a profiler records, so a sum over the
+    device's events that kept them would count the same time again."""
+    return [e for e in prof.events() if e.device_type == device and not e.is_user_annotation]
+
+
+def split_kernels(prof, family, device=torch.autograd.DeviceType.CUDA):
+    """A trace's ``kernel_events``, summed: → (busy µs, µs by
+    ``family(name)``, µs by kernel name (its first 90 characters), count)."""
+    busy_us, by_family, by_kernel, n = 0.0, defaultdict(float), defaultdict(float), 0
+    for e in kernel_events(prof, device):
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        n += 1
+        by_family[family(e.name)] += us
+        by_kernel[e.name[:90]] += us
+    return busy_us, by_family, by_kernel, n
+
+
 def device_events(fn, iters: int = 1):
     """The device events of ``iters`` calls of ``fn``, traced by
     ``torch.profiler``; traces up to ``PROFILER_SESSIONS`` times, and
@@ -118,8 +142,7 @@ def device_events(fn, iters: int = 1):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = kernel_events(prof)
         if events:
             return events
     return None

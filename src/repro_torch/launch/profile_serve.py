@@ -18,10 +18,9 @@ kernels launched by one decode round; and one ``make_prefill_step`` call
 at B=4, S=1024 (``chip_smoke.py``'s): its host time unprofiled, then its
 device time by kernel family and its top kernels, and, traced with Python
 stacks and input shapes, by the model function, op and shapes that
-launched each kernel; for the SSM
-and hybrid configs also the device time inside ``record_function`` ranges
-around each Mamba block and the stages it calls by name (causal conv, dt
-and a, the SSD scan). A VLM's prefill step takes 576 patch rows
+launched each kernel; for the SSM and hybrid configs also the device time
+inside the ranges each Mamba block opens (``spans.span``) around itself and
+the stages it calls by name (causal conv, dt and a, the SSD scan). A VLM's prefill step takes 576 patch rows
 (``synthetic_extras``) before its 1024 tokens; its burst is text only. An
 audio model (whisper-tiny), which the batcher does not serve, is profiled
 on ``chip_smoke.py``'s path instead: the prefill step (the forward over
@@ -37,7 +36,6 @@ CUDA card.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import time
 from collections import defaultdict
@@ -49,10 +47,10 @@ from ..configs import get_config
 from ..configs.base import ShapeConfig
 from ..data import synthetic_extras
 from ..kernels import ops
-from ..models import build_model, hybrid, mamba2
+from ..models import build_model, mamba2
 from ..runtime.serve import encdec_serve_cache, greedy_decode, make_prefill_step
 from . import serve_workload
-from .kernel_times import profiled_or_events
+from .kernel_times import kernel_events, profiled_or_events, split_kernels
 
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_decode_kernel")),
             ("rmsnorm", ("rmsnorm_",)),
@@ -72,63 +70,19 @@ def family(kernel_name: str) -> str:
     return "other"
 
 
-def _kernels(prof):
-    """The device events (kernels, copies) of a trace: not the device-side
-    spans of ``record_function`` ranges."""
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-
-
 def _split(prof):
     """→ (device busy µs, µs by family, µs by kernel name, kernel count)."""
-    busy_us, by_family, by_kernel, n = 0.0, defaultdict(float), defaultdict(float), 0
-    for e in _kernels(prof):
-        us = e.time_range.elapsed_us()
-        busy_us += us
-        n += 1
-        by_family[family(e.name)] += us
-        by_kernel[e.name[:90]] += us
-    return busy_us, by_family, by_kernel, n
-
-
-# the ranges put around a Mamba block's stages: (module, attribute, range)
-MAMBA_RANGES = ((mamba2, "mamba_block", "mamba_block"), (hybrid, "mamba_block", "mamba_block"),
-                (mamba2, "_causal_conv", "mamba_block.causal_conv"),
-                (mamba2, "_dt_and_a", "mamba_block.dt_and_a"),
-                (ops, "ssd_scan", "mamba_block.ssd_scan"))
-
-
-@contextlib.contextmanager
-def _mamba_ranges():
-    """Wrap the functions a Mamba block calls by module-level name in
-    ``record_function`` ranges for as long as the context lasts. The block's
-    inline arithmetic (in_proj, the SiLUs, the skip, the gate, out_proj) and
-    its gated norm are in ``mamba_block`` and in no stage range."""
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in MAMBA_RANGES]
-
-    def ranged(fn, name):
-        def call(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return call
-
-    for (mod, attr, fn), (_, _, name) in zip(saved, MAMBA_RANGES):
-        setattr(mod, attr, ranged(fn, name))
-    try:
-        yield
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+    return split_kernels(prof, family)
 
 
 def _ranges_ms(prof) -> dict:
-    """Kernel ms inside each range of MAMBA_RANGES: the kernels that run
-    within the range's span on the device (so the ctypes-launched ones too);
-    a stage's time is also in "mamba_block"'s."""
-    names = {name for _, _, name in MAMBA_RANGES}
+    """Kernel ms inside each range a Mamba block opens (``mamba2.SPANS``):
+    the kernels that run within the range's span on the device (so the
+    ctypes-launched ones too); a stage's time is also in "mamba_block"'s."""
+    names = set(mamba2.SPANS)
     spans = [(e.name, e.time_range) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA and e.name in names]
-    kernels = [(k.time_range.start, k.time_range.end) for k in _kernels(prof)]
+    kernels = [(k.time_range.start, k.time_range.end) for k in kernel_events(prof)]
     out = defaultdict(float)
     for name, span in spans:
         out[name] += sum(end - start for start, end in kernels
@@ -140,8 +94,8 @@ def _by_source(prof, n: int = 12) -> dict:
     """Device ms of the kernels PyTorch's own ops launched, by where they
     ran (the innermost model function, ``models/<file>(<def line>):
     <function>``, from the trace's Python events, else the innermost range
-    of MAMBA_RANGES), the op and its input shapes; largest first."""
-    ranges = {name for _, _, name in MAMBA_RANGES}
+    of ``mamba2.SPANS``), the op and its input shapes; largest first."""
+    ranges = set(mamba2.SPANS)
     out = defaultdict(float)
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
@@ -189,8 +143,7 @@ def _prefill_step_report(model, step, batch) -> dict:
     step(batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    with _mamba_ranges(), torch.profiler.profile(activities=acts, record_shapes=True,
-                                                  with_stack=True) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True, with_stack=True) as prof:
         step(batch)
         torch.cuda.synchronize()
     step_us, step_family, step_kernel, step_n = _split(prof)
@@ -244,7 +197,7 @@ def audio_main(model, params, seed: int) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         model.decode_step(params, cache, prompt[:, 0], 0)
         torch.cuda.synchronize()
-    per_round = len(_kernels(prof))
+    per_round = len(kernel_events(prof))
     pb, ps = AUDIO_PREFILL
     step, _, _ = make_prefill_step(model, ShapeConfig("prefill_448", ps, pb, "prefill"))
     batch = {"params": params, "frames": frames[:pb], "tokens": torch.from_numpy(
@@ -287,8 +240,7 @@ def main(seed: int = 0, config: str = serve_workload.DEFAULT_CONFIG,
     with torch.profiler.profile(activities=acts) as prof:
         model.decode_step(params, cache, tok, 100)
         torch.cuda.synchronize()
-    per_round = sum(e.device_type == torch.autograd.DeviceType.CUDA
-                    for e in prof.events())
+    per_round = len(kernel_events(prof))
 
     # one prefill step at B=4, S=1024 (a VLM's after its patches)
     step, _, _ = make_prefill_step(model, ShapeConfig("prefill_1k", 1024, 4, "prefill"))

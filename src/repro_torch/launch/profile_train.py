@@ -43,7 +43,7 @@ from ..data import DataConfig, TokenPipeline, synthetic_extras
 from ..kernels import ops
 from ..models import build_model
 from ..runtime.train import init_state, make_train_step
-from .kernel_times import profiled_or_events
+from .kernel_times import profiled_or_events, split_kernels
 
 SHAPE = ShapeConfig("train_1k", 1024, 8, "train")
 # whisper's decoder takes at most 448 positions (arXiv:2212.04356): it
@@ -223,15 +223,7 @@ def main(steps: int = 3, seed: int = 0, config: str = "qwen1.5-0.5b") -> Dict[st
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
     launches = ops.launch_counts()
-    busy_us, n_kernels = 0.0, 0
-    by_family, by_kernel = defaultdict(float), defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            busy_us += us
-            n_kernels += 1
-            by_family[family(e.name)] += us
-            by_kernel[e.name[:90]] += us
+    busy_us, by_family, by_kernel, n_kernels = split_kernels(prof, family)
     step_ms = sorted(ms)[len(ms) // 2]
     busy_us, timed_with, idle = profiled_or_events(
         busy_us, lambda: step(state, batch), "the train step", device_idle_share=step_ms / 1e3)

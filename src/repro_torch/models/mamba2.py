@@ -23,8 +23,14 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..shards import prefill_rows
+from ..spans import span
 from .layers import P, Schema, embed, stack_schema
 from .transformer import REMAT, init_sharded_cache, on_shards, unstack
+
+# the spans a Mamba block opens: the block, and the stages it calls by name
+# (its inline arithmetic and gated norm are in the block's span alone)
+SPANS = ("mamba_block", "mamba_block.causal_conv", "mamba_block.dt_and_a",
+         "mamba_block.ssd_scan")
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -83,20 +89,24 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     d_in, nh, g, n = ssm_dims(cfg)
     Bb, S, _ = x.shape
 
-    z, xBC_in, dt = _split_proj(x @ p["in_proj"], cfg)
-    xBC = F.silu(_causal_conv(xBC_in, p["conv_w"], p["conv_b"]))
-    xs, B_, C_ = torch.split(xBC, [d_in, g * n, g * n], dim=-1)
-    xh = xs.reshape(Bb, S, nh, s.head_dim)
-    B_ = B_.reshape(Bb, S, g, n)
-    C_ = C_.reshape(Bb, S, g, n)
-    dt, a = _dt_and_a(dt, p)
-    y, h_final = ops.ssd_scan(xh, dt.to(x.dtype), a.to(x.dtype), B_, C_, chunk=s.chunk)
-    y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = ops.rmsnorm(y.reshape(Bb, S, d_in) * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
-    W = s.conv_width
-    tail = xBC_in[:, -(W - 1):] if S >= W - 1 else F.pad(xBC_in, (0, 0, W - 1 - S, 0))
-    return out, tail, h_final
+    with span("mamba_block"):
+        z, xBC_in, dt = _split_proj(x @ p["in_proj"], cfg)
+        with span("mamba_block.causal_conv"):
+            conv = _causal_conv(xBC_in, p["conv_w"], p["conv_b"])
+        xs, B_, C_ = torch.split(F.silu(conv), [d_in, g * n, g * n], dim=-1)
+        xh = xs.reshape(Bb, S, nh, s.head_dim)
+        B_ = B_.reshape(Bb, S, g, n)
+        C_ = C_.reshape(Bb, S, g, n)
+        with span("mamba_block.dt_and_a"):
+            dt, a = _dt_and_a(dt, p)
+        with span("mamba_block.ssd_scan"):
+            y, h_final = ops.ssd_scan(xh, dt.to(x.dtype), a.to(x.dtype), B_, C_, chunk=s.chunk)
+        y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
+        y = ops.rmsnorm(y.reshape(Bb, S, d_in) * F.silu(z), p["norm"], cfg.norm_eps)
+        out = y @ p["out_proj"]
+        W = s.conv_width
+        tail = xBC_in[:, -(W - 1):] if S >= W - 1 else F.pad(xBC_in, (0, 0, W - 1 - S, 0))
+        return out, tail, h_final
 
 
 # ---------------------------------------------------------------------------

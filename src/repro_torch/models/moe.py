@@ -33,6 +33,7 @@ from torch.distributed.tensor.experimental import local_map
 from ..configs.base import MoEConfig
 from ..kernels import ops
 from ..shards import place, placements
+from ..spans import no_span, span
 from .layers import P, Schema
 
 # up to this many tokens per call every expert holds every token (no drop)
@@ -183,21 +184,29 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], moe: MoEConfig,
                              in_placements=(rep, rep, None), device_mesh=mesh)
         combine_fn = local_map(_combine, out_placements=list(rep),
                                in_placements=(rep, rep, rep, rep), device_mesh=mesh)
-    buf, flat_e, pos_c, w, aux = route_fn(x.reshape(T, d), _to_replicated(p["router"]), moe)
+    # the stages' spans, in prefills and training only: in a decode step
+    # (S = 1) they made a traced mixtral-8x22b round 2.9 % and 10.4 %
+    # slower in two readings (PERF.md §6), more than tracing may cost
+    stage = span if S > 1 else no_span
+    with stage("moe.route"):        # routing, the balance loss, the dispatch
+        buf, flat_e, pos_c, w, aux = route_fn(x.reshape(T, d), _to_replicated(p["router"]),
+                                              moe)
     ep = _EP_MODE.get()
     # each rank's shard of the buffer: expert-major to meet EP weights,
     # else capacity-major (a local slice of the replicated buffer)
     buf = _constrain(buf, ("pod", "data"), None, None) if ep else \
         _constrain(buf, None, ("pod", "data"), None)
 
-    g = ops.moe_gmm(buf, p["w_gate"])
-    u = ops.moe_gmm(buf, p["w_up"])
-    out = ops.moe_gmm(F.silu(g) * u, p["w_down"])                 # (E, C, d)
-    if isinstance(out, DTensor):
-        # the expert outputs' all-gather (and the D partial sums' reduce)
-        # for the combine, which reads every token's slots
-        out = place(out, (Replicate(),) * out.device_mesh.ndim)
-    y = combine_fn(out, flat_e, pos_c, w).reshape(T, K, d).sum(dim=1).reshape(B, S, d)
+    with stage("moe.experts"):
+        g = ops.moe_gmm(buf, p["w_gate"])
+        u = ops.moe_gmm(buf, p["w_up"])
+        out = ops.moe_gmm(F.silu(g) * u, p["w_down"])             # (E, C, d)
+    with stage("moe.combine"):
+        if isinstance(out, DTensor):
+            # the expert outputs' all-gather (and the D partial sums' reduce)
+            # for the combine, which reads every token's slots
+            out = place(out, (Replicate(),) * out.device_mesh.ndim)
+        y = combine_fn(out, flat_e, pos_c, w).reshape(T, K, d).sum(dim=1).reshape(B, S, d)
     if x_placements is not None:
         y = place(y, x_placements)                                # a local slice
     return y, aux

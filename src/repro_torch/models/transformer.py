@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..shards import local_shape_and_offset, place, prefill_rows
+from ..spans import span
 from .layers import (
     P,
     Schema,
@@ -418,7 +419,8 @@ def row_positions(pos: Union[int, torch.Tensor], B: int, device) -> torch.Tensor
         raise ValueError(f"pos: want an int or shape ({B},), got {tuple(pos_t.shape)}")
     if not isinstance(pos, int) and pos_t.device.type == "cpu" and bool((pos_t < 0).any()):
         raise ValueError("pos: positions must be >= 0")
-    return pos_t.to(device)
+    with span("model.upload", wait=True):
+        return pos_t.to(device)
 
 
 def decode_step(cfg: ModelConfig, params: Dict[str, Any],

@@ -22,6 +22,7 @@ slot keeps nothing of its last request.
 from __future__ import annotations
 
 import contextlib
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -35,6 +36,7 @@ from ..models.layers import tree_leaves
 from ..models.model import Model
 from ..models.moe import ep_mode
 from ..shards import place
+from ..spans import span
 from .sharding import decode_rules, input_axes, shardings_for_tree, train_rules
 from .train import mesh_context
 
@@ -154,6 +156,8 @@ class Request:
     req_id: str
     prompt: List[int]
     max_new_tokens: int = 32
+    # seconds on the span clock (``time.time()``); ``submit`` stamps it
+    # where the caller left it 0
     submitted_at: float = 0.0
     tokens_out: List[int] = field(default_factory=list)
     done: bool = False
@@ -195,15 +199,20 @@ class ContinuousBatcher:
         if not 1 <= len(req.prompt) < self.max_len:
             raise ValueError(f"{req.req_id}: prompt of {len(req.prompt)} tokens; "
                              f"want 1..{self.max_len - 1}")
+        if not req.submitted_at:
+            req.submitted_at = time.time()
         self.queue.append(req)
 
     def _admit(self) -> None:
         for i, slot in enumerate(self.slots):
             if slot is None and self.queue:
                 req = self.queue.pop(0)
-                self.slots[i] = req
-                self._load_slot(i, req.prompt[:-1])
-                self.pos[i] = len(req.prompt) - 1
+                with span("batcher.admit", key=req.req_id, prompt_len=len(req.prompt)) as adm:
+                    if adm.recording:
+                        adm.set(queue_wait_us=int((time.time() - req.submitted_at) * 1e6))
+                    self.slots[i] = req
+                    self._load_slot(i, req.prompt[:-1])
+                    self.pos[i] = len(req.prompt) - 1
 
     def _load_slot(self, slot: int, prefix: List[int]) -> None:
         """Prefill ``prefix`` into the slot's cache row in place (K/V, and
@@ -213,38 +222,47 @@ class ContinuousBatcher:
             for c, d in zip(tree_leaves(self.cache), self._batch_dims):
                 c.select(d, slot).zero_()
             return
-        tokens = torch.tensor([prefix], dtype=torch.int64, device=self.model.device)
-        self.model.prefill_into(self.params, tokens, self.cache, slot)
+        with span("batcher.upload", wait=True):
+            tokens = torch.tensor([prefix], dtype=torch.int64, device=self.model.device)
+        with span("model.prefill_into", key=self.slots[slot].req_id, device=self.model.device):
+            self.model.prefill_into(self.params, tokens, self.cache, slot)
         self.prefills += 1
 
     def step(self) -> int:
         """One engine round: admit, decode one token per active slot."""
-        self._admit()
-        active = [i for i, r in enumerate(self.slots) if r is not None]
-        if not active:
-            return 0
-        tok = np.zeros(len(self.slots), np.int64)     # idle rows: token 0 at
-        for i in active:                              # pos 0 of their own row
-            req = self.slots[i]
-            tok[i] = req.tokens_out[-1] if req.tokens_out else req.prompt[-1]
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache, torch.from_numpy(tok).to(self.model.device),
-            torch.from_numpy(self.pos.copy()))
-        self._finite &= torch.isfinite(logits).all()
-        nxt = logits.argmax(-1).tolist()
-        self.steps += 1
-        for i in active:
-            req = self.slots[i]
-            if req.first_logits is None:
-                req.first_logits = logits[i].float().clone()
-            req.tokens_out.append(nxt[i])
-            self.pos[i] += 1
-            if (nxt[i] == self.eos or len(req.tokens_out) >= req.max_new_tokens
-                    or self.pos[i] >= self.max_len - 1):
-                req.done = True
-                self.slots[i] = None
-                self.pos[i] = 0      # the row is cleared when the slot is reused
-        return len(active)
+        with span("batcher.round", key=self.steps) as round_span:
+            queued = len(self.queue)
+            self._admit()
+            active = [i for i, r in enumerate(self.slots) if r is not None]
+            if round_span.recording:
+                round_span.set(active=len(active), admitted=queued - len(self.queue))
+            if not active:
+                return 0
+            tok = np.zeros(len(self.slots), np.int64)     # idle rows: token 0 at
+            for i in active:                              # pos 0 of their own row
+                req = self.slots[i]
+                tok[i] = req.tokens_out[-1] if req.tokens_out else req.prompt[-1]
+            with span("batcher.upload", wait=True):
+                token = torch.from_numpy(tok).to(self.model.device)
+            with span("model.decode_step", key=self.steps, device=self.model.device):
+                logits, self.cache = self.model.decode_step(
+                    self.params, self.cache, token, torch.from_numpy(self.pos.copy()))
+            self._finite &= torch.isfinite(logits).all()
+            with span("batcher.readback", wait=True):
+                nxt = logits.argmax(-1).tolist()
+            self.steps += 1
+            for i in active:
+                req = self.slots[i]
+                if req.first_logits is None:
+                    req.first_logits = logits[i].float().clone()
+                req.tokens_out.append(nxt[i])
+                self.pos[i] += 1
+                if (nxt[i] == self.eos or len(req.tokens_out) >= req.max_new_tokens
+                        or self.pos[i] >= self.max_len - 1):
+                    req.done = True
+                    self.slots[i] = None
+                    self.pos[i] = 0      # the row is cleared when the slot is reused
+            return len(active)
 
     def all_logits_finite(self) -> bool:
         """Whether every logit of every round so far was finite."""

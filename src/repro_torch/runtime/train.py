@@ -12,6 +12,7 @@ mesh the state and the batch are DTensors placed by ``repro``'s rules
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -22,6 +23,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 from ..configs.base import ShapeConfig, TrainConfig
 from ..models.model import Model
 from ..optim.adamw import AdamW, AdamWState, tree_leaves, tree_map, warmup_cosine
+from ..spans import span
 from .sharding import (
     NamedSharding,
     Rules,
@@ -136,27 +138,34 @@ def make_train_step(model: Model, tcfg: TrainConfig, shape: ShapeConfig,
         # reduce-scattered into it
         grad_sh = opt_sh if tcfg.zero2 else param_sh
 
+    calls = itertools.count()
+
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
-        with mesh_context(mesh):
+        n = next(calls)
+        dev = _full(state["data_step"]).device
+        with mesh_context(mesh), span("train_step", key=n, device=dev):
             params = state["params"]
             acc = (tree_map(lambda p: _zeros(p, None), params) if grad_sh is None
                    else map_tree(_zeros, params, grad_sh))
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=_full(state["data_step"]).device)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             ces = []
             for i in range(n_micro):
                 mb = {k: local_rows(v, i, n_micro) for k, v in batch.items()}
                 with torch.enable_grad():
                     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-                    loss, metrics = model.loss(leaves, mb, tcfg.remat)
-                    grads = torch.autograd.grad(loss, tree_leaves(leaves))
-                for a, g in zip(tree_leaves(acc), grads):
-                    a.add_(g.float() / n_micro)     # reduce-scatter into a ZeRO-2 shard
+                    with span("train_step.forward", key=n, device=dev, microbatch=i):
+                        loss, metrics = model.loss(leaves, mb, tcfg.remat)
+                    with span("train_step.backward", key=n, device=dev, microbatch=i):
+                        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+                with span("train_step.accumulate", key=n, device=dev, microbatch=i):
+                    for a, g in zip(tree_leaves(acc), grads):
+                        a.add_(g.float() / n_micro)     # reduce-scatter into a ZeRO-2 shard
                 loss_sum += _full(loss.detach()) / n_micro
                 ces.append(_full(metrics["ce"].detach()))
                 del leaves, loss, metrics, grads
-            new_params, new_opt, opt_metrics = opt.update(acc, state["opt"], params)
+            with span("train_step.optimizer", key=n, device=dev):
+                new_params, new_opt, opt_metrics = opt.update(acc, state["opt"], params)
             out_metrics = {"loss": loss_sum, "ce": torch.stack(ces).mean(),
                            **{k: _full(v) for k, v in opt_metrics.items()}}
             return {"params": new_params, "opt": new_opt,
